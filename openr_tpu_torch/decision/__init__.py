@@ -1,0 +1,1 @@
+"""decision layer of the PyTorch/CUDA port (mirrors ``openr_tpu/decision/``)."""

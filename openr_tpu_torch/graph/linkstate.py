@@ -1,0 +1,849 @@
+"""Host-side link-state graph engine.
+
+Port note: a copy of ``openr_tpu/graph/linkstate.py`` without the
+thread-confinement lint markers. Its host Dijkstra (``run_spf`` /
+``get_spf_result``) is the port's own oracle.
+
+Behavioral parity with the reference ``openr/decision/LinkState.{h,cpp}``:
+
+- only *bidirectional* links exist (both ends advertise the adjacency,
+  matched on interface names; reference: LinkState.cpp:532 maybeMakeLink)
+- per-direction metric / overload with hold-down semantics for ordered-FIB
+  programming (RFC 6976 style; reference: LinkState.h:24 HoldableValue)
+- incremental adjacency-database merge with topology-change detection
+  (reference: LinkState.cpp:565 updateAdjacencyDatabase)
+- memoized shortest-paths results invalidated on topology change
+  (reference: LinkState.cpp:794 getSpfResult)
+- k-edge-disjoint path enumeration via iterative SPF with link exclusion
+  (reference: LinkState.cpp:763 getKthPaths, :399 traceOnePath)
+
+This class is the system of record on the host. The TPU compute path does
+not walk this object graph: ``openr_tpu_torch.graph.snapshot`` compiles it into
+dense device arrays and ``openr_tpu_torch.ops.spf`` recomputes shortest paths
+algebraically. The Dijkstra here is retained as (a) the small-topology /
+no-accelerator fallback and (b) the golden oracle the kernels are fuzzed
+against.
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass, field
+from typing import Dict, FrozenSet, Iterable, List, Optional, Set, Tuple
+
+from openr_tpu_torch.types import Adjacency, AdjacencyDatabase, BinaryAddress
+
+Metric = int
+
+
+_NO_HOLD = object()
+
+
+class HoldableValue:
+    """A value whose previous state can be *held* for a TTL when it changes.
+
+    Used for ordered FIB programming: an improving change (metric decrease,
+    overload clear) is held for ``hold_up_ttl`` ticks, a degrading change for
+    ``hold_down_ttl``. reference: LinkState.h:24-58, LinkState.cpp:53-120.
+    """
+
+    __slots__ = ("_val", "_held", "_hold_ttl", "_is_bool")
+
+    def __init__(self, val):
+        self._val = val
+        self._held = _NO_HOLD
+        self._hold_ttl = 0
+        self._is_bool = isinstance(val, bool)
+
+    @property
+    def value(self):
+        return self._val if self._held is _NO_HOLD else self._held
+
+    @property
+    def raw(self):
+        return self._val
+
+    def has_hold(self) -> bool:
+        return self._held is not _NO_HOLD
+
+    def set(self, val) -> None:
+        self._val = val
+        self._held = _NO_HOLD
+        self._hold_ttl = 0
+
+    def _is_change_bringing_up(self, val) -> bool:
+        if self._is_bool:
+            return self._val and not val  # overload clearing == up
+        return val < self._val  # metric decrease == up
+
+    def update_value(self, val, hold_up_ttl: int, hold_down_ttl: int) -> bool:
+        """Returns True iff the *observable* value changed now."""
+        if val == self._val:
+            return False
+        if self.has_hold():
+            # a second change while holding: drop the hold, apply fast
+            self._held = _NO_HOLD
+            self._hold_ttl = 0
+        else:
+            self._hold_ttl = (
+                hold_up_ttl if self._is_change_bringing_up(val) else hold_down_ttl
+            )
+            if self._hold_ttl != 0:
+                self._held = self._val
+        self._val = val
+        return not self.has_hold()
+
+    def decrement_ttl(self) -> bool:
+        if self.has_hold():
+            self._hold_ttl -= 1
+            if self._hold_ttl == 0:
+                self._held = _NO_HOLD
+                return True
+        return False
+
+
+class Link:
+    """One bidirectional link, addressable from either end node.
+
+    Identity: the unordered pair of (node, iface) ordered pairs
+    (reference: LinkState.h:82 Link, orderedNames_).
+    """
+
+    __slots__ = (
+        "area",
+        "n1",
+        "n2",
+        "if1",
+        "if2",
+        "_metric1",
+        "_metric2",
+        "_overload1",
+        "_overload2",
+        "adj_label1",
+        "adj_label2",
+        "nh_v4_1",
+        "nh_v4_2",
+        "nh_v6_1",
+        "nh_v6_2",
+        "hold_up_ttl",
+        "ordered_names",
+        "_hash",
+    )
+
+    def __init__(
+        self,
+        area: str,
+        node1: str,
+        adj1: Adjacency,
+        node2: str,
+        adj2: Adjacency,
+    ):
+        self.area = area
+        self.n1 = node1
+        self.n2 = node2
+        self.if1 = adj1.if_name
+        self.if2 = adj2.if_name
+        self._metric1 = HoldableValue(int(adj1.metric))
+        self._metric2 = HoldableValue(int(adj2.metric))
+        self._overload1 = HoldableValue(bool(adj1.is_overloaded))
+        self._overload2 = HoldableValue(bool(adj2.is_overloaded))
+        self.adj_label1 = adj1.adj_label
+        self.adj_label2 = adj2.adj_label
+        self.nh_v4_1 = adj1.next_hop_v4
+        self.nh_v4_2 = adj2.next_hop_v4
+        self.nh_v6_1 = adj1.next_hop_v6
+        self.nh_v6_2 = adj2.next_hop_v6
+        self.hold_up_ttl = 0
+        self.ordered_names = tuple(
+            sorted(((self.n1, self.if1), (self.n2, self.if2)))
+        )
+        # identity hash, cached: links land in sets/dicts on the KSP2
+        # trace hot path (hundreds of thousands of hashes per churn
+        # event network-wide) and the tuple-of-tuples hash is not free
+        self._hash = hash(self.ordered_names)
+
+    # -- identity ---------------------------------------------------------
+
+    def __hash__(self) -> int:
+        return self._hash
+
+    def __eq__(self, other) -> bool:
+        return (
+            isinstance(other, Link) and self.ordered_names == other.ordered_names
+        )
+
+    def __lt__(self, other: "Link") -> bool:
+        return self.ordered_names < other.ordered_names
+
+    def __repr__(self) -> str:
+        return (
+            f"Link({self.area} - {self.n1}%{self.if1} <---> "
+            f"{self.n2}%{self.if2})"
+        )
+
+    # -- directional accessors -------------------------------------------
+
+    def _dir(self, node: str) -> int:
+        if node == self.n1:
+            return 1
+        if node == self.n2:
+            return 2
+        raise KeyError(node)
+
+    def other_node(self, node: str) -> str:
+        return self.n2 if self._dir(node) == 1 else self.n1
+
+    def iface_from(self, node: str) -> str:
+        return self.if1 if self._dir(node) == 1 else self.if2
+
+    def metric_from(self, node: str) -> Metric:
+        return (self._metric1 if self._dir(node) == 1 else self._metric2).value
+
+    def metric_and_other(self, node: str) -> Tuple[Metric, str]:
+        """Fused (metric_from, other_node) for path-walk hot loops
+        (KSP2 backtrace accumulates these per hop)."""
+        if node == self.n1:
+            return self._metric1.value, self.n2
+        if node == self.n2:
+            return self._metric2.value, self.n1
+        raise KeyError(node)
+
+    def overload_from(self, node: str) -> bool:
+        return (
+            self._overload1 if self._dir(node) == 1 else self._overload2
+        ).value
+
+    def metric_raw_from(self, node: str) -> Metric:
+        """The ADVERTISED metric, ignoring any active hold — what merge
+        guards must compare against: a revert advertisement during a
+        hold would otherwise never reach the HoldableValue and the
+        held-away value would become visible at expiry."""
+        return (self._metric1 if self._dir(node) == 1 else self._metric2).raw
+
+    def overload_raw_from(self, node: str) -> bool:
+        return (
+            self._overload1 if self._dir(node) == 1 else self._overload2
+        ).raw
+
+    def adj_label_from(self, node: str) -> int:
+        return self.adj_label1 if self._dir(node) == 1 else self.adj_label2
+
+    def nh_v4_from(self, node: str) -> BinaryAddress:
+        return self.nh_v4_1 if self._dir(node) == 1 else self.nh_v4_2
+
+    def nh_v6_from(self, node: str) -> BinaryAddress:
+        return self.nh_v6_1 if self._dir(node) == 1 else self.nh_v6_2
+
+    # -- mutation (returns True when topology-visible value changed) ------
+
+    def set_metric_from(
+        self, node: str, m: Metric, hold_up: int = 0, hold_down: int = 0
+    ) -> bool:
+        hv = self._metric1 if self._dir(node) == 1 else self._metric2
+        return hv.update_value(int(m), hold_up, hold_down)
+
+    def set_overload_from(
+        self, node: str, overloaded: bool, hold_up: int = 0, hold_down: int = 0
+    ) -> bool:
+        was_up = self.is_up()
+        hv = self._overload1 if self._dir(node) == 1 else self._overload2
+        hv.update_value(bool(overloaded), hold_up, hold_down)
+        # simplex overload not supported: only a change in is_up() is a
+        # topology change (reference: LinkState.cpp:344 setOverloadFromNode)
+        return was_up != self.is_up()
+
+    def set_adj_label_from(self, node: str, label: int) -> None:
+        if self._dir(node) == 1:
+            self.adj_label1 = label
+        else:
+            self.adj_label2 = label
+
+    def set_nh_v4_from(self, node: str, nh: BinaryAddress) -> None:
+        if self._dir(node) == 1:
+            self.nh_v4_1 = nh
+        else:
+            self.nh_v4_2 = nh
+
+    def set_nh_v6_from(self, node: str, nh: BinaryAddress) -> None:
+        if self._dir(node) == 1:
+            self.nh_v6_1 = nh
+        else:
+            self.nh_v6_2 = nh
+
+    # -- state ------------------------------------------------------------
+
+    def is_up(self) -> bool:
+        """Up iff no hold-up countdown pending and neither direction is
+        overloaded (reference: LinkState.cpp:236 Link::isUp)."""
+        return (
+            self.hold_up_ttl == 0
+            and not self._overload1.value
+            and not self._overload2.value
+        )
+
+    def set_hold_up_ttl(self, ttl: int) -> None:
+        self.hold_up_ttl = ttl
+
+    def decrement_holds(self) -> bool:
+        expired = False
+        if self.hold_up_ttl != 0:
+            self.hold_up_ttl -= 1
+            expired |= self.hold_up_ttl == 0
+        expired |= self._metric1.decrement_ttl()
+        expired |= self._metric2.decrement_ttl()
+        expired |= self._overload1.decrement_ttl()
+        expired |= self._overload2.decrement_ttl()
+        return expired
+
+    def has_holds(self) -> bool:
+        return (
+            self.hold_up_ttl != 0
+            or self._metric1.has_hold()
+            or self._metric2.has_hold()
+            or self._overload1.has_hold()
+            or self._overload2.has_hold()
+        )
+
+
+@dataclass
+class LinkStateChange:
+    """What an update did to the graph (reference: LinkState.h:307)."""
+
+    topology_changed: bool = False
+    link_attributes_changed: bool = False
+    node_label_changed: bool = False
+
+    def __or__(self, other: "LinkStateChange") -> "LinkStateChange":
+        return LinkStateChange(
+            self.topology_changed or other.topology_changed,
+            self.link_attributes_changed or other.link_attributes_changed,
+            self.node_label_changed or other.node_label_changed,
+        )
+
+
+class NodeSpfResult:
+    """Shortest-path result for one destination node: metric, first-hop
+    (ECMP) node set, and predecessor links for path backtracing.
+    reference: LinkState.h:203 NodeSpfResult."""
+
+    __slots__ = ("metric", "next_hops", "path_links", "_links_sorted")
+
+    def __init__(self, metric: Metric):
+        self.metric = metric
+        self.next_hops: Set[str] = set()
+        # (link, prev_node) pairs: incoming shortest-path edges
+        self.path_links: List[Tuple[Link, str]] = []
+        self._links_sorted = False
+
+    def sorted_path_links(self) -> List[Tuple[Link, str]]:
+        """Canonical-order predecessor links, sorted once per node (the
+        trace backtracks, so per-visit sorting would repeat the work)."""
+        if not self._links_sorted:
+            self.path_links.sort(key=lambda lp: lp[0].ordered_names)
+            self._links_sorted = True
+        return self.path_links
+
+    def reset(self, metric: Metric) -> None:
+        self.metric = metric
+        self.next_hops = set()
+        self.path_links = []
+        self._links_sorted = False
+
+    def __repr__(self) -> str:
+        return f"NodeSpfResult(m={self.metric}, nh={sorted(self.next_hops)})"
+
+
+SpfResult = Dict[str, NodeSpfResult]
+Path = List[Link]
+
+
+# externally serialized, never internally locked: every LinkState is
+# created and driven by exactly one plane — Decision's under evb, a
+# ctrl handler's (tenant mirrors, replica absorb, warm import) under
+# SolverCtrlHandler._lock, the twin's on its one thread. The
+# shared-state rule merges all instances by class, so cross-role
+# access to one instance is impossible by construction — hence
+# "owner" confinement (same contract as WorldManager).
+class LinkState:
+    """Area-scoped link-state graph with incremental updates and memoized
+    shortest-path queries."""
+
+    def __init__(self, area: str = "0"):
+        self.area = area
+        self._link_map: Dict[str, Set[Link]] = {}
+        self._all_links: Set[Link] = set()
+        self._node_overloads: Dict[str, HoldableValue] = {}
+        self._adj_dbs: Dict[str, AdjacencyDatabase] = {}
+        self._spf_cache: Dict[Tuple[str, bool], SpfResult] = {}
+        # per-node canonical link order, valid for one topology version
+        self._ordered_links_memo: Dict[str, List[Link]] = {}
+        self._kth_path_cache: Dict[Tuple[str, str, int], List[Path]] = {}
+        # monotonically bumped on every topology change; the device snapshot
+        # layer keys HBM-resident arrays off this (replaces the reference's
+        # SPF memo invalidation for the device path)
+        self.topology_version = 0
+        # journal of (version, affected nodes) per topology change so the
+        # snapshot layer can patch only touched rows instead of a full
+        # rebuild; bounded ring — evicted history forces a full recompile
+        from collections import deque
+
+        self.change_journal = deque(maxlen=4096)
+        # attribute changes (node labels, adj labels, next-hop addresses,
+        # interface identities) do NOT move distances, so they bump a
+        # separate version: SPF memos and device snapshots stay valid,
+        # while route-materialization caches (the incremental KSP2
+        # engine's) can still detect and re-derive affected routes
+        # (reference keeps the same split: LinkStateChange
+        # topologyChanged vs linkAttributesChanged)
+        self.attributes_version = 0
+        self.attr_journal = deque(maxlen=4096)
+
+    # -- introspection ----------------------------------------------------
+
+    def has_node(self, node: str) -> bool:
+        return node in self._adj_dbs
+
+    def nodes(self) -> List[str]:
+        return sorted(self._link_map)
+
+    @property
+    def num_links(self) -> int:
+        return len(self._all_links)
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self._link_map)
+
+    def links_from_node(self, node: str) -> Set[Link]:
+        return self._link_map.get(node, set())
+
+    def ordered_links_from_node(self, node: str) -> List[Link]:
+        """Node's links in canonical order. Memoized per topology
+        version (link IDENTITY is immutable, so attribute churn never
+        reorders; membership changes invalidate via _invalidate) — the
+        churn hot path sorts the same high-degree node repeatedly
+        within one rebuild. Callers must not mutate the list."""
+        cached = self._ordered_links_memo.get(node)
+        if cached is None:
+            cached = sorted(self._link_map.get(node, set()))
+            self._ordered_links_memo[node] = cached
+        return cached
+
+    def all_links(self) -> Set[Link]:
+        return self._all_links
+
+    def is_node_overloaded(self, node: str) -> bool:
+        hv = self._node_overloads.get(node)
+        return bool(hv.value) if hv is not None else False
+
+    def get_adjacency_databases(self) -> Dict[str, AdjacencyDatabase]:
+        return self._adj_dbs
+
+    def has_holds(self) -> bool:
+        return any(l.has_holds() for l in self._all_links) or any(
+            hv.has_hold() for hv in self._node_overloads.values()
+        )
+
+    # -- mutation ---------------------------------------------------------
+
+    def _invalidate(self, affected: Optional[Set[str]] = None) -> None:
+        self._spf_cache.clear()
+        self._kth_path_cache.clear()
+        self._ordered_links_memo.clear()
+        self.topology_version += 1
+        self.change_journal.append(
+            (self.topology_version, frozenset(affected or ()))
+        )
+
+    def affected_since(self, version: int) -> Optional[Set[str]]:
+        """Union of nodes touched by all changes after ``version``; None if
+        the journal can't prove coverage (forces a full recompile)."""
+        return self._affected_since(
+            self.change_journal, self.topology_version, version
+        )
+
+    def attr_affected_since(self, version: int) -> Optional[Set[str]]:
+        """Like affected_since, over the attribute-change journal."""
+        return self._affected_since(
+            self.attr_journal, self.attributes_version, version
+        )
+
+    @staticmethod
+    def _affected_since(journal, current: int, version: int):
+        if version == current:
+            return set()
+        if not journal or journal[0][0] > version + 1:
+            return None  # history evicted: coverage unknown
+        affected: Set[str] = set()
+        for v, nodes in journal:
+            if v <= version:
+                continue
+            if not nodes:
+                return None  # a change with unrecorded blast radius
+            affected |= nodes
+        return affected
+
+    def _note_attr_change(self, affected: Set[str]) -> None:
+        self.attributes_version += 1
+        self.attr_journal.append(
+            (self.attributes_version, frozenset(affected))
+        )
+
+    def _maybe_make_link(self, node: str, adj: Adjacency) -> Optional[Link]:
+        """Create a Link only if the reverse adjacency is also advertised
+        (reference: LinkState.cpp:532 maybeMakeLink)."""
+        other_db = self._adj_dbs.get(adj.other_node_name)
+        if other_db is None:
+            return None
+        for other_adj in other_db.adjacencies:
+            if (
+                other_adj.other_node_name == node
+                and adj.other_if_name == other_adj.if_name
+                and adj.if_name == other_adj.other_if_name
+            ):
+                return Link(self.area, node, adj, adj.other_node_name, other_adj)
+        return None
+
+    def _ordered_link_set(self, adj_db: AdjacencyDatabase) -> List[Link]:
+        links = []
+        for adj in adj_db.adjacencies:
+            link = self._maybe_make_link(adj_db.this_node_name, adj)
+            if link is not None:
+                links.append(link)
+        links.sort()
+        return links
+
+    def _add_link(self, link: Link) -> None:
+        self._link_map.setdefault(link.n1, set()).add(link)
+        self._link_map.setdefault(link.n2, set()).add(link)
+        self._all_links.add(link)
+        # membership can change WITHOUT _invalidate (a held-down add or
+        # a removal of a down link leaves topology_changed False): the
+        # order memo must drop the endpoints here, not only on
+        # invalidation (code-review repro: a held A-C add followed by a
+        # metric update misread the stale memo as 'new link' and lost
+        # the update)
+        self._ordered_links_memo.pop(link.n1, None)
+        self._ordered_links_memo.pop(link.n2, None)
+
+    def _remove_link(self, link: Link) -> None:
+        self._link_map[link.n1].discard(link)
+        self._link_map[link.n2].discard(link)
+        self._all_links.discard(link)
+        self._ordered_links_memo.pop(link.n1, None)
+        self._ordered_links_memo.pop(link.n2, None)
+
+    def _remove_node(self, node: str) -> None:
+        for link in list(self._link_map.get(node, ())):
+            other = link.other_node(node)
+            self._link_map[other].discard(link)
+            self._all_links.discard(link)
+            self._ordered_links_memo.pop(other, None)
+        self._link_map.pop(node, None)
+        self._ordered_links_memo.pop(node, None)
+        self._node_overloads.pop(node, None)
+
+    def _update_node_overloaded(
+        self, node: str, overloaded: bool, hold_up: int, hold_down: int
+    ) -> bool:
+        hv = self._node_overloads.get(node)
+        if hv is not None:
+            return hv.update_value(bool(overloaded), hold_up, hold_down)
+        self._node_overloads[node] = HoldableValue(bool(overloaded))
+        # a brand-new node's initial overload state is not a "change"
+        return False
+
+    def update_adjacency_database(
+        self,
+        adj_db: AdjacencyDatabase,
+        hold_up_ttl: int = 0,
+        hold_down_ttl: int = 0,
+    ) -> LinkStateChange:
+        """Incrementally merge one node's new adjacency database.
+
+        Walks the old and new ordered link sets in lockstep to discover
+        adds / removes / in-place attribute changes.
+        reference: LinkState.cpp:565-719 updateAdjacencyDatabase.
+        """
+        change = LinkStateChange()
+        node = adj_db.this_node_name
+        assert adj_db.area == self.area, (adj_db.area, self.area)
+
+        prior_db = self._adj_dbs.get(node)
+        self._adj_dbs[node] = adj_db
+
+        old_links = self.ordered_links_from_node(node)
+        new_links = self._ordered_link_set(adj_db)
+
+        change.topology_changed |= self._update_node_overloaded(
+            node, adj_db.is_overloaded, hold_up_ttl, hold_down_ttl
+        )
+        change.node_label_changed = (
+            prior_db is None and adj_db.node_label != 0
+        ) or (prior_db is not None and prior_db.node_label != adj_db.node_label)
+
+        # blast radius: the node itself plus peers of links that
+        # ACTUALLY changed — not every peer. Journal consumers patch
+        # per-node device rows (snapshot / ELL bands), so a coarse set
+        # re-derived ~17 high-degree rows per single-adjacency metric
+        # wiggle at 100k where 2 suffice. Held changes are excluded
+        # here and journaled by decrement_holds at expiry, which
+        # already records the expired links' endpoints.
+        affected = {node}
+        attr_affected = {node}
+
+        oi, ni = 0, 0
+        while ni < len(new_links) or oi < len(old_links):
+            if ni < len(new_links) and (
+                oi >= len(old_links) or new_links[ni] < old_links[oi]
+            ):
+                # new link coming up
+                new_links[ni].set_hold_up_ttl(hold_up_ttl)
+                change.topology_changed |= new_links[ni].is_up()
+                affected.add(new_links[ni].other_node(node))
+                self._add_link(new_links[ni])
+                ni += 1
+                continue
+            if oi < len(old_links) and (
+                ni >= len(new_links) or old_links[oi] < new_links[ni]
+            ):
+                # old link going away; if it was held or overloaded this is
+                # not a visible topology change
+                change.topology_changed |= old_links[oi].is_up()
+                affected.add(old_links[oi].other_node(node))
+                self._remove_link(old_links[oi])
+                oi += 1
+                continue
+            new, old = new_links[ni], old_links[oi]
+            # compare against the RAW (advertised) value, not the
+            # observable one: during a hold those differ, and a revert
+            # advertisement must reach the HoldableValue (which drops
+            # the hold and applies fast) instead of silently letting
+            # the held-away value win at expiry (code-review repro)
+            if new.metric_from(node) != old.metric_raw_from(node):
+                if old.set_metric_from(
+                    node, new.metric_from(node), hold_up_ttl, hold_down_ttl
+                ):
+                    change.topology_changed = True
+                    affected.add(old.other_node(node))
+            if new.overload_from(node) != old.overload_raw_from(node):
+                if old.set_overload_from(
+                    node, new.overload_from(node), hold_up_ttl, hold_down_ttl
+                ):
+                    change.topology_changed = True
+                    affected.add(old.other_node(node))
+            if new.adj_label_from(node) != old.adj_label_from(node):
+                change.link_attributes_changed = True
+                attr_affected.add(old.other_node(node))
+                old.set_adj_label_from(node, new.adj_label_from(node))
+            if new.nh_v4_from(node) != old.nh_v4_from(node):
+                change.link_attributes_changed = True
+                attr_affected.add(old.other_node(node))
+                old.set_nh_v4_from(node, new.nh_v4_from(node))
+            if new.nh_v6_from(node) != old.nh_v6_from(node):
+                change.link_attributes_changed = True
+                attr_affected.add(old.other_node(node))
+                old.set_nh_v6_from(node, new.nh_v6_from(node))
+            ni += 1
+            oi += 1
+
+        if change.topology_changed:
+            self._invalidate(affected)
+        if change.link_attributes_changed or change.node_label_changed:
+            self._note_attr_change(attr_affected)
+        return change
+
+    def delete_adjacency_database(self, node: str) -> LinkStateChange:
+        """reference: LinkState.cpp:722 deleteAdjacencyDatabase"""
+        change = LinkStateChange()
+        if node in self._adj_dbs:
+            affected = {node}
+            affected.update(
+                l.other_node(node) for l in self._link_map.get(node, ())
+            )
+            self._remove_node(node)
+            del self._adj_dbs[node]
+            self._invalidate(affected)
+            change.topology_changed = True
+        return change
+
+    def decrement_holds(self) -> LinkStateChange:
+        """One ordered-FIB tick: age all holds; expiry is a topology change.
+        reference: LinkState.cpp:501 decrementHolds."""
+        change = LinkStateChange()
+        affected: Set[str] = set()
+        for link in self._all_links:
+            if link.decrement_holds():
+                change.topology_changed = True
+                affected.add(link.n1)
+                affected.add(link.n2)
+        for node, hv in self._node_overloads.items():
+            if hv.decrement_ttl():
+                change.topology_changed = True
+                affected.add(node)
+        if change.topology_changed:
+            self._invalidate(affected)
+        return change
+
+    # -- shortest paths (host oracle / fallback) --------------------------
+
+    def get_spf_result(
+        self, node: str, use_link_metric: bool = True
+    ) -> SpfResult:
+        """Memoized single-source shortest paths (reference:
+        LinkState.cpp:794 getSpfResult)."""
+        key = (node, use_link_metric)
+        cached = self._spf_cache.get(key)
+        if cached is None:
+            cached = self.run_spf(node, use_link_metric)
+            self._spf_cache[key] = cached
+        return cached
+
+    def run_spf(
+        self,
+        src: str,
+        use_link_metric: bool = True,
+        links_to_ignore: Optional[Set[Link]] = None,
+    ) -> SpfResult:
+        """Dijkstra with ECMP first-hop accumulation and overloaded-node
+        transit exclusion (reference: LinkState.cpp:809-882 runSpf).
+
+        First-hop semantics: a destination's ``next_hops`` is the set of the
+        source's neighbor *node names* lying on any equal-cost shortest
+        path; a directly-connected destination contributes itself.
+        """
+        ignore = links_to_ignore or set()
+        result: SpfResult = {}
+        pending: Dict[str, NodeSpfResult] = {src: NodeSpfResult(0)}
+        heap: List[Tuple[Metric, str]] = [(0, src)]
+        while heap:
+            metric, u = heapq.heappop(heap)
+            node_res = pending.get(u)
+            if node_res is None or node_res.metric != metric:
+                continue  # stale heap entry
+            del pending[u]
+            result[u] = node_res
+            if u != src and self.is_node_overloaded(u):
+                # no transit through overloaded nodes: record reachability
+                # but do not relax its adjacencies
+                continue
+            for link in self._link_map.get(u, ()):  # unordered, like the ref
+                v = link.other_node(u)
+                if not link.is_up() or v in result or link in ignore:
+                    continue
+                m = link.metric_from(u) if use_link_metric else 1
+                cand = node_res.metric + m
+                v_res = pending.get(v)
+                if v_res is None:
+                    v_res = pending[v] = NodeSpfResult(cand)
+                    heapq.heappush(heap, (cand, v))
+                if v_res.metric >= cand:
+                    if v_res.metric > cand:
+                        v_res.reset(cand)
+                        heapq.heappush(heap, (cand, v))
+                    v_res.path_links.append((link, u))
+                    v_res.next_hops |= node_res.next_hops
+                    if not v_res.next_hops:
+                        v_res.next_hops.add(v)  # directly connected
+        return result
+
+    def get_metric_from_a_to_b(
+        self, a: str, b: str, use_link_metric: bool = True
+    ) -> Optional[Metric]:
+        if a == b:
+            return 0
+        res = self.get_spf_result(a, use_link_metric)
+        return res[b].metric if b in res else None
+
+    def get_hops_from_a_to_b(self, a: str, b: str) -> Optional[Metric]:
+        return self.get_metric_from_a_to_b(a, b, use_link_metric=False)
+
+    def get_max_hops_to_node(self, node: str) -> Metric:
+        return max(
+            (r.metric for r in self.get_spf_result(node, False).values()),
+            default=0,
+        )
+
+    # -- k edge-disjoint paths -------------------------------------------
+
+    def _trace_one_path(
+        self,
+        src: str,
+        dest: str,
+        result: SpfResult,
+        links_to_ignore: Set[Link],
+    ) -> Optional[Path]:
+        """Walk predecessor links dest -> src, consuming each link at most
+        once across calls (reference: LinkState.cpp:399 traceOnePath).
+
+        Candidates are visited in canonical (sorted) link order — the
+        reference iterates an unordered container, so any fixed order is
+        spec-conformant, and a DETERMINISTIC one lets the device-assisted
+        KSP2 path (solver _prefetch_ksp2_paths) reproduce identical
+        traces from masked distance rows."""
+        if src == dest:
+            return []
+        for link, prev in result[dest].sorted_path_links():
+            if link in links_to_ignore:
+                continue
+            links_to_ignore.add(link)
+            sub = self._trace_one_path(src, prev, result, links_to_ignore)
+            if sub is not None:
+                sub.append(link)
+                return sub
+        return None
+
+    def prime_kth_paths(
+        self, src: str, dest: str, k: int, paths: List[Path]
+    ) -> None:
+        """Seed the kth-path cache with externally computed paths (the
+        solver's device-batched masked-SPF KSP2 prefetch); entries are
+        dropped with the cache on any topology change."""
+        self._kth_path_cache[(src, dest, k)] = paths
+
+    def parallel_pairs(self) -> Set[FrozenSet[str]]:
+        """Node pairs connected by more than one (parallel) link."""
+        counts: Dict[FrozenSet[str], int] = {}
+        for link in self.all_links():
+            pair = frozenset((link.n1, link.n2))
+            counts[pair] = counts.get(pair, 0) + 1
+        return {pair for pair, c in counts.items() if c > 1}
+
+    def get_kth_paths(self, src: str, dest: str, k: int) -> List[Path]:
+        """Edge-disjoint paths of rank k: SPF excluding all links used by
+        ranks < k, then enumerate link-disjoint traces.
+        reference: LinkState.cpp:763 getKthPaths."""
+        assert k >= 1
+        key = (src, dest, k)
+        cached = self._kth_path_cache.get(key)
+        if cached is not None:
+            return cached
+        links_to_ignore: Set[Link] = set()
+        for i in range(1, k):
+            for path in self.get_kth_paths(src, dest, i):
+                links_to_ignore.update(path)
+        paths: List[Path] = []
+        res = (
+            self.get_spf_result(src, True)
+            if not links_to_ignore
+            else self.run_spf(src, True, links_to_ignore)
+        )
+        if dest in res:
+            visited: Set[Link] = set()
+            path = self._trace_one_path(src, dest, res, visited)
+            while path:
+                paths.append(path)
+                path = self._trace_one_path(src, dest, res, visited)
+        self._kth_path_cache[key] = paths
+        return paths
+
+    @staticmethod
+    def path_a_in_path_b(a: Path, b: Path) -> bool:
+        """True if path a appears as a contiguous subsequence of path b.
+        reference: LinkState.h:396 pathAInPathB."""
+        if len(a) > len(b):
+            return False
+        for i in range(len(b) - len(a) + 1):
+            if all(a[j] == b[i + j] for j in range(len(a))):
+                return True
+        return False

@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels of the port, and their launch counts.
+
+``LAUNCHES[name]`` goes up by one each time a wrapper launches kernel
+``name`` on the card, and nowhere else: a plain version run on CPU
+tensors does not count. ``chip_smoke.py`` zeroes the counts before a
+route build and reads them after, to show the build went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"minplus": 0, "ell_band_relax": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

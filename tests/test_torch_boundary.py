@@ -1,0 +1,84 @@
+"""The port's boundary: it imports nothing of JAX or of ``openr_tpu``,
+and it runs on the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from openr_tpu_torch import carry
+from openr_tpu_torch.decision.spf_solver import SpfSolver
+from openr_tpu_torch.device import resolve_device
+from openr_tpu_torch.graph.snapshot import SnapshotCache
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = textwrap.dedent(
+    """
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "openr_tpu")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"the port must not import {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import openr_tpu_torch
+    names = [openr_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(
+        openr_tpu_torch.__path__, openr_tpu_torch.__name__ + "."
+    ):
+        names.append(info.name)
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    loaded = sorted(
+        m for m in sys.modules if m.split(".")[0] in BLOCKED
+    )
+    assert not loaded, loaded
+    print(len(names))
+    """
+)
+
+
+def test_port_and_chip_smoke_import_without_jax_or_openr_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    # every module of the port was imported (the package has > 20)
+    assert int(proc.stdout.strip().splitlines()[-1]) > 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpfSolver("x")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SnapshotCache()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        carry.snapshot_from_numpy(
+            ["a"], [[0] * 128] * 128, [False] * 128
+        )
+
+
+def test_entry_points_take_the_cpu_when_asked(no_cuda):
+    assert SpfSolver("x", device="cpu").device == torch.device("cpu")
+    assert SnapshotCache("cpu").device == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
