@@ -15,23 +15,26 @@ Phases, one JSON line each (``"phase": ...``):
    exactly (int32), at the shapes of the main path and at random ragged
    shapes with INF and overloaded nodes sprinkled in. ``kernel_ms`` and
    ``plain_ms`` are device time per call from the profiler's CUDA
-   activity; ``call_ms`` is CUDA-event time per call, host launch path
-   included.
+   activity (the script fails if the profiler records none);
+   ``call_ms`` is CUDA-event time per call, host launch path included.
 4. ``dense``: ``SpfSolver(backend="device").build_route_db`` from
    ``rsw-0-0`` on the 1008-node fabric (dense regime), then churn events
    that bump one adjacency metric of ``fsw-0-0``; after every build the
    route database must equal the host Dijkstra solver's. ``view_ms`` is
    the part spent in the build's one SPF view (graph compile or patch,
    device solve, readback). One more profiled build gives the card's
-   busy time and idle share. Launch counts are zeroed before the phase
-   and read after it.
+   busy time and idle share. Launch counts and the solver's host-SPF
+   fallback count are zeroed before the phase and read after it; the
+   fallback count must stay at 0.
 5. ``sparse``: the same on the 10 000-node fabric (sliced-ELL regime).
 
 Then one ``{"kernels": [...]}`` line (time, bound, plain time and main-path
 launches of every kernel) and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
-exits nonzero before doing anything.
+exits nonzero before doing anything. The sizes are fixed: the 1008-node
+fabric of the repo's ``bench.py`` (10 churn events) and a 10 000-node one
+(3 events); only the seed of the random kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -51,6 +54,15 @@ ROOT = Path(__file__).resolve().parent
 # int32 add/min work of these kernels (tensor cores have no min-plus mode)
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+
+# the main path's networks: fat_tree_nodes(1000) is bench.py's 1008-node
+# 3-tier fabric (dense regime), fat_tree_nodes(10000) the 10 000-node one
+# (sliced-ELL regime); churn events per network; timed calls per kernel
+DENSE_NODES = 1000
+SPARSE_NODES = 10000
+DENSE_EVENTS = 10
+SPARSE_EVENTS = 3
+REPS = 30
 
 
 def emit(obj) -> None:
@@ -84,11 +96,11 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls: int, name=None):
+def device_ms(torch, fn, calls: int, name=None) -> float:
     """Device time per call of ``fn`` from the profiler's CUDA activity
     (CUPTI): the kernels whose name contains ``name``, or all device
-    activity (kernels, copies, fills) when ``name`` is None. None when the
-    profiler recorded no device time."""
+    activity (kernels, copies, fills) when ``name`` is None. Raises when
+    the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -102,7 +114,9 @@ def device_ms(torch, fn, calls: int, name=None):
         if name is not None and name not in evt.key:
             continue
         total_us += getattr(evt, "self_device_time_total", 0) or 0
-    return total_us / 1e3 / calls if total_us > 0 else None
+    if total_us <= 0:
+        raise RuntimeError(f"the profiler recorded no device time for {name or 'a call'}")
+    return total_us / 1e3 / calls
 
 
 def bound_ms(nbytes: int, nops: int):
@@ -135,12 +149,7 @@ def bump_metric(ls, node: str, metric: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--dense-nodes", type=int, default=1000)
-    ap.add_argument("--sparse-nodes", type=int, default=10000)
-    ap.add_argument("--dense-events", type=int, default=10)
-    ap.add_argument("--sparse-events", type=int, default=3)
-    ap.add_argument("--reps", type=int, default=30, help="timed runs per kernel")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random kernel inputs")
     args = ap.parse_args(argv)
 
     if not (ROOT / "openr_tpu_torch" / "csrc").is_dir():
@@ -156,7 +165,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from openr_tpu_torch import carry
     from openr_tpu_torch.decision.prefix_state import PrefixState
-    from openr_tpu_torch.decision.spf_solver import SPARSE_NODE_THRESHOLD, SpfSolver
+    from openr_tpu_torch.decision.spf_solver import (
+        SPARSE_NODE_THRESHOLD,
+        SPF_COUNTERS,
+        SpfSolver,
+    )
     from openr_tpu_torch.graph.linkstate import LinkState
     from openr_tpu_torch.graph.snapshot import SnapshotCache
     from openr_tpu_torch.kernels import LAUNCHES, _build, reset_launches
@@ -196,8 +209,8 @@ def main(argv=None) -> int:
 
     # -- 2. networks -----------------------------------------------------------
     t0 = time.monotonic()
-    dense_ls, dense_ps = load_network(topologies, LinkState, PrefixState, args.dense_nodes)
-    sparse_ls, sparse_ps = load_network(topologies, LinkState, PrefixState, args.sparse_nodes)
+    dense_ls, dense_ps = load_network(topologies, LinkState, PrefixState, DENSE_NODES)
+    sparse_ls, sparse_ps = load_network(topologies, LinkState, PrefixState, SPARSE_NODES)
     n_dense = len(dense_ls.get_adjacency_databases())
     n_sparse = len(sparse_ls.get_adjacency_databases())
     if not n_dense <= SPARSE_NODE_THRESHOLD < n_sparse:
@@ -237,10 +250,10 @@ def main(argv=None) -> int:
         a, b = rand_int((s, k), 0.3), rand_int((k, n), 0.3)
         compare("minplus", minplus(a, b), minplus_plain(a, b), (s, k, n))
     s_, k_, n_ = d_rows.shape[0], t_mat.shape[0], t_mat.shape[1]
-    mp_call = time_ms(torch, lambda: minplus(d_rows, t_mat), args.reps)
-    mp_plain_call = time_ms(torch, lambda: minplus_plain(d_rows, t_mat), args.reps)
-    mp_ms = device_ms(torch, lambda: minplus(d_rows, t_mat), args.reps, "minplus_kernel")
-    mp_plain = device_ms(torch, lambda: minplus_plain(d_rows, t_mat), args.reps)
+    mp_call = time_ms(torch, lambda: minplus(d_rows, t_mat), REPS)
+    mp_plain_call = time_ms(torch, lambda: minplus_plain(d_rows, t_mat), REPS)
+    mp_ms = device_ms(torch, lambda: minplus(d_rows, t_mat), REPS, "minplus_kernel")
+    mp_plain = device_ms(torch, lambda: minplus_plain(d_rows, t_mat), REPS)
     mp_bound, mp_by = bound_ms(4 * (s_ * k_ + k_ * n_ + s_ * n_), 2 * s_ * k_ * n_)
     emit({"phase": "kernels", "kernel": "minplus",
           "shape": [[s_, k_], [k_, n_]], "match": True,
@@ -261,20 +274,22 @@ def main(argv=None) -> int:
     d_ell = spf_sparse._ell_relax(unit, graph.bands, src_t, w_t, torch.zeros_like(ov))
     band_rows = []
     pos = 0
+    band_out = torch.empty_like(d_ell)
     for band, s_b, w_b in zip(graph.bands, src_t, w_t):
-        compare("ell_band_relax", ell_band_relax(d_ell, s_b, w_b, ov, pos),
+        compare("ell_band_relax", ell_band_relax(d_ell, s_b, w_b, ov, pos, band_out),
                 ell_band_relax_plain(d_ell, s_b, w_b, ov, pos),
                 f"band {band}")
         band_rows.append({
             "rows": band.rows, "k": band.k,
             "kernel_ms": device_ms(
-                torch, lambda: ell_band_relax(d_ell, s_b, w_b, ov, pos),
-                args.reps, "ell_band_relax_kernel"),
+                torch, lambda: ell_band_relax(d_ell, s_b, w_b, ov, pos, band_out),
+                REPS, "ell_band_relax_kernel"),
             "plain_ms": device_ms(
                 torch, lambda: ell_band_relax_plain(d_ell, s_b, w_b, ov, pos),
-                args.reps),
+                REPS),
             "call_ms": time_ms(
-                torch, lambda: ell_band_relax(d_ell, s_b, w_b, ov, pos), args.reps),
+                torch, lambda: ell_band_relax(d_ell, s_b, w_b, ov, pos, band_out),
+                REPS),
         })
         pos += band.rows
     for s, n_pad, rows, k in [(3, 300, 50, 9), (8, 1000, 997, 8), (17, 256, 5, 200)]:
@@ -283,8 +298,11 @@ def main(argv=None) -> int:
         ovr = torch.from_numpy(rng.random(n_pad) < 0.2).to(dev)
         p = n_pad - rows
         for mask in (ovr, ovr.to(torch.int32)):
-            compare("ell_band_relax", ell_band_relax(dd, sb, ww, mask, p),
+            out = torch.full_like(dd, -1)
+            compare("ell_band_relax", ell_band_relax(dd, sb, ww, mask, p, out),
                     ell_band_relax_plain(dd, sb, ww, mask, p), (s, n_pad, rows, k))
+            compare("ell_band_relax", out[:, :p], torch.full_like(dd[:, :p], -1),
+                    f"columns outside the band at {(s, n_pad, rows, k)}")
 
     def relax_plain():
         out = torch.empty_like(d_ell)
@@ -305,10 +323,10 @@ def main(argv=None) -> int:
     compare("ell_band_relax", relax_kernel()[:, : graph.n], relax_plain()[:, : graph.n],
             "one relax step over all bands")
     slots = sum(band.rows * band.k for band in graph.bands)
-    ell_call = time_ms(torch, relax_kernel, args.reps)
-    ell_plain_call = time_ms(torch, relax_plain, args.reps)
-    ell_ms = device_ms(torch, relax_kernel, args.reps, "ell_band_relax_kernel")
-    ell_plain = device_ms(torch, relax_plain, args.reps)
+    ell_call = time_ms(torch, relax_kernel, REPS)
+    ell_plain_call = time_ms(torch, relax_plain, REPS)
+    ell_ms = device_ms(torch, relax_kernel, REPS, "ell_band_relax_kernel")
+    ell_plain = device_ms(torch, relax_plain, REPS)
     # each input read once: distance rows, band slots (src + w), the
     # overload mask; each output written once: the band columns. One add
     # and one min per gathered slot and batch row.
@@ -327,9 +345,12 @@ def main(argv=None) -> int:
     def drive(phase, ls, ps, events, nodes):
         """Initial build + ``events`` churn builds from ``root``, then one
         more churn build under the profiler for the card's busy share;
-        each route database is held against the host Dijkstra solver's.
-        The launch counts are zeroed just before and read just after; the
-        host solver launches nothing."""
+        then one build with LFA on, whose loop-free alternates read the
+        neighbours' distance rows of the device view. Each route database
+        is held against the host Dijkstra solver's. The launch counts and
+        the device views' host-SPF fallbacks are zeroed just before and
+        read just after; the host solver launches nothing, and the device
+        solver must take no SPF to the host."""
         from torch.profiler import ProfilerActivity, profile
 
         device_solver = SpfSolver(root, backend="device", device=dev)
@@ -338,8 +359,8 @@ def main(argv=None) -> int:
         ms, view_ms = [], []
         per_build = []
 
-        def check(got, step):
-            want = host_solver.build_route_db(root, areas, ps)
+        def check(got, step, host=host_solver):
+            want = host.build_route_db(root, areas, ps)
             if carry.route_db_to_plain(got.to_route_db(root)) != carry.route_db_to_plain(
                 want.to_route_db(root)
             ):
@@ -354,6 +375,7 @@ def main(argv=None) -> int:
                 )
 
         reset_launches()
+        SPF_COUNTERS["decision.spf_host_fallback"] = 0
         for step in range(events + 1):
             if step:
                 bump_metric(ls, "fsw-0-0", 2 + (step - 1) % 5)
@@ -378,11 +400,25 @@ def main(argv=None) -> int:
             got = device_solver.build_route_db(root, areas, ps)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        check(got, events + 1)
+        t0 = time.perf_counter()
+        lfa_got = SpfSolver(
+            root, backend="device", device=dev, compute_lfa_paths=True
+        ).build_route_db(root, areas, ps)
+        lfa_ms = (time.perf_counter() - t0) * 1e3
+        check(lfa_got, "LFA build", SpfSolver(
+            root, backend="host", device=dev, compute_lfa_paths=True
+        ))
+        fallbacks = SPF_COUNTERS["decision.spf_host_fallback"]
+        if fallbacks:
+            raise AssertionError(
+                f"{phase}: {fallbacks} SPF queries of the device views went "
+                "to the host Dijkstra"
+            )
         busy_ms = sum(
             getattr(evt, "self_device_time_total", 0) or 0
             for evt in prof.key_averages()
         ) / 1e3
-        check(got, events + 1)
         launches = dict(LAUNCHES)
         emit({
             "phase": phase, "nodes": nodes, "root": root, "events": events,
@@ -396,15 +432,16 @@ def main(argv=None) -> int:
             "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "launches": launches, "launches_per_build": per_build,
+            "lfa_build_ms": lfa_ms, "spf_host_fallbacks": fallbacks,
             "unicast_routes": len(got.unicast_routes),
             "mpls_routes": len(got.mpls_routes),
         })
         return launches
 
-    dense = drive("dense", dense_ls, dense_ps, args.dense_events, n_dense)
+    dense = drive("dense", dense_ls, dense_ps, DENSE_EVENTS, n_dense)
     if dense["minplus"] == 0:
         raise AssertionError("dense route builds launched no minplus kernel")
-    sparse = drive("sparse", sparse_ls, sparse_ps, args.sparse_events, n_sparse)
+    sparse = drive("sparse", sparse_ls, sparse_ps, SPARSE_EVENTS, n_sparse)
     if sparse["ell_band_relax"] == 0:
         raise AssertionError("sparse route builds launched no ell_band_relax kernel")
 
@@ -415,25 +452,20 @@ def main(argv=None) -> int:
          "replaces": "openr_tpu/ops/pallas_minplus.py:69",
          "launches": dense["minplus"] + sparse["minplus"],
          "max_abs_err": max_err["minplus"],
-         "ms": mp_call if mp_ms is None else mp_ms,
-         "plain_ms": mp_plain_call if mp_plain is None else mp_plain,
+         "ms": mp_ms, "plain_ms": mp_plain,
          "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None,
-         "timing": "cuda_events" if mp_ms is None else "profiler",
          "call_ms": mp_call, "plain_call_ms": mp_plain_call,
-         "shape": [[s_, k_], [k_, n_]], "match": True,
-         "kernel_ms": mp_call if mp_ms is None else mp_ms},
+         "shape": [[s_, k_], [k_, n_]], "match": True},
         {"name": "ell_band_relax", "route": "cuda", "source": f"{csrc}/ell_relax.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:196",
          "launches": dense["ell_band_relax"] + sparse["ell_band_relax"],
          "max_abs_err": max_err["ell_band_relax"],
-         "ms": ell_call if ell_ms is None else ell_ms,
-         "plain_ms": ell_plain_call if ell_plain is None else ell_plain,
+         "ms": ell_ms, "plain_ms": ell_plain,
          "bound_ms": ell_bound, "bound_by": ell_by, "library_ms": None,
-         "timing": "cuda_events" if ell_ms is None else "profiler",
          "call_ms": ell_call, "plain_call_ms": ell_plain_call,
          "shape": {"S": b, "n_pad": graph.n_pad,
                    "bands": [[bd.rows, bd.k] for bd in graph.bands]},
-         "match": True, "kernel_ms": ell_call if ell_ms is None else ell_ms},
+         "match": True},
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

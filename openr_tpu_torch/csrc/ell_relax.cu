@@ -1,6 +1,6 @@
 // One band of the sliced-ELL relaxation on an H100.
 //
-//   out[s, col + j] = min(d[s, pos + j],
+//   out[s, pos + j] = min(d[s, pos + j],
 //                         min_slot min(d[s, src[j, slot]] + w_eff[j, slot], INF))
 //   w_eff = INF where overloaded[src[j, slot]], else w[j, slot]
 //
@@ -17,11 +17,10 @@
 //
 // Design: one thread per (s, j) band row: blockIdx.y = s, threads over j.
 // Each thread loops over its row's k slots, gathers d[s, src], applies the
-// overload mask and the INF clamp, and writes straight into column col + j of
-// an output with leading dimension out_ld. The port's _ell_relax points every
-// band at its own column slice of one [S, n_pad] output (col = pos), which
-// replaces the JAX concatenate of band parts. The gathered distance row of one
-// batch row is n_pad int32 (40 KB at 10 k nodes) and stays in L1/L2, so the
+// overload mask and the INF clamp, and writes straight into column pos + j of
+// an output shaped like d. Every band of the port's _ell_relax writes its own
+// column slice of one [S, n_pad] output, which replaces the JAX concatenate of
+// band parts. The gathered distance row of one batch row is n_pad int32 (40 KB at 10 k nodes) and stays in L1/L2, so the
 // gathers are cache hits. No overflow: d, w <= INF, so d + w <= 2^31 - 2.
 // Known weak spot, left for a later version: the single 16-row, k = 1024 band
 // of a 10 k fat-tree (its spine switches) gives 16 threads a batch row that
@@ -42,7 +41,7 @@ ell_band_relax_kernel(const int32_t* __restrict__ d, int n_pad,
                       const int32_t* __restrict__ src,
                       const int32_t* __restrict__ w, int rows, int k,
                       const Ov* __restrict__ overloaded, int pos,
-                      int32_t* __restrict__ out, int out_ld, int out_col) {
+                      int32_t* __restrict__ out) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int s = blockIdx.y;
   if (j >= rows) return;
@@ -55,7 +54,7 @@ ell_band_relax_kernel(const int32_t* __restrict__ d, int n_pad,
     const int32_t ww = overloaded[from] != 0 ? kInf : wrow[slot];
     best = min(best, min(drow[from] + ww, kInf));
   }
-  out[(size_t)s * out_ld + out_col + j] = best;
+  out[(size_t)s * n_pad + pos + j] = best;
 }
 
 }  // namespace
@@ -64,7 +63,7 @@ extern "C" int openr_ell_band_relax(const void* d, int S, int n_pad,
                                     const void* src, const void* w, int rows,
                                     int k, const void* overloaded,
                                     int ov_is_int32, int pos, void* out,
-                                    int out_ld, int out_col, void* stream) {
+                                    void* stream) {
   const dim3 grid((rows + kThreads - 1) / kThreads, S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* d_ = static_cast<const int32_t*>(d);
@@ -74,11 +73,11 @@ extern "C" int openr_ell_band_relax(const void* d, int S, int n_pad,
   if (ov_is_int32) {
     ell_band_relax_kernel<int32_t><<<grid, kThreads, 0, st>>>(
         d_, n_pad, src_, w_, rows, k,
-        static_cast<const int32_t*>(overloaded), pos, out_, out_ld, out_col);
+        static_cast<const int32_t*>(overloaded), pos, out_);
   } else {
     ell_band_relax_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
         d_, n_pad, src_, w_, rows, k,
-        static_cast<const uint8_t*>(overloaded), pos, out_, out_ld, out_col);
+        static_cast<const uint8_t*>(overloaded), pos, out_);
   }
   return static_cast<int>(cudaGetLastError());
 }

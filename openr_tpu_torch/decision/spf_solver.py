@@ -10,7 +10,7 @@ later slices: the SP/KSP2 route-reuse caches and node-label patching
 incremental ELL state (each new topology version recompiles the bands),
 KSP2_ED_ECMP (raises ``NotImplementedError``), the native backend and
 plugin backends, the multi-area world batch, prewarm/speculation, the
-fault seams and the solver counters.
+fault seams and every solver counter but ``decision.spf_host_fallback``.
 
 Behavioural parity with the reference ``openr/decision/Decision.cpp``
 SpfSolverImpl (buildRouteDb:569, createRouteForPrefix:402,
@@ -59,6 +59,11 @@ AreaLinkStates = Dict[str, LinkState]
 # above this node count the device backend switches from the dense
 # snapshot (O(N^2) metric matrix) to the sliced-ELL bands
 SPARSE_NODE_THRESHOLD = 4096
+
+# solver counters, by the JAX package's names. spf_host_fallback counts the
+# device views' queries answered by a host Dijkstra instead: it must stay at
+# 0 on the route-build path.
+SPF_COUNTERS: Dict[str, int] = {"decision.spf_host_fallback": 0}
 
 # per-solver view cache capacity (graphs, not views)
 VIEW_CACHE_CAP = 4
@@ -280,7 +285,8 @@ class SpfView:
     def metric_between(self, a: str, b: str) -> Optional[Metric]:
         """Distance from node a to b, where a is the root or one of its
         neighbours (all LFA needs — reference: Decision.cpp:1192). A node
-        outside the device batch is answered by the host Dijkstra."""
+        outside the device batch is answered by the host Dijkstra, and
+        counted in ``SPF_COUNTERS["decision.spf_host_fallback"]``."""
         if a == b:
             return 0
         if self._backend == "device":
@@ -291,6 +297,7 @@ class SpfView:
                 return None
             row = self._row_of.get(aid)
             if row is None:
+                SPF_COUNTERS["decision.spf_host_fallback"] += 1
                 res = self._ls.get_spf_result(a)
                 return res[b].metric if b in res else None
             if self._d[row, bid] >= INF:

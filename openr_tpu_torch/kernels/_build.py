@@ -43,9 +43,9 @@ SIGNATURES: Dict[str, List] = {
     # a, b, out, S, K, N, stream
     "openr_minplus": [_P, _P, _P, _I, _I, _I, _P],
     # d, S, n_pad, src, w, rows, k, overloaded, ov_is_int32, pos,
-    # out, out_ld, out_col, stream
+    # out, stream
     "openr_ell_band_relax": [
-        _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _P,
+        _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P,
     ],
 }
 

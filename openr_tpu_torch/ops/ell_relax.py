@@ -10,8 +10,6 @@ module are not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from openr_tpu_torch.kernels import LAUNCHES
@@ -45,10 +43,11 @@ def _check(d, src, w, overloaded, pos, out) -> int:
     devices = {d.device, src.device, w.device, overloaded.device}
     if out is not None:
         devices.add(out.device)
-        if out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != d.shape[0]:
-            raise ValueError(f"ell_band_relax: out {tuple(out.shape)} {out.dtype}")
-        if pos + rows > out.shape[1]:
-            raise ValueError("ell_band_relax: band outside out's columns")
+        if out.dtype != torch.int32 or out.shape != d.shape:
+            raise ValueError(
+                f"ell_band_relax: out {tuple(out.shape)} {out.dtype} for d "
+                f"{tuple(d.shape)}"
+            )
     if len(devices) != 1:
         raise ValueError(f"ell_band_relax: operands on {sorted(map(str, devices))}")
     return rows
@@ -79,48 +78,40 @@ def ell_band_relax(
     w: torch.Tensor,
     overloaded: torch.Tensor,
     pos: int,
-    out: Optional[torch.Tensor] = None,
+    out: torch.Tensor,
 ) -> torch.Tensor:
     """One band of the plain sliced-ELL relax over distance rows
     ``d [S, n_pad]`` and band slots ``src``/``w [rows, k]`` for the band
     starting at column ``pos``; ``overloaded [n_pad]`` is bool, uint8 or
     int32 0/1.
 
-    Returns the band's ``[S, rows]`` block. With ``out`` (``[S, >= pos +
-    rows]`` int32) the block is written in place into
-    ``out[:, pos:pos + rows]`` and that view is returned. Slot ids are
-    not range-checked (that would cost a device sync): they must lie in
-    ``[0, n_pad)``, as ``compile_ell`` makes them.
+    Writes the band's ``[S, rows]`` block in place into
+    ``out[:, pos:pos + rows]`` (``out`` is int32 and shaped like ``d``;
+    its other columns are left as they are) and returns that view. Slot
+    ids are not range-checked (that would cost a device sync): they must
+    lie in ``[0, n_pad)``, as ``compile_ell`` makes them.
 
     CUDA tensors go through the hand-written kernel (launched on the
     current stream, not synchronised); CPU tensors through
     ``ell_band_relax_plain``. Any other device raises."""
     rows = _check(d, src, w, overloaded, pos, out)
+    view = out[:, pos : pos + rows]
     if d.device.type == "cpu":
-        block = ell_band_relax_plain(d, src, w, overloaded, pos)
-        if out is None:
-            return block
-        out[:, pos : pos + rows] = block
-        return out[:, pos : pos + rows]
+        view.copy_(ell_band_relax_plain(d, src, w, overloaded, pos))
+        return view
     if d.device.type != "cuda":
         raise ValueError(f"ell_band_relax: no kernel for device {d.device}")
     from openr_tpu_torch.kernels import _build
 
     if overloaded.dtype == torch.bool:
         overloaded = overloaded.view(torch.uint8)
-    for name, t in (("d", d), ("src", src), ("w", w), ("overloaded", overloaded)):
+    for name, t in (
+        ("d", d), ("src", src), ("w", w), ("overloaded", overloaded), ("out", out),
+    ):
         if not t.is_contiguous():
             raise ValueError(f"ell_band_relax: {name} must be contiguous")
     s, n_pad = d.shape
     k = src.shape[1]
-    if out is None:
-        out = torch.empty((s, rows), dtype=torch.int32, device=d.device)
-        out_col = 0
-    else:
-        if out.stride(1) != 1:
-            raise ValueError("ell_band_relax: out rows must be contiguous")
-        out_col = pos
-    view = out[:, out_col : out_col + rows]
     if s == 0 or rows == 0:
         return view
     if s > 65535:
@@ -131,7 +122,7 @@ def ell_band_relax(
         rc = lib.openr_ell_band_relax(
             d.data_ptr(), s, n_pad, src.data_ptr(), w.data_ptr(), rows, k,
             overloaded.data_ptr(), int(overloaded.dtype == torch.int32),
-            pos, out.data_ptr(), out.stride(0), out_col, stream,
+            pos, out.data_ptr(), stream,
         )
     _build.check(rc, "ell_band_relax")
     LAUNCHES["ell_band_relax"] += 1

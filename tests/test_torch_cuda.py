@@ -60,11 +60,10 @@ def test_ell_band_relax_kernel_matches_plain(card, s, n_pad, rows, k, pos, mask_
     w = _mat(rng, (rows, k), 0.2).to(card)
     ov = torch.from_numpy(rng.random(n_pad) < 0.1).to(card).to(mask_dtype)
     want = ell_relax.ell_band_relax_plain(d, src, w, ov, pos)
-    got = ell_relax.ell_band_relax(d, src, w, ov, pos)
     out = torch.full_like(d, -1)
     view = ell_relax.ell_band_relax(d, src, w, ov, pos, out=out)
     torch.cuda.synchronize()
-    assert LAUNCHES["ell_band_relax"] == 2
-    assert torch.equal(got, want) and torch.equal(view, want)
+    assert LAUNCHES["ell_band_relax"] == 1
+    assert torch.equal(view, want)
     assert torch.equal(out[:, pos : pos + rows], want)
     assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()

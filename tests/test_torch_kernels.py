@@ -126,8 +126,10 @@ def test_ell_band_relax_plain_matches_pallas_interpret(case):
         )
     )
     for mask in (_t(ov), _t(ov).to(torch.uint8), _t(ov).to(torch.int32)):
-        got = ell_relax.ell_band_relax(_t(d), _t(src), _t(w), mask, pos)
+        out = torch.empty((s, n_pad), dtype=torch.int32)
+        got = ell_relax.ell_band_relax(_t(d), _t(src), _t(w), mask, pos, out)
         np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(out[:, pos : pos + rows].numpy(), want)
 
 
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
@@ -175,15 +177,21 @@ def test_ell_band_relax_rejects_what_the_kernel_does_not_take():
     src = torch.zeros((4, 8), dtype=torch.int32)
     w = torch.zeros((4, 8), dtype=torch.int32)
     ov = torch.zeros(16, dtype=torch.bool)
+    out = torch.empty_like(d)
     with pytest.raises(ValueError):  # band past the last column
-        ell_relax.ell_band_relax(d, src, w, ov, 13)
+        ell_relax.ell_band_relax(d, src, w, ov, 13, out)
     with pytest.raises(TypeError):
-        ell_relax.ell_band_relax(d, src, w, ov.to(torch.float32), 0)
+        ell_relax.ell_band_relax(d, src, w, ov.to(torch.float32), 0, out)
     with pytest.raises(TypeError):
-        ell_relax.ell_band_relax(d.to(torch.int64), src, w, ov, 0)
+        ell_relax.ell_band_relax(d.to(torch.int64), src, w, ov, 0, out)
     with pytest.raises(ValueError):
-        ell_relax.ell_band_relax(d, src, w[:, :4], ov, 0)
+        ell_relax.ell_band_relax(d, src, w[:, :4], ov, 0, out)
+    with pytest.raises(ValueError):  # out not shaped like d
+        ell_relax.ell_band_relax(d, src, w, ov, 0, out[:, :8])
+    with pytest.raises(ValueError):  # out not int32
+        ell_relax.ell_band_relax(d, src, w, ov, 0, out.to(torch.int64))
     with pytest.raises(ValueError, match="no kernel"):
         ell_relax.ell_band_relax(
-            d.to("meta"), src.to("meta"), w.to("meta"), ov.to("meta"), 0
+            d.to("meta"), src.to("meta"), w.to("meta"), ov.to("meta"), 0,
+            out.to("meta"),
         )

@@ -165,6 +165,7 @@ def _check_churn(kind: str, lfa: bool) -> int:
     areas = {twin.area: twin.jax_ls}
     port_areas = {twin.area: twin.ls}
     checked = 0
+    port_solver.SPF_COUNTERS["decision.spf_host_fallback"] = 0
 
     def compare(event):
         want = _plain(jax_dev.build_route_db(root, areas, twin.jax_ps), root)
@@ -179,6 +180,8 @@ def _check_churn(kind: str, lfa: bool) -> int:
     for event in _events(twin, root):
         compare(event)
         checked += 1
+    # every LFA distance came from the device batch, none from a host SPF
+    assert port_solver.SPF_COUNTERS["decision.spf_host_fallback"] == 0
     return checked
 
 
@@ -211,6 +214,30 @@ def test_sparse_branch_is_taken_above_threshold(monkeypatch):
         twin.ls, root, "device", port_solver.SnapshotCache("cpu")
     )
     assert not isinstance(view._snap, port_solver._SparseIndexAdapter)
+
+
+@pytest.mark.parametrize("threshold", [3, 4096], ids=["sparse", "dense"])
+def test_metric_between_outside_batch_is_counted(threshold, monkeypatch):
+    # a node that is neither the root nor a neighbour is answered by the
+    # host Dijkstra in both packages, and counted as a host fallback
+    monkeypatch.setattr(jax_solver, "SPARSE_NODE_THRESHOLD", threshold)
+    monkeypatch.setattr(port_solver, "SPARSE_NODE_THRESHOLD", threshold)
+    topo, root = _topology("grid")
+    twin = Twin(topo)
+    dbs = twin.ls.get_adjacency_databases()
+    nbrs = sorted({adj.other_node_name for adj in dbs[root].adjacencies})
+    far = next(n for n in sorted(dbs) if n != root and n not in nbrs)
+    view = port_solver.SpfView(twin.ls, root, "device", port_solver.SnapshotCache("cpu"))
+    jax_view = jax_solver.SpfView(twin.jax_ls, root, "device")
+    port_solver.SPF_COUNTERS["decision.spf_host_fallback"] = 0
+    jax_before = jax_solver.SPF_COUNTERS["decision.spf_host_fallback"]
+    got = view.metric_between(far, root)
+    assert got == jax_view.metric_between(far, root) is not None
+    assert port_solver.SPF_COUNTERS["decision.spf_host_fallback"] == 1
+    assert jax_solver.SPF_COUNTERS["decision.spf_host_fallback"] == jax_before + 1
+    nbr = nbrs[0]
+    assert view.metric_between(nbr, far) == jax_view.metric_between(nbr, far)
+    assert port_solver.SPF_COUNTERS["decision.spf_host_fallback"] == 1
 
 
 def test_static_mpls_routes_and_anycast_prepend_parity():
