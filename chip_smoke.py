@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's route build on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's route build and route sweep on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -27,6 +27,27 @@ Phases, one JSON line each (``"phase": ...``):
    fallback count are zeroed before the phase and read after it; the
    fallback count must stay at 0.
 5. ``sparse``: the same on the 10 000-node fabric (sliced-ELL regime).
+6. ``sweep-1008``: the all-sources route sweep of the 1008-node fabric
+   (block 256), on three backends: the out-edge ELL sweep
+   (``rev_band_relax``) and the grouped sweep under each contraction
+   kernel (``batched_minplus``, ``batched_minplus_t``), with one sample
+   node per tier (``rsw``, ``fsw``, ``ssw``). Every destination's digest
+   and next-hop total must equal the host Dijkstra's (``host_digest``
+   over ``run_spf`` from every source), the backends must agree by node
+   name, and each sample's route table must equal ``run_spf``'s.
+   ``sweep_ms`` is the host clock around the whole sweep (it ends in a
+   readback); one more block is profiled for the card's busy time and
+   idle share; ``block_hops`` are the relax hops of each block. The
+   launch counts are zeroed before the phase; each backend must launch
+   its kernel, and the grouped sweeps no ELL kernel.
+7. ``sweep-10k``: the same on the 10 000-node fabric (block 1024); the
+   oracle there is the backends' agreement by name and each sample's
+   route table against ``run_spf``. It also prints the grouped graph's
+   ``structure_report``.
+
+The ``kernels`` phase of the route sweep's kernels (``rev_band_relax``,
+``batched_minplus``, ``batched_minplus_t``) runs at the 10 000-node
+sweep's shapes: one relax step of a 1024-destination block.
 
 Then one ``{"kernels": [...]}`` line (time, bound, plain time and main-path
 launches of every kernel) and, last, ``{"ok": true, "device": {...}}``.
@@ -63,6 +84,10 @@ SPARSE_NODES = 10000
 DENSE_EVENTS = 10
 SPARSE_EVENTS = 3
 REPS = 30
+# route sweep: destinations per block on each network (the reference
+# scale bench's 1008-node and 10 000-node settings)
+DENSE_SWEEP_BLOCK = 256
+SPARSE_SWEEP_BLOCK = 1024
 
 
 def emit(obj) -> None:
@@ -96,27 +121,54 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def profiled(torch, fn, what: str, attempts: int = 3):
+    """Run ``fn`` under the profiler's CUDA activity (CUPTI) and return
+    ``(key_averages, fn's result, host ms)``. A session that recorded no
+    device time for ``what`` (see ``device_us``) is reported on
+    stderr and run again, up to ``attempts`` times; then this raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = prof.key_averages()
+        if device_us(stats, what):
+            return stats, result, wall_ms
+        print(json.dumps({"profiler_session_without_device_time": what,
+                          "attempt": attempt + 1,
+                          "keys": [evt.key[:80] for evt in stats][:8]}),
+              file=sys.stderr, flush=True)
+    raise RuntimeError(f"the profiler recorded no device time for {what}")
+
+
+def device_us(stats, name) -> float:
+    """Device microseconds in ``stats`` of the kernels whose name holds
+    ``name`` (all device activity when ``name`` is ``"a call"``)."""
+    return sum(
+        getattr(evt, "self_device_time_total", 0) or 0
+        for evt in stats
+        if name == "a call" or name in evt.key
+    )
+
+
 def device_ms(torch, fn, calls: int, name=None) -> float:
     """Device time per call of ``fn`` from the profiler's CUDA activity
     (CUPTI): the kernels whose name contains ``name``, or all device
     activity (kernels, copies, fills) when ``name`` is None. Raises when
     the profiler recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    what = name or "a call"
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if name is not None and name not in evt.key:
-            continue
-        total_us += getattr(evt, "self_device_time_total", 0) or 0
-    if total_us <= 0:
-        raise RuntimeError(f"the profiler recorded no device time for {name or 'a call'}")
-    return total_us / 1e3 / calls
+
+    stats, _, _ = profiled(torch, run, what)
+    return device_us(stats, what) / 1e3 / calls
 
 
 def bound_ms(nbytes: int, nops: int):
@@ -175,9 +227,16 @@ def main(argv=None) -> int:
     from openr_tpu_torch.kernels import LAUNCHES, _build, reset_launches
     from openr_tpu_torch.models import topologies
     from openr_tpu_torch.ops import spf as spf_ops
-    from openr_tpu_torch.ops import spf_sparse
+    from openr_tpu_torch.ops import route_sweep, spf_grouped, spf_sparse
     from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_plain
+    from openr_tpu_torch.ops.grouped_minplus import (
+        batched_minplus,
+        batched_minplus_plain,
+        batched_minplus_t,
+        batched_minplus_t_plain,
+    )
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
+    from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -221,7 +280,7 @@ def main(argv=None) -> int:
     root = "rsw-0-0"
 
     # -- 3. kernels against their plain versions -------------------------------
-    max_err = {"minplus": 0, "ell_band_relax": 0}
+    max_err = {name: 0 for name in LAUNCHES}
 
     def compare(name, got, want, what):
         torch.cuda.synchronize()
@@ -341,6 +400,159 @@ def main(argv=None) -> int:
           "kernel_ms": ell_ms, "plain_ms": ell_plain, "bound_ms": ell_bound,
           "call_ms": ell_call, "plain_call_ms": ell_plain_call})
 
+    # rev_band_relax at the 10 000-node sweep's out-bands: a block of the
+    # first 1024 destinations, two relax hops from the unit init (finite
+    # and INF distances mixed); then the same bands with a random overload
+    # mask whose nodes some destinations hit
+    out_graph = route_sweep.compile_out_ell(sparse_ls)
+    rv_t = tuple(torch.from_numpy(v).to(dev) for v in out_graph.src)
+    rw_t = tuple(torch.from_numpy(w).to(dev) for w in out_graph.w)
+    r_ov = torch.from_numpy(out_graph.overloaded).to(dev)
+    rb = SPARSE_SWEEP_BLOCK
+    t_blk = torch.arange(rb, dtype=torch.int32, device=dev)
+    dr = torch.full((rb, out_graph.n_pad), INF, dtype=torch.int32, device=dev)
+    dr[torch.arange(rb, device=dev), t_blk.long()] = 0
+    for _ in range(2):
+        dr = route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
+    ov_np = rng.random(out_graph.n_pad) < 0.05
+    t_np = np.arange(rb, dtype=np.int32)
+    t_np[::4] = rng.choice(np.flatnonzero(ov_np), size=t_np[::4].shape)
+    masks = [(r_ov, t_blk),
+             (torch.from_numpy(ov_np).to(dev), torch.from_numpy(t_np).to(dev))]
+    rev_rows = []
+    pos = 0
+    band_out = torch.empty_like(dr)
+    for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
+        for ovm, tt in masks:
+            compare("rev_band_relax",
+                    rev_band_relax(dr, v_b, w_b, tt, ovm, pos, band_out),
+                    rev_band_relax_plain(dr, v_b, w_b, tt, ovm, pos),
+                    f"out-band {band}")
+        rev_rows.append({
+            "rows": band.rows, "k": band.k,
+            "kernel_ms": device_ms(
+                torch, lambda: rev_band_relax(dr, v_b, w_b, t_blk, r_ov, pos, band_out),
+                REPS, "rev_band_relax_"),
+            "plain_ms": device_ms(
+                torch, lambda: rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, pos),
+                REPS),
+        })
+        pos += band.rows
+    for b_, n_pad, rows, k in [(3, 300, 50, 9), (37, 1000, 997, 8),
+                               (17, 256, 5, 200), (5, 700, 33, 64)]:
+        dd, ww = rand_int((b_, n_pad), 0.3), rand_int((rows, k), 0.3)
+        vb = torch.from_numpy(rng.integers(0, n_pad, (rows, k)).astype(np.int32)).to(dev)
+        ovn = rng.random(n_pad) < 0.2
+        tn = rng.integers(0, n_pad, b_).astype(np.int32)
+        tn[::2] = rng.choice(np.flatnonzero(ovn), size=tn[::2].shape)
+        tt = torch.from_numpy(tn).to(dev)
+        ovr = torch.from_numpy(ovn).to(dev)
+        p = n_pad - rows
+        for mask in (ovr, ovr.to(torch.int32)):
+            out = torch.full_like(dd, -1)
+            compare("rev_band_relax", rev_band_relax(dd, vb, ww, tt, mask, p, out),
+                    rev_band_relax_plain(dd, vb, ww, tt, mask, p), (b_, n_pad, rows, k))
+            compare("rev_band_relax", out[:, :p], torch.full_like(dd[:, :p], -1),
+                    f"columns outside the band at {(b_, n_pad, rows, k)}")
+
+    def rev_step_plain():
+        out = torch.empty_like(dr)
+        at = 0
+        for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
+            out[:, at : at + band.rows] = rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, at)
+            at += band.rows
+        out[:, at:] = dr[:, at:]
+        return out
+
+    def rev_step_kernel():
+        return route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
+
+    compare("rev_band_relax", rev_step_kernel(), rev_step_plain(),
+            "one reversed relax step over all out-bands")
+    rslots = sum(band.rows * band.k for band in out_graph.bands)
+    rev_call = time_ms(torch, rev_step_kernel, REPS)
+    rev_plain_call = time_ms(torch, rev_step_plain, REPS)
+    rev_ms = device_ms(torch, rev_step_kernel, REPS, "rev_band_relax_")
+    rev_plain = device_ms(torch, rev_step_plain, REPS)
+    # each input read once: the destination rows, the band slots (v + w),
+    # the overload mask, the destination ids; each output written once:
+    # the band columns. One add and one min per gathered slot and row.
+    rev_bound, rev_by = bound_ms(
+        4 * rb * out_graph.n_pad + 8 * rslots + out_graph.n_pad + 4 * rb
+        + 4 * rb * out_graph.n,
+        2 * rb * rslots,
+    )
+    rev_shape = {"B": rb, "n_pad": out_graph.n_pad,
+                 "bands": [[bd.rows, bd.k] for bd in out_graph.bands]}
+    emit({"phase": "kernels", "kernel": "rev_band_relax", "shape": rev_shape,
+          "match": True, "bands": rev_rows,
+          "kernel_ms": rev_ms, "plain_ms": rev_plain, "bound_ms": rev_bound,
+          "call_ms": rev_call, "plain_call_ms": rev_plain_call})
+
+    # batched_minplus(_t) at the 10 000-node grouped sweep's segments: the
+    # masked source tables of the same destination block, two grouped
+    # relax hops from the unit init, in each kernel's layout
+    grp_graph = spf_grouped.compile_out_grouped(sparse_ls)
+    g_meta = spf_grouped.band_meta(grp_graph)
+    g_src, g_w = spf_grouped.device_tensors(grp_graph, dev)
+    g_ov = torch.from_numpy(grp_graph.overloaded).to(dev)
+    dg = torch.full((rb, grp_graph.n_pad), INF, dtype=torch.int32, device=dev)
+    dg[torch.arange(rb, device=dev), t_blk.long()] = 0
+    for _ in range(2):
+        dg = spf_grouped._grouped_relax(
+            dg, g_meta, g_src, g_w, g_ov, t_blk, spf_grouped.IMPLS[0]
+        )
+    segs = []
+    for src, w in zip(g_src, g_w):
+        idx = src.long()
+        blocked = g_ov[idx][None] & (src[None] != t_blk[:, None, None])
+        gath = dg[:, idx].masked_fill(blocked, INF)  # [B, G, S]
+        segs.append((gath.permute(1, 0, 2).contiguous(),
+                     gath.permute(1, 2, 0).contiguous(), w))
+    grouped_shapes = [[int(w.shape[0]), rb, int(w.shape[1]), int(w.shape[2])]
+                      for _, _, w in segs]
+    ragged = [(3, 5, 7, 9), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
+              (50, 300, 13, 6)]
+    grouped_ops = {
+        "batched_minplus": (batched_minplus, batched_minplus_plain, 0),
+        "batched_minplus_t": (batched_minplus_t, batched_minplus_t_plain, 1),
+    }
+    g_bytes = sum(4 * (g * b_ * s + g * s * r + g * b_ * r) for g, b_, s, r in grouped_shapes)
+    g_ops = sum(2 * g * b_ * s * r for g, b_, s, r in grouped_shapes)
+    grp_bound, grp_by = bound_ms(g_bytes, g_ops)
+    grouped_kernel = {}
+    for name, (kern, plain, layout) in grouped_ops.items():
+        for seg, shape in zip(segs, grouped_shapes):
+            compare(name, kern(seg[layout], seg[2]), plain(seg[layout], seg[2]),
+                    f"segment {shape}")
+        for g, b_, s, r in ragged:
+            gath = rand_int((g, s, b_) if layout else (g, b_, s), 0.3)
+            w = rand_int((g, s, r), 0.3)
+            compare(name, kern(gath, w), plain(gath, w), (g, b_, s, r))
+
+        def step_kernel(kern=kern, layout=layout):
+            return [kern(seg[layout], seg[2]) for seg in segs]
+
+        def step_plain(plain=plain, layout=layout):
+            return [plain(seg[layout], seg[2]) for seg in segs]
+
+        grouped_kernel[name] = {
+            "kernel_ms": device_ms(torch, step_kernel, REPS, "batched_minplus_kernel"),
+            "plain_ms": device_ms(torch, step_plain, REPS),
+            "call_ms": time_ms(torch, step_kernel, REPS),
+            "plain_call_ms": time_ms(torch, step_plain, REPS),
+            "segments": [
+                {"shape": shape,
+                 "kernel_ms": device_ms(torch, lambda seg=seg: kern(seg[layout], seg[2]),
+                                        REPS, "batched_minplus_kernel")}
+                for seg, shape in zip(segs, grouped_shapes)
+            ],
+        }
+        emit({"phase": "kernels", "kernel": name,
+              "shape": {"segments_GBSR": grouped_shapes}, "match": True,
+              "checked_shapes": [list(x) for x in ragged],
+              "bound_ms": grp_bound, **grouped_kernel[name]})
+
     # -- 4./5. the main path: route builds through the kernels ---------------
     def drive(phase, ls, ps, events, nodes):
         """Initial build + ``events`` churn builds from ``root``, then one
@@ -445,12 +657,152 @@ def main(argv=None) -> int:
     if sparse["ell_band_relax"] == 0:
         raise AssertionError("sparse route builds launched no ell_band_relax kernel")
 
+    # -- 6./7. the main path: all-sources route sweeps through the kernels --
+    def oracle_digests(ls, graph):
+        """Name -> (digest, next-hop total) of every destination from the
+        host Dijkstra run from every source (``host_digest``)."""
+        n, n_pad = graph.n, graph.n_pad
+        d_rows = np.full((n, n_pad), INF, dtype=np.int64)
+        nh_counts = np.zeros((n, n_pad), dtype=np.int64)
+        for s_id, s_name in enumerate(graph.node_names):
+            for t_name, res in ls.run_spf(s_name).items():
+                t_id = graph.node_index[t_name]
+                d_rows[t_id, s_id] = res.metric
+                if s_id != t_id:
+                    nh_counts[t_id, s_id] = len(res.next_hops)
+        digests = route_sweep.host_digest(
+            d_rows, nh_counts, pos_w=route_sweep.canonical_pos_weights(graph)
+        )
+        totals = nh_counts.sum(1)
+        return {nm: (int(digests[i]), int(totals[i]))
+                for i, nm in enumerate(graph.node_names)}
+
+    def sweep_phase(phase, ls, block, full_oracle):
+        """The all-sources route sweep on the ELL backend and on the
+        grouped backend under each contraction kernel; held against the
+        host Dijkstra and against each other by node name."""
+        t0 = time.perf_counter()
+        ell_graph = route_sweep.compile_out_ell(ls)
+        ell_compile_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        grp_graph = spf_grouped.compile_out_grouped(ls)
+        grp_compile_ms = (time.perf_counter() - t0) * 1e3
+        samples = [
+            next(nm for nm in ell_graph.node_names if nm.startswith(tier))
+            for tier in ("rsw", "fsw", "ssw")
+        ]
+        backends = [("ell", lambda: route_sweep.RouteSweeper(
+            ell_graph, samples, device=dev))]
+        for impl in spf_grouped.IMPLS:
+            backends.append((f"grouped/{impl}", lambda impl=impl: (
+                spf_grouped.GroupedRouteSweeper(
+                    grp_graph, samples, impl=impl, device=dev))))
+        t0 = time.perf_counter()
+        oracle = oracle_digests(ls, ell_graph) if full_oracle else None
+        oracle_ms = (time.perf_counter() - t0) * 1e3
+        want_routes = {}
+        for nm in samples:
+            want_routes[nm] = {
+                dst: (res.metric, set(res.next_hops))
+                for dst, res in ls.run_spf(nm).items() if dst != nm
+            }
+        reset_launches()
+        phase_launches = dict(LAUNCHES)
+        report = {}
+        by_name = {}
+        for label, make in backends:
+            sweeper = make()
+            before = dict(LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = sweeper.sweep(block=block)
+            torch.cuda.synchronize()
+            sweep_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            for k in LAUNCHES:
+                phase_launches[k] += launches[k]
+            if label == "ell":
+                if launches["rev_band_relax"] == 0:
+                    raise AssertionError(f"{phase}: the ELL sweep launched no rev_band_relax")
+                stray = {k: v for k, v in launches.items() if k != "rev_band_relax" and v}
+            else:
+                impl = label.split("/")[1]
+                if launches[impl] == 0:
+                    raise AssertionError(f"{phase}: the {label} sweep launched no {impl}")
+                stray = {k: v for k, v in launches.items() if k != impl and v}
+            if stray:
+                raise AssertionError(f"{phase}: the {label} sweep launched {stray}")
+            names = result.graph.node_names
+            digests = route_sweep.digests_by_name(result)
+            totals = {nm: int(result.nh_totals[result.graph.node_index[nm]])
+                      for nm in names}
+            by_name[label] = digests
+            if oracle is not None:
+                bad = [nm for nm in names
+                       if (int(digests[nm]), totals[nm]) != oracle[nm]]
+                if bad:
+                    raise AssertionError(
+                        f"{phase}: {label} digests differ from the host Dijkstra "
+                        f"at {len(bad)} destinations, first {bad[:3]}"
+                    )
+            for nm in samples:
+                if result.routes_from(nm) != want_routes[nm]:
+                    raise AssertionError(
+                        f"{phase}: {label} route table of {nm} differs from run_spf"
+                    )
+            # one more block under the profiler: the card's busy share
+            ids = torch.arange(block, dtype=torch.int32, device=dev) % ell_graph.n_pad
+            sweeper.solve_block(ids).cpu()
+            stats, _, block_wall = profiled(
+                torch, lambda: sweeper.solve_block(ids).cpu(), "a call"
+            )
+            busy = device_us(stats, "a call") / 1e3
+            top = sorted(
+                stats, key=lambda e: getattr(e, "self_device_time_total", 0) or 0,
+                reverse=True,
+            )[:6]
+            report[label] = {
+                "sweep_ms": sweep_ms, "blocks": len(result.digests) // block
+                + (len(result.digests) % block > 0),
+                "block_hops": sweeper.block_hops[: -(-ell_graph.n_pad // block)],
+                "launches": launches,
+                "profiled_block_ms": block_wall, "block_device_busy_ms": busy,
+                "block_device_idle_share": 1 - busy / block_wall,
+                "block_top_device_ms": [
+                    [evt.key[:60], (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
+                     evt.count]
+                    for evt in top
+                ],
+            }
+        ref = by_name["ell"]
+        for label, digests in by_name.items():
+            if digests != ref:
+                raise AssertionError(f"{phase}: {label} digests differ from the ELL sweep's by name")
+        emit({
+            "phase": phase, "nodes": ell_graph.n, "n_pad": ell_graph.n_pad,
+            "block": block, "samples": samples,
+            "parity_with_host_oracle": "every destination digest" if full_oracle
+            else "sample route tables",
+            "backends_agree_by_name": True, "oracle_ms": oracle_ms,
+            "ell_compile_ms": ell_compile_ms, "grouped_compile_ms": grp_compile_ms,
+            "ell_bands": [[bd.rows, bd.k] for bd in ell_graph.bands],
+            "structure_report": spf_grouped.structure_report(grp_graph),
+            "backends": report, "launches": phase_launches,
+        })
+        return phase_launches
+
+    sweep_small = sweep_phase("sweep-1008", dense_ls, DENSE_SWEEP_BLOCK, True)
+    sweep_large = sweep_phase("sweep-10k", sparse_ls, SPARSE_SWEEP_BLOCK, False)
+    main_launches = {
+        k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] for k in LAUNCHES
+    }
+
     csrc = "openr_tpu_torch/csrc"
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "minplus", "route": "cuda", "source": f"{csrc}/minplus.cu",
          "replaces": "openr_tpu/ops/pallas_minplus.py:69",
-         "launches": dense["minplus"] + sparse["minplus"],
+         "launches": main_launches["minplus"],
          "max_abs_err": max_err["minplus"],
          "ms": mp_ms, "plain_ms": mp_plain,
          "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None,
@@ -458,7 +810,7 @@ def main(argv=None) -> int:
          "shape": [[s_, k_], [k_, n_]], "match": True},
         {"name": "ell_band_relax", "route": "cuda", "source": f"{csrc}/ell_relax.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:196",
-         "launches": dense["ell_band_relax"] + sparse["ell_band_relax"],
+         "launches": main_launches["ell_band_relax"],
          "max_abs_err": max_err["ell_band_relax"],
          "ms": ell_ms, "plain_ms": ell_plain,
          "bound_ms": ell_bound, "bound_by": ell_by, "library_ms": None,
@@ -466,6 +818,28 @@ def main(argv=None) -> int:
          "shape": {"S": b, "n_pad": graph.n_pad,
                    "bands": [[bd.rows, bd.k] for bd in graph.bands]},
          "match": True},
+        {"name": "rev_band_relax", "route": "cuda", "source": f"{csrc}/rev_relax.cu",
+         "replaces": "openr_tpu/ops/pallas_ell.py:248",
+         "launches": main_launches["rev_band_relax"],
+         "max_abs_err": max_err["rev_band_relax"],
+         "ms": rev_ms, "plain_ms": rev_plain,
+         "bound_ms": rev_bound, "bound_by": rev_by, "library_ms": None,
+         "call_ms": rev_call, "plain_call_ms": rev_plain_call,
+         "shape": rev_shape, "match": True},
+    ] + [
+        {"name": name, "route": "cuda", "source": f"{csrc}/grouped_minplus.cu",
+         "replaces": replaces,
+         "launches": main_launches[name], "max_abs_err": max_err[name],
+         "ms": grouped_kernel[name]["kernel_ms"],
+         "plain_ms": grouped_kernel[name]["plain_ms"],
+         "bound_ms": grp_bound, "bound_by": grp_by, "library_ms": None,
+         "call_ms": grouped_kernel[name]["call_ms"],
+         "plain_call_ms": grouped_kernel[name]["plain_call_ms"],
+         "shape": {"segments_GBSR": grouped_shapes}, "match": True}
+        for name, replaces in (
+            ("batched_minplus", "openr_tpu/ops/pallas_grouped.py:247"),
+            ("batched_minplus_t", "openr_tpu/ops/pallas_grouped.py:203"),
+        )
     ]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,11 @@
 
 The "weights" of a route build are its inputs and compiled graph state:
 the link-state and prefix databases, the dense snapshot, the sliced-ELL
-bands. These functions build the port's objects from plain Python data
-and numpy arrays, so any producer (a file, another implementation, a
-test) can hand state to the port without sharing a type with it, and
-turn a ``RouteDatabase`` into a canonical plain form for comparison.
+bands (in-edge and out-edge), the grouped segments. These functions
+build the port's objects from plain Python data and numpy arrays, so any
+producer (a file, another implementation, a test) can hand state to the
+port without sharing a type with it, and turn a ``RouteDatabase`` into a
+canonical plain form for comparison.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.graph.snapshot import GraphSnapshot
+from openr_tpu_torch.ops.spf_grouped import GridBand, GroupedGraph, Segment
 from openr_tpu_torch.ops.spf_sparse import EllBand, EllGraph
 from openr_tpu_torch.types import (
     Adjacency,
@@ -205,6 +207,64 @@ def ell_from_numpy(
         src=srcs,
         w=ws,
         overloaded=np.ascontiguousarray(overloaded, dtype=bool),
+    )
+
+
+def out_ell_from_numpy(
+    node_names: Sequence[str],
+    bands: Sequence[Tuple[int, int, int]],
+    v: Sequence[np.ndarray],
+    w: Sequence[np.ndarray],
+    overloaded: np.ndarray,
+) -> EllGraph:
+    """An out-edge ``EllGraph`` (row j holds the edges out of j, as the
+    route sweep relaxes them) from its bands and per-band ``[rows, k]``
+    int32 neighbour and metric arrays; a ``RouteSweeper`` moves it to the
+    device it solves on."""
+    graph = ell_from_numpy(node_names, bands, v, w, overloaded)
+    return dataclasses.replace(graph, direction="out")
+
+
+def grouped_from_numpy(
+    node_names: Sequence[str],
+    bands: Sequence[Tuple[int, int, int, Sequence[Tuple[int, np.ndarray, np.ndarray]]]],
+    overloaded: np.ndarray,
+    direction: str,
+) -> GroupedGraph:
+    """A ``GroupedGraph`` from its bands ``[(start, g1, g2, segments)]``,
+    each segment ``(axis, src [G, S], w [G, S, R])`` int32. The graph is
+    host state; a ``GroupedState`` or ``GroupedRouteSweeper`` moves it to
+    the device it solves on."""
+    names = tuple(node_names)
+    gbands = []
+    pos = 0
+    for start, g1, g2, segments in bands:
+        if int(start) != pos:
+            raise ValueError(f"band at {start} does not start at node {pos}")
+        segs = []
+        for axis, src, w in segments:
+            src = np.ascontiguousarray(src, dtype=np.int32)
+            w = np.ascontiguousarray(w, dtype=np.int32)
+            groups = int(g1) if axis == 1 else int(g2)
+            members = int(g2) if axis == 1 else int(g1)
+            if w.shape != (groups, src.shape[1], members) or src.shape[0] != groups:
+                raise ValueError(
+                    f"segment axis {axis} of a {g1}x{g2} band: src "
+                    f"{src.shape}, w {w.shape}"
+                )
+            segs.append(Segment(axis=int(axis), src=src, w=w))
+        gbands.append(GridBand(int(start), int(g1), int(g2), tuple(segs)))
+        pos += int(g1) * int(g2)
+    if pos != len(names):
+        raise ValueError(f"bands cover {pos} of {len(names)} nodes")
+    return GroupedGraph(
+        node_names=names,
+        node_index={name: i for i, name in enumerate(names)},
+        n=len(names),
+        n_pad=int(overloaded.shape[0]),
+        bands=tuple(gbands),
+        overloaded=np.ascontiguousarray(overloaded, dtype=bool),
+        direction=direction,
     )
 
 

@@ -3,15 +3,21 @@
 ``LAUNCHES[name]`` goes up by one each time a wrapper launches kernel
 ``name`` on the card, and nowhere else: a plain version run on CPU
 tensors does not count. ``chip_smoke.py`` zeroes the counts before a
-route build and reads them after, to show the build went through the
-kernels.
+route build or a route sweep and reads them after, to show the main
+path went through the kernels.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"minplus": 0, "ell_band_relax": 0}
+LAUNCHES: Dict[str, int] = {
+    "minplus": 0,
+    "ell_band_relax": 0,
+    "rev_band_relax": 0,
+    "batched_minplus": 0,
+    "batched_minplus_t": 0,
+}
 
 
 def reset_launches() -> None:

@@ -3,9 +3,10 @@
 Port note: the counterpart of ``openr_tpu/ops/pallas_ell.py::ell_band_relax``.
 ``ell_band_relax`` launches the hand-written kernel in
 ``csrc/ell_relax.cu`` on CUDA tensors and runs ``ell_band_relax_plain``
-on CPU tensors; there is no fallback from one to the other. The masked
-(KSP2) and reversed-graph (route sweep) variants of the same Pallas
-module are not ported yet.
+on CPU tensors; there is no fallback from one to the other. The
+reversed-graph variant of the same Pallas module (the route sweep's
+``rev_band_relax``) is ``ops/rev_relax.py``; the masked (KSP2) variant is
+not ported yet.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 
 Port note: mirrors the cold view-solve subset of
 ``openr_tpu/ops/spf_sparse.py``: ``EllBand``/``EllGraph``, the per-link
-in-edge slots, ``compile_ell`` (in-edge direction only), ``direct_metrics``,
+in-edge slots, ``compile_ell`` (both directions: per-link in-edge bands
+for the SPF views, per-neighbour out-edge bands for the route sweep of
+``ops.route_sweep``), ``_as_device_ids``, ``direct_metrics``,
 ``_ell_relax``, ``_ell_view_batch``, ``_first_hops_from_rows``,
 ``ell_view_batch_packed`` and ``ell_source_batch``. Each band of a relax
 step goes through ``ops.ell_relax.ell_band_relax`` (the hand-written CUDA
@@ -63,8 +65,13 @@ class EllGraph:
     src: Tuple[np.ndarray, ...]  # per band [rows, k] int32 (self-loop pad)
     w: Tuple[np.ndarray, ...]  # per band [rows, k] int32 (INF pad)
     overloaded: np.ndarray  # [n_pad] bool
-    # per-link slot index: node id -> {link key -> (band, row, slot)}.
-    # What makes one member of a parallel group excludable for KSP2.
+    # "in": row j holds the edges INTO j (the forward relax layout);
+    # "out": row j holds the edges OUT of j (the reversed-graph layout
+    # the destination-major route sweep relaxes over)
+    direction: str = "in"
+    # per-link slot index of an "in" graph: node id -> {link key ->
+    # (band, row, slot)}. What makes one member of a parallel group
+    # excludable for KSP2. None for an "out" graph.
     slot_of: Optional[Dict[int, Dict[Tuple, Tuple[int, int, int]]]] = None
 
 
@@ -111,6 +118,54 @@ def _in_edge_slots(ls, name, index) -> List[Tuple[int, int, Tuple]]:
     return slots
 
 
+def _in_edges(ls, name, index) -> Dict[int, int]:
+    """origin id -> min reverse-direction metric (parallel links: min)."""
+    best: Dict[int, int] = {}
+    for link in ls.ordered_links_from_node(name):
+        if not link.is_up():
+            continue
+        other = link.other_node(name)
+        i = index.get(other)
+        if i is None:
+            continue
+        m = min(int(link.metric_from(other)), int(INF) - 1)
+        if i not in best or m < best[i]:
+            best[i] = m
+    return best
+
+
+def _out_edges(ls, name, index) -> Dict[int, int]:
+    """dst id -> min forward-direction metric (parallel links: min).
+    Row ``name`` of an out-ELL graph holds (dst, w(name -> dst)): the
+    in-edge bands of the reversed graph."""
+    best: Dict[int, int] = {}
+    for link in ls.ordered_links_from_node(name):
+        if not link.is_up():
+            continue
+        other = link.other_node(name)
+        i = index.get(other)
+        if i is None:
+            continue
+        m = min(int(link.metric_from(name)), int(INF) - 1)
+        if i not in best or m < best[i]:
+            best[i] = m
+    return best
+
+
+def _fill_row(src_row, w_row, edges) -> None:
+    for slot, (i, m) in enumerate(sorted(edges.items())):
+        src_row[slot] = i
+        w_row[slot] = m
+
+
+def _as_device_ids(ids, device) -> torch.Tensor:
+    """int32 ids on ``device``; a tensor already there passes through
+    without a copy or a host sync."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(ids, dtype=np.int32), device=device)
+
+
 def _band_of(graph: EllGraph, node_id: int) -> Tuple[int, EllBand]:
     for bi, band in enumerate(graph.bands):
         if band.start <= node_id < band.start + band.rows:
@@ -126,24 +181,38 @@ def _class_k(degree: int) -> int:
     return k
 
 
-def compile_ell(ls, align: int = _NODE_PAD) -> EllGraph:
-    """Sliced-ELL compilation of the in-edge graph from the LinkState:
-    O(E) host work and O(E) slots, no dense matrix. Every LINK gets its
-    own slot (parallel links are not min-collapsed; the relax min()s
-    across slots), and ``slot_of`` records where."""
+def compile_ell(ls, align: int = _NODE_PAD, direction: str = "in") -> EllGraph:
+    """Sliced-ELL compilation from the LinkState: O(E) host work and
+    O(E) slots, no dense matrix.
+
+    ``direction="in"`` gives every LINK its own slot (parallel links are
+    not min-collapsed; the relax min()s across slots), and ``slot_of``
+    records where. ``direction="out"`` builds the reversed-graph bands
+    (row j = out-edges of j) that ``ops.route_sweep`` relaxes over, with
+    one slot per neighbour holding the min over parallel links: the
+    sweep's next-hop counts are per neighbour."""
+    if direction not in ("in", "out"):
+        raise ValueError(f"compile_ell: direction {direction!r}")
+    per_link = direction == "in"
     raw_names = sorted(ls.get_adjacency_databases().keys())
     raw_index = {name: i for i, name in enumerate(raw_names)}
-    degree = {
-        name: max(
-            1,
-            sum(
-                1
-                for link in ls.ordered_links_from_node(name)
-                if link.is_up() and link.other_node(name) in raw_index
-            ),
-        )
-        for name in raw_names
-    }
+    if per_link:
+        degree = {
+            name: max(
+                1,
+                sum(
+                    1
+                    for link in ls.ordered_links_from_node(name)
+                    if link.is_up() and link.other_node(name) in raw_index
+                ),
+            )
+            for name in raw_names
+        }
+    else:
+        degree = {
+            name: max(1, len(_out_edges(ls, name, raw_index)))
+            for name in raw_names
+        }
     names = tuple(sorted(raw_names, key=lambda nm: (_class_k(degree[nm]), nm)))
     index = {name: i for i, name in enumerate(names)}
     n = len(names)
@@ -165,6 +234,9 @@ def compile_ell(ls, align: int = _NODE_PAD) -> EllGraph:
         src_b = np.tile(np.arange(i, j, dtype=np.int32)[:, None], (1, k))
         w_b = np.full((rows, k), INF, dtype=np.int32)
         for r, name in enumerate(names[i:j]):
+            if not per_link:
+                _fill_row(src_b[r], w_b[r], _out_edges(ls, name, index))
+                continue
             nd: Dict[Tuple, Tuple[int, int, int]] = {}
             for slot, (sid, m, key) in enumerate(_in_edge_slots(ls, name, index)):
                 src_b[r, slot] = sid
@@ -180,7 +252,8 @@ def compile_ell(ls, align: int = _NODE_PAD) -> EllGraph:
     return EllGraph(
         node_names=names, node_index=index, n=n, n_pad=n_pad,
         bands=tuple(bands), src=tuple(srcs), w=tuple(ws),
-        overloaded=overloaded, slot_of=slot_of,
+        overloaded=overloaded, direction=direction,
+        slot_of=slot_of if per_link else None,
     )
 
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from openr_tpu_torch.kernels import LAUNCHES, reset_launches
-from openr_tpu_torch.ops import ell_relax, minplus
+from openr_tpu_torch.ops import ell_relax, grouped_minplus, minplus, rev_relax
 
 INF = (1 << 30) - 1
 
@@ -67,3 +67,68 @@ def test_ell_band_relax_kernel_matches_plain(card, s, n_pad, rows, k, pos, mask_
     assert torch.equal(view, want)
     assert torch.equal(out[:, pos : pos + rows], want)
     assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,n_pad,rows,k,pos",
+    [
+        # the 10 000-node sweep's out-bands at a 1024-destination block
+        (1024, 10112, 7488, 8, 0), (1024, 10112, 2496, 16, 7488),
+        (1024, 10112, 16, 1024, 9984),
+        # ragged: narrow and wide (warp per row, k >= 64) bodies
+        (3, 300, 50, 9, 17), (13, 256, 200, 24, 56), (5, 700, 33, 64, 600),
+        (2, 130, 3, 200, 127),
+    ],
+)
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8, torch.int32])
+def test_rev_band_relax_kernel_matches_plain(card, b, n_pad, rows, k, pos, mask_dtype):
+    rng = np.random.default_rng(b + n_pad + rows + k)
+    d = _mat(rng, (b, n_pad), 0.2).to(card)
+    v_np = rng.integers(0, n_pad, (rows, k)).astype(np.int32)
+    ov_np = rng.random(n_pad) < 0.1
+    t_np = rng.integers(0, n_pad, b).astype(np.int32)
+    # destinations that are overloaded nodes and band neighbours
+    t_np[::3] = rng.choice(np.flatnonzero(ov_np), size=t_np[::3].shape)
+    t_np[1::3] = v_np.reshape(-1)[rng.integers(0, v_np.size, t_np[1::3].shape)]
+    v = torch.from_numpy(v_np).to(card)
+    w = _mat(rng, (rows, k), 0.2).to(card)
+    t_ids = torch.from_numpy(t_np).to(card)
+    ov = torch.from_numpy(ov_np).to(card).to(mask_dtype)
+    want = rev_relax.rev_band_relax_plain(d, v, w, t_ids, ov, pos)
+    out = torch.full_like(d, -1)
+    view = rev_relax.rev_band_relax(d, v, w, t_ids, ov, pos, out=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rev_band_relax"] == 1
+    assert torch.equal(view, want)
+    assert torch.equal(out[:, pos : pos + rows], want)
+    assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "g,b,s,r",
+    [
+        # the 10 000-node grouped sweep's segments at B = 1024
+        (624, 1024, 4, 12), (624, 1024, 12, 4), (4, 1024, 4, 624), (4, 1024, 624, 4),
+        # ragged, and S past the Pallas s-block cap of 512
+        (3, 5, 7, 9), (1, 1, 1, 1), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
+    ],
+)
+@pytest.mark.parametrize("transposed", [False, True], ids=["bgs", "sgb"])
+def test_batched_minplus_kernel_matches_plain(card, g, b, s, r, transposed):
+    rng = np.random.default_rng(g + b + s + r)
+    w = _mat(rng, (g, s, r), 0.3).to(card)
+    if transposed:
+        gath = _mat(rng, (g, s, b), 0.3).to(card)
+        got = grouped_minplus.batched_minplus_t(gath, w)
+        want = grouped_minplus.batched_minplus_t_plain(gath, w)
+        name = "batched_minplus_t"
+    else:
+        gath = _mat(rng, (g, b, s), 0.3).to(card)
+        got = grouped_minplus.batched_minplus(gath, w)
+        want = grouped_minplus.batched_minplus_plain(gath, w)
+        name = "batched_minplus"
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1
+    assert torch.equal(got, want)

@@ -1,8 +1,9 @@
 """The port's kernel modules against the JAX package's kernels.
 
-``minplus_plain`` and ``ell_band_relax_plain`` are the versions the port
-runs on CPU tensors, and what the CUDA kernels are held against on the
-card. Here they are held against the JAX package's Pallas kernels (in
+``minplus_plain``, ``ell_band_relax_plain``, ``rev_band_relax_plain``,
+``batched_minplus_plain`` and ``batched_minplus_t_plain`` are the versions
+the port runs on CPU tensors, and what the CUDA kernels are held against
+on the card. Here they are held against the JAX package's Pallas kernels (in
 interpret mode on the CPU) and its jnp formulations, on the same int32
 inputs made with numpy from a seed. The tolerance is exact equality:
 everything is int32 with saturation at INF = 2^30 - 1. The on-card leg,
@@ -16,12 +17,19 @@ import numpy as np
 import pytest
 import torch
 
+from openr_tpu.ops import pallas_grouped as jax_pallas_grouped
+from openr_tpu.ops import route_sweep as jax_sweep
 from openr_tpu.ops import spf as jax_spf
+from openr_tpu.ops import spf_grouped as jax_grouped
 from openr_tpu.ops import spf_sparse as jax_sparse
 from openr_tpu.ops.pallas_ell import ell_band_relax as jax_ell_band_relax
+from openr_tpu.ops.pallas_ell import rev_band_relax as jax_rev_band_relax
 from openr_tpu.ops.pallas_minplus import minplus as jax_pallas_minplus
 from openr_tpu_torch.kernels import LAUNCHES, reset_launches
-from openr_tpu_torch.ops import ell_relax, minplus as port_minplus
+from openr_tpu_torch.ops import ell_relax, grouped_minplus, rev_relax
+from openr_tpu_torch.ops import minplus as port_minplus
+from openr_tpu_torch.ops import route_sweep as port_sweep
+from openr_tpu_torch.ops import spf_grouped as port_grouped
 from openr_tpu_torch.ops import spf_sparse as port_sparse
 
 INF = (1 << 30) - 1
@@ -42,7 +50,11 @@ def _no_launches():
     """CPU tensors run the plain versions: no kernel launch is counted."""
     reset_launches()
     yield
-    assert LAUNCHES == {"minplus": 0, "ell_band_relax": 0}
+    assert set(LAUNCHES) == {
+        "minplus", "ell_band_relax", "rev_band_relax", "batched_minplus",
+        "batched_minplus_t",
+    }
+    assert all(count == 0 for count in LAUNCHES.values()), LAUNCHES
 
 
 @pytest.mark.parametrize(
@@ -194,4 +206,204 @@ def test_ell_band_relax_rejects_what_the_kernel_does_not_take():
         ell_relax.ell_band_relax(
             d.to("meta"), src.to("meta"), w.to("meta"), ov.to("meta"), 0,
             out.to("meta"),
+        )
+
+
+# -- rev_band_relax: the route sweep's reversed-graph band relax ---------------
+
+
+def _rev_band(rng, b, n_pad, rows, k, pos, inf_frac, ov_frac):
+    """A band with destination ids that hit overloaded nodes and the
+    band's own neighbour ids, so both arms of the transit test occur."""
+    dr, v, w, ov = _band(rng, b, n_pad, rows, k, pos, inf_frac, ov_frac)
+    t_ids = rng.integers(0, n_pad, b).astype(np.int32)
+    hot = np.flatnonzero(ov)
+    if hot.size:
+        t_ids[::3] = rng.choice(hot, size=t_ids[::3].shape)
+    t_ids[1::3] = v.reshape(-1)[rng.integers(0, v.size, t_ids[1::3].shape)]
+    return dr, v, w, t_ids, ov
+
+
+REV_CASES = [
+    # b, n_pad, rows, k, pos, inf_frac, overloaded fraction; the first
+    # three are the 10 000-node sweep's out-bands (7488x8, 2496x16,
+    # 16x1024 at n_pad 10112) scaled down
+    (16, 256, 150, 8, 0, 0.3, 0.1),
+    (16, 256, 50, 16, 150, 0.3, 0.2),
+    (16, 256, 4, 128, 200, 0.3, 0.3),
+    (3, 256, 40, 16, 100, 0.5, 0.3),
+    (1, 128, 7, 8, 121, 0.0, 0.5),
+    (13, 256, 200, 24, 56, 0.9, 1.0),
+    (9, 384, 33, 64, 351, 0.2, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", REV_CASES, ids=lambda c: "x".join(map(str, c[:5])))
+def test_rev_band_relax_plain_matches_pallas_interpret(case):
+    b, n_pad, rows, k, pos, inf_frac, ov_frac = case
+    rng = np.random.default_rng(sum(case[:5]) + 17)
+    dr, v, w, t_ids, ov = _rev_band(rng, b, n_pad, rows, k, pos, inf_frac, ov_frac)
+    want = np.asarray(
+        jax_rev_band_relax(
+            jnp.asarray(dr), jnp.asarray(v), jnp.asarray(w), jnp.asarray(t_ids),
+            jnp.asarray(ov), pos, interpret=True,
+        )
+    )
+    for mask in (_t(ov), _t(ov).to(torch.uint8), _t(ov).to(torch.int32)):
+        out = torch.full((b, n_pad), -5, dtype=torch.int32)
+        got = rev_relax.rev_band_relax(
+            _t(dr), _t(v), _t(w), _t(t_ids), mask, pos, out
+        )
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(out[:, pos : pos + rows].numpy(), want)
+        assert (out[:, :pos] == -5).all() and (out[:, pos + rows :] == -5).all()
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("b", [1, 8, 11])
+def test_full_rev_relax_matches_jax(impl, b):
+    # three out-bands of different widths and a padding tail: the port's
+    # in-place band writes + copied tail equal the JAX concatenation
+    rng = np.random.default_rng(200 + b)
+    bands = (
+        jax_sparse.EllBand(0, 90, 8),
+        jax_sparse.EllBand(90, 30, 16),
+        jax_sparse.EllBand(120, 3, 64),
+    )
+    n_pad = 128
+    dr = _mat(rng, (b, n_pad), 0.3)
+    vs = [rng.integers(0, n_pad, (bd.rows, bd.k)).astype(np.int32) for bd in bands]
+    ws = [_mat(rng, (bd.rows, bd.k), 0.3) for bd in bands]
+    ov = rng.random(n_pad) < 0.2
+    t_ids = rng.integers(0, 123, b).astype(np.int32)
+    t_ids[::2] = np.flatnonzero(ov)[: len(t_ids[::2])]
+    want = np.asarray(
+        jax_sweep._rev_relax(
+            jnp.asarray(dr), bands, tuple(map(jnp.asarray, vs)),
+            tuple(map(jnp.asarray, ws)), jnp.asarray(ov), jnp.asarray(t_ids),
+            impl=impl,
+        )
+    )
+    port_bands = tuple(port_sparse.EllBand(bd.start, bd.rows, bd.k) for bd in bands)
+    got = port_sweep._rev_relax(
+        _t(dr), port_bands, tuple(map(_t, vs)), tuple(map(_t, ws)), _t(ov), _t(t_ids)
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rev_band_relax_rejects_what_the_kernel_does_not_take():
+    d = torch.zeros((2, 16), dtype=torch.int32)
+    v = torch.zeros((4, 8), dtype=torch.int32)
+    w = torch.zeros((4, 8), dtype=torch.int32)
+    t = torch.zeros(2, dtype=torch.int32)
+    ov = torch.zeros(16, dtype=torch.bool)
+    out = torch.empty_like(d)
+    with pytest.raises(ValueError):  # band past the last column
+        rev_relax.rev_band_relax(d, v, w, t, ov, 13, out)
+    with pytest.raises(ValueError):  # one destination id per row
+        rev_relax.rev_band_relax(d, v, w, t[:1], ov, 0, out)
+    with pytest.raises(TypeError):
+        rev_relax.rev_band_relax(d, v, w, t.to(torch.int64), ov, 0, out)
+    with pytest.raises(TypeError):
+        rev_relax.rev_band_relax(d, v, w, t, ov.to(torch.float32), 0, out)
+    with pytest.raises(ValueError):
+        rev_relax.rev_band_relax(d, v, w[:, :4], t, ov, 0, out)
+    with pytest.raises(ValueError):  # out not shaped like dr
+        rev_relax.rev_band_relax(d, v, w, t, ov, 0, out[:, :8])
+    with pytest.raises(ValueError, match="no kernel"):
+        rev_relax.rev_band_relax(
+            d.to("meta"), v.to("meta"), w.to("meta"), t.to("meta"),
+            ov.to("meta"), 0, out.to("meta"),
+        )
+
+
+# -- batched_minplus(_t): the grouped backend's contraction --------------------
+
+GROUPED_CASES = [
+    # g, b, s, r, inf_frac; the first four are the 10 000-node grouped
+    # sweep's segments (624x4x12, 624x12x4, 4x4x624, 4x624x4 at B=1024)
+    # scaled down, then ragged shapes, then S past the Pallas s-block cap
+    # of 512 (its revisit grid)
+    (24, 32, 4, 12, 0.2),
+    (24, 32, 12, 4, 0.2),
+    (4, 32, 4, 24, 0.5),
+    (4, 32, 62, 4, 0.3),
+    (3, 5, 7, 9, 0.4),
+    (1, 1, 1, 1, 0.0),
+    (7, 19, 3, 1, 1.0),
+    (2, 8, 600, 3, 0.3),
+    (3, 9, 1030, 5, 0.9),
+]
+
+
+def _grouped(rng, g, b, s, r, inf_frac):
+    gath = _mat(rng, (g, b, s), inf_frac, hi=1 << 29)
+    w = _mat(rng, (g, s, r), inf_frac)
+    return gath, w
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=lambda c: "x".join(map(str, c[:4])))
+def test_batched_minplus_plain_matches_pallas_interpret(case):
+    rng = np.random.default_rng(sum(case[:4]) + 3)
+    gath, w = _grouped(rng, *case)
+    want = np.asarray(
+        jax_pallas_grouped.batched_minplus(jnp.asarray(gath), jnp.asarray(w), interpret=True)
+    )
+    got = grouped_minplus.batched_minplus(_t(gath), _t(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES, ids=lambda c: "x".join(map(str, c[:4])))
+def test_batched_minplus_t_plain_matches_pallas_interpret(case):
+    rng = np.random.default_rng(sum(case[:4]) + 4)
+    gath, w = _grouped(rng, *case)
+    gath_t = np.ascontiguousarray(gath.transpose(0, 2, 1))  # [G, S, B]
+    want = np.asarray(
+        jax_pallas_grouped.batched_minplus_t(
+            jnp.asarray(gath_t), jnp.asarray(w), interpret=True
+        )
+    )
+    got = grouped_minplus.batched_minplus_t(_t(gath_t), _t(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("fn", ["batched_minplus_plain", "batched_minplus_t_plain"])
+def test_batched_minplus_plain_chunks_s_exactly(monkeypatch, fn):
+    rng = np.random.default_rng(9)
+    gath, w = _grouped(rng, 3, 6, 50, 5, 0.5)
+    if fn == "batched_minplus_t_plain":
+        gath = np.ascontiguousarray(gath.transpose(0, 2, 1))
+    plain = getattr(grouped_minplus, fn)
+    whole = plain(_t(gath), _t(w))
+    monkeypatch.setattr(grouped_minplus, "_PLAIN_CHUNK_ELEMS", 3 * 6 * 5 * 4)
+    assert torch.equal(plain(_t(gath), _t(w)), whole)
+
+
+@pytest.mark.parametrize("impl", port_grouped.IMPLS)
+def test_contract_layouts_match_jax(impl):
+    # [B, G, S] in, [B, G, R] out, through each kernel's layout
+    rng = np.random.default_rng(12)
+    gath = _mat(rng, (10, 6, 5), 0.3, hi=1 << 20)
+    w = _mat(rng, (6, 5, 7), 0.3)
+    want = np.asarray(jax_grouped._contract(jnp.asarray(gath), jnp.asarray(w), "jnp"))
+    got = port_grouped._contract(_t(gath), _t(w), impl)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_batched_minplus_rejects_what_the_kernel_does_not_take():
+    gath = torch.zeros((2, 3, 4), dtype=torch.int32)
+    w = torch.zeros((2, 4, 5), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        grouped_minplus.batched_minplus(gath, w[:, :3])
+    with pytest.raises(ValueError):  # the _t layout wants [G, S, B]
+        grouped_minplus.batched_minplus_t(gath, w)
+    with pytest.raises(TypeError):
+        grouped_minplus.batched_minplus(gath.to(torch.int64), w)
+    with pytest.raises(ValueError, match="no kernel"):
+        grouped_minplus.batched_minplus(gath.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        grouped_minplus.batched_minplus_t(
+            gath.transpose(1, 2).contiguous().to("meta"), w.to("meta")
         )
