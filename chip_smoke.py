@@ -44,18 +44,39 @@ Phases, one JSON line each (``"phase": ...``):
    oracle there is the backends' agreement by name and each sample's
    route table against ``run_spf``. It also prints the grouped graph's
    ``structure_report``.
+8. ``ksp2-1008``: KSP2_ED_ECMP route builds from ``rsw-0-0`` on the
+   1008-node fabric with every prefix KSP2 over SR-MPLS (1007
+   destinations, one masked chunk of 1024): an initial build and churn
+   events that bump ``fsw-0-0``'s first adjacency metric. Every route
+   database must equal the host Dijkstra solver's, which runs on its own
+   copy of the link-state and prefix databases (the kth-path cache lives
+   on the ``LinkState``: a shared one would hand it the device's second
+   paths). Each build is split into the view, the hop gate's unit-metric
+   SPF, the KSP2 graph compile, the host first-path traces, the mask build, the masked solve (upload,
+   device relax hops, readback; ``hops`` from its launch count), the
+   second-path traces and route assembly (the rest). One more build is
+   profiled. The KSP2 device batches must be > 0, its host fallbacks and
+   the views' host-SPF fallbacks 0, and ``ell_band_relax_masked`` must
+   launch.
+9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
+   sampled KSP2 prefixes (the stride of ``benchmarks/bench_scale.py``'s
+   ``ksp2_churn_bench``), the rest SP_ECMP: one chunk of 256, the masked
+   kernel's warp-per-row body on the 16 x 1024 spine band.
 
 The ``kernels`` phase of the route sweep's kernels (``rev_band_relax``,
 ``batched_minplus``, ``batched_minplus_t``) runs at the 10 000-node
-sweep's shapes: one relax step of a 1024-destination block.
+sweep's shapes: one relax step of a 1024-destination block; that of
+``ell_band_relax_masked`` at both KSP2 cells' chunks (S = 1024 over the
+1008-node in-bands, S = 256 over the 10 000-node ones).
 
 Then one ``{"kernels": [...]}`` line (time, bound, plain time and main-path
 launches of every kernel) and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
 exits nonzero before doing anything. The sizes are fixed: the 1008-node
-fabric of the repo's ``bench.py`` (10 churn events) and a 10 000-node one
-(3 events); only the seed of the random kernel inputs can be set.
+fabric of the repo's ``bench.py`` (10 churn events, 5 with KSP2) and a
+10 000-node one (3 events, 2 with KSP2); only the seed of the random
+kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -88,6 +109,15 @@ REPS = 30
 # scale bench's 1008-node and 10 000-node settings)
 DENSE_SWEEP_BLOCK = 256
 SPARSE_SWEEP_BLOCK = 1024
+# KSP2 cells: churn events on the 1008-node fabric (every prefix KSP2) and
+# on the 10 000-node one, where KSP2_SAMPLED_DSTS evenly sampled prefixes
+# are KSP2 (the realistic per-prefix opt-in at that scale)
+KSP2_DENSE_EVENTS = 5
+KSP2_SPARSE_EVENTS = 2
+KSP2_SAMPLED_DSTS = 256
+# the KSP2 prefetch's host-clock parts (SpfSolver.ksp2_stats)
+KSP2_PARTS = ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
+              "second_paths_ms")
 
 
 def emit(obj) -> None:
@@ -178,7 +208,39 @@ def bound_ms(nbytes: int, nops: int):
 
 
 def load_network(topologies, LinkState, PrefixState, nodes: int):
-    topo = topologies.fat_tree_nodes(nodes)
+    return load_topology(topologies.fat_tree_nodes(nodes), LinkState, PrefixState)
+
+
+def load_ksp2_network(topologies, LinkState, PrefixState, nodes: int, ksp2_dsts=None):
+    """The fabric with SR-MPLS prefixes: every one KSP2_ED_ECMP
+    (``ksp2_dsts`` None), or ``ksp2_dsts`` evenly sampled ones KSP2 and
+    the rest SP_ECMP, sampled as ``benchmarks/bench_scale.py``'s
+    ``ksp2_churn_bench`` samples them."""
+    from dataclasses import replace
+
+    from openr_tpu_torch.types.lsdb import (
+        PrefixForwardingAlgorithm,
+        PrefixForwardingType,
+    )
+
+    ksp2 = PrefixForwardingAlgorithm.KSP2_ED_ECMP
+    topo = topologies.fat_tree_nodes(
+        nodes,
+        forwarding_algorithm=ksp2 if ksp2_dsts is None else PrefixForwardingAlgorithm.SP_ECMP,
+        forwarding_type=PrefixForwardingType.SR_MPLS,
+    )
+    if ksp2_dsts is not None:
+        names = sorted(topo.prefix_dbs)
+        stride = max(1, len(names) // ksp2_dsts)
+        for name in names[::stride][:ksp2_dsts]:
+            pdb = topo.prefix_dbs[name]
+            topo.prefix_dbs[name] = replace(pdb, prefix_entries=tuple(
+                replace(e, forwarding_algorithm=ksp2) for e in pdb.prefix_entries
+            ))
+    return load_topology(topo, LinkState, PrefixState)
+
+
+def load_topology(topo, LinkState, PrefixState):
     ls = LinkState(area=topo.area)
     for name in sorted(topo.adj_dbs):
         ls.update_adjacency_database(topo.adj_dbs[name])
@@ -221,6 +283,7 @@ def main(argv=None) -> int:
         SPARSE_NODE_THRESHOLD,
         SPF_COUNTERS,
         SpfSolver,
+        _ksp2_chunk,
     )
     from openr_tpu_torch.graph.linkstate import LinkState
     from openr_tpu_torch.graph.snapshot import SnapshotCache
@@ -228,7 +291,12 @@ def main(argv=None) -> int:
     from openr_tpu_torch.models import topologies
     from openr_tpu_torch.ops import spf as spf_ops
     from openr_tpu_torch.ops import route_sweep, spf_grouped, spf_sparse
-    from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_plain
+    from openr_tpu_torch.ops.ell_relax import (
+        ell_band_relax,
+        ell_band_relax_masked,
+        ell_band_relax_masked_plain,
+        ell_band_relax_plain,
+    )
     from openr_tpu_torch.ops.grouped_minplus import (
         batched_minplus,
         batched_minplus_plain,
@@ -237,6 +305,9 @@ def main(argv=None) -> int:
     )
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
     from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
+    from openr_tpu_torch.types.lsdb import PrefixForwardingAlgorithm
+
+    KSP2_ED_ECMP = PrefixForwardingAlgorithm.KSP2_ED_ECMP
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -270,6 +341,12 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     dense_ls, dense_ps = load_network(topologies, LinkState, PrefixState, DENSE_NODES)
     sparse_ls, sparse_ps = load_network(topologies, LinkState, PrefixState, SPARSE_NODES)
+    # the KSP2 cells, each twice: the device solver's copy and the host
+    # oracle's own
+    ksp2_dense = [load_ksp2_network(topologies, LinkState, PrefixState, DENSE_NODES)
+                  for _ in range(2)]
+    ksp2_sparse = [load_ksp2_network(topologies, LinkState, PrefixState, SPARSE_NODES,
+                                     KSP2_SAMPLED_DSTS) for _ in range(2)]
     n_dense = len(dense_ls.get_adjacency_databases())
     n_sparse = len(sparse_ls.get_adjacency_databases())
     if not n_dense <= SPARSE_NODE_THRESHOLD < n_sparse:
@@ -399,6 +476,105 @@ def main(argv=None) -> int:
           "match": True, "bands": band_rows,
           "kernel_ms": ell_ms, "plain_ms": ell_plain, "bound_ms": ell_bound,
           "call_ms": ell_call, "plain_call_ms": ell_plain_call})
+
+    # ell_band_relax_masked at the KSP2 cells' chunks: the in-bands of the
+    # 1008-node fabric with S = 1024 destination rows and of the 10 000-node
+    # one with S = 256 (_ksp2_chunk), distance rows two relax hops from the
+    # root's unit rows, a random mask of about 5 % set bits (every 7th row
+    # all set: that destination loses every edge) and a random overload mask
+    masked_kernel = {}
+    for label, ls in (("1008", ksp2_dense[0][0]), ("10k", sparse_ls)):
+        g = spf_sparse.compile_ell(ls)
+        s = _ksp2_chunk(g)
+        g_src = tuple(torch.from_numpy(x).to(dev) for x in g.src)
+        g_w = tuple(torch.from_numpy(x).to(dev) for x in g.w)
+        no_ov = torch.zeros(g.n_pad, dtype=torch.bool, device=dev)
+        dm = torch.full((s, g.n_pad), INF, dtype=torch.int32, device=dev)
+        dm[:, g.node_index[root]] = 0
+        for _ in range(2):
+            dm = spf_sparse._ell_relax(dm, g.bands, g_src, g_w, no_ov)
+        g_masks = []
+        for band in g.bands:
+            m = rng.random((s, band.rows, band.k)) < 0.05
+            m[::7] = True
+            g_masks.append(torch.from_numpy(m).to(dev))
+        g_ov = torch.from_numpy(rng.random(g.n_pad) < 0.05).to(dev)
+        m_rows = []
+        pos = 0
+        band_out = torch.empty_like(dm)
+        for band, s_b, w_b, m_b in zip(g.bands, g_src, g_w, g_masks):
+            want = ell_band_relax_masked_plain(dm, s_b, w_b, m_b, g_ov, pos)
+            for ovm in (g_ov, g_ov.to(torch.int32)):
+                compare("ell_band_relax_masked",
+                        ell_band_relax_masked(dm, s_b, w_b, m_b, ovm, pos, band_out),
+                        want, f"{label} band {band}")
+            m_rows.append({
+                "rows": band.rows, "k": band.k,
+                "kernel_ms": device_ms(
+                    torch, lambda: ell_band_relax_masked(dm, s_b, w_b, m_b, g_ov, pos,
+                                                         band_out),
+                    REPS, "masked_relax_"),
+                "plain_ms": device_ms(
+                    torch, lambda: ell_band_relax_masked_plain(dm, s_b, w_b, m_b, g_ov, pos),
+                    REPS),
+            })
+            pos += band.rows
+
+        def masked_step_kernel():
+            return spf_sparse._ell_relax_masked(dm, g.bands, g_src, g_w, g_masks, g_ov)
+
+        def masked_step_plain():
+            out = torch.empty_like(dm)
+            at = 0
+            for band, s_b, w_b, m_b in zip(g.bands, g_src, g_w, g_masks):
+                out[:, at : at + band.rows] = ell_band_relax_masked_plain(
+                    dm, s_b, w_b, m_b, g_ov, at)
+                at += band.rows
+            out[:, at:] = dm[:, at:]
+            return out
+
+        compare("ell_band_relax_masked", masked_step_kernel(), masked_step_plain(),
+                f"{label}: one masked relax step over all bands")
+        m_slots = sum(band.rows * band.k for band in g.bands)
+        # each input read once: the distance rows, the band slots (src + w),
+        # the mask (a byte a slot and row), the overload mask; each output
+        # written once: the band columns. One add and one min a slot and row.
+        m_bound, m_by = bound_ms(
+            4 * s * g.n_pad + 8 * m_slots + s * m_slots + g.n_pad + 4 * s * g.n,
+            2 * s * m_slots,
+        )
+        masked_kernel[label] = {
+            "shape": {"S": s, "n_pad": g.n_pad, "bands": [[bd.rows, bd.k] for bd in g.bands]},
+            "kernel_ms": device_ms(torch, masked_step_kernel, REPS, "masked_relax_"),
+            "plain_ms": device_ms(torch, masked_step_plain, REPS),
+            "call_ms": time_ms(torch, masked_step_kernel, REPS),
+            "plain_call_ms": time_ms(torch, masked_step_plain, REPS),
+            "bound_ms": m_bound, "bound_by": m_by, "bands": m_rows,
+        }
+    # ragged: S off 8, 32 and 128, rows below a block, k of 8, 9, 24, 64
+    # and 1024, all-set and all-clear masks, a mask off an 8-byte boundary
+    masked_ragged = [(37, 300, 50, 8), (3, 256, 5, 9), (129, 700, 33, 64),
+                     (13, 256, 200, 24), (2, 1100, 3, 1024), (1, 130, 2, 1024)]
+    for s, n_pad, rows, k in masked_ragged:
+        dd, ww = rand_int((s, n_pad), 0.3), rand_int((rows, k), 0.3)
+        sb = torch.from_numpy(rng.integers(0, n_pad, (rows, k)).astype(np.int32)).to(dev)
+        ovr = torch.from_numpy(rng.random(n_pad) < 0.2).to(dev)
+        p = n_pad - rows
+        flat = torch.zeros(s * rows * k + 1, dtype=torch.bool, device=dev)
+        odd = flat[1:].view(s, rows, k)
+        odd.copy_(torch.from_numpy(rng.random((s, rows, k)) < 0.05))
+        for mask in (torch.from_numpy(rng.random((s, rows, k)) < 0.05).to(dev),
+                     torch.ones((s, rows, k), dtype=torch.bool, device=dev),
+                     torch.zeros((s, rows, k), dtype=torch.bool, device=dev), odd):
+            out = torch.full_like(dd, -1)
+            compare("ell_band_relax_masked",
+                    ell_band_relax_masked(dd, sb, ww, mask, ovr, p, out),
+                    ell_band_relax_masked_plain(dd, sb, ww, mask, ovr, p), (s, n_pad, rows, k))
+            compare("ell_band_relax_masked", out[:, :p], torch.full_like(dd[:, :p], -1),
+                    f"columns outside the band at {(s, n_pad, rows, k)}")
+    for label, row in masked_kernel.items():
+        emit({"phase": "kernels", "kernel": "ell_band_relax_masked", "cell": f"ksp2-{label}",
+              "match": True, "checked_shapes": [list(x) for x in masked_ragged], **row})
 
     # rev_band_relax at the 10 000-node sweep's out-bands: a block of the
     # first 1024 destinations, two relax hops from the unit init (finite
@@ -793,8 +969,119 @@ def main(argv=None) -> int:
 
     sweep_small = sweep_phase("sweep-1008", dense_ls, DENSE_SWEEP_BLOCK, True)
     sweep_large = sweep_phase("sweep-10k", sparse_ls, SPARSE_SWEEP_BLOCK, False)
+
+    # -- 8./9. the main path: KSP2 route builds through the masked kernel ----
+    def ksp2_drive(phase, worlds, events):
+        """Initial build + ``events`` churn builds of a KSP2 network from
+        ``root``, each held against the host Dijkstra solver on its own
+        copy of the databases, then one more churn build under the
+        profiler. The launch counts and the solver counters are zeroed
+        just before and read just after."""
+        from torch.profiler import ProfilerActivity, profile
+
+        (ls, ps), (host_ls, host_ps) = worlds
+        nodes = len(ls.get_adjacency_databases())
+        areas, host_areas = {ls.area: ls}, {host_ls.area: host_ls}
+        device_solver = SpfSolver(root, backend="device", device=dev)
+        host_solver = SpfSolver(root, backend="host", device=dev)
+        n_bands = len(spf_sparse.compile_ell(ls).bands)
+        want_dsts = len({
+            node for prefix in ps.prefixes()
+            for (node, _), entry in ps.entries_for(prefix).items()
+            if node != root and entry.forwarding_algorithm == KSP2_ED_ECMP
+        })
+
+        def check(got, step):
+            want = host_solver.build_route_db(root, host_areas, host_ps)
+            if carry.route_db_to_plain(got.to_route_db(root)) != carry.route_db_to_plain(
+                want.to_route_db(root)
+            ):
+                raise AssertionError(
+                    f"{phase}: route database differs from the host oracle "
+                    f"after event {step}"
+                )
+            if len(got.unicast_routes) != nodes - 1 or len(got.mpls_routes) < nodes:
+                raise AssertionError(
+                    f"{phase}: {len(got.unicast_routes)} unicast and "
+                    f"{len(got.mpls_routes)} MPLS routes for {nodes} nodes"
+                )
+
+        reset_launches()
+        for name in SPF_COUNTERS:
+            SPF_COUNTERS[name] = 0
+        builds = []
+        for step in range(events + 1):
+            if step:
+                for l in (ls, host_ls):
+                    bump_metric(l, "fsw-0-0", 2 + (step - 1) % 5)
+            before = dict(LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            device_solver._view(ls.area, ls, root)
+            t1 = time.perf_counter()
+            got = device_solver.build_route_db(root, areas, ps)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            stats = device_solver.ksp2_stats
+            if stats.get("dsts") != want_dsts:
+                raise AssertionError(f"{phase}: the device solved {stats.get('dsts')} "
+                                     f"of {want_dsts} KSP2 destinations")
+            launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            build = {"ms": (t2 - t0) * 1e3, "view_ms": (t1 - t0) * 1e3,
+                     **{k: stats[k] for k in KSP2_PARTS}}
+            build["assembly_ms"] = build["ms"] - build["view_ms"] - sum(
+                stats[k] for k in KSP2_PARTS)
+            build["hops"] = launches["ell_band_relax_masked"] / (n_bands * stats["chunks"]) - 1
+            build["chunks"] = stats["chunks"]
+            build["launches"] = {k: v for k, v in launches.items() if v}
+            builds.append(build)
+            check(got, step)
+        for l in (ls, host_ls):
+            bump_metric(l, "fsw-0-0", 9)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = device_solver.build_route_db(root, areas, ps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        check(got, events + 1)
+        counters = dict(SPF_COUNTERS)
+        if counters["decision.ksp2_device_batches"] == 0:
+            raise AssertionError(f"{phase}: no KSP2 device batch")
+        if counters["decision.ksp2_host_fallbacks"] or counters["decision.spf_host_fallback"]:
+            raise AssertionError(f"{phase}: host fallbacks {counters}")
+        launches = dict(LAUNCHES)
+        if launches["ell_band_relax_masked"] == 0:
+            raise AssertionError(f"{phase}: KSP2 builds launched no ell_band_relax_masked")
+        busy_ms = sum(
+            getattr(evt, "self_device_time_total", 0) or 0
+            for evt in prof.key_averages()
+        ) / 1e3
+        events_only = builds[1:]
+        emit({
+            "phase": phase, "nodes": nodes, "root": root, "events": events,
+            "ksp2_dsts": want_dsts, "parity_with_host_oracle": True,
+            "first_build": builds[0],
+            "median_event_ms": statistics.median(b["ms"] for b in events_only),
+            "median_event_split_ms": {
+                k: statistics.median(b[k] for b in events_only)
+                for k in ("view_ms", *KSP2_PARTS, "assembly_ms")
+            },
+            "event_builds": events_only,
+            "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "counters": counters, "launches": launches,
+            "unicast_routes": len(got.unicast_routes),
+            "mpls_routes": len(got.mpls_routes),
+        })
+        return launches
+
+    ksp2_small = ksp2_drive("ksp2-1008", ksp2_dense, KSP2_DENSE_EVENTS)
+    ksp2_large = ksp2_drive("ksp2-10k", ksp2_sparse, KSP2_SPARSE_EVENTS)
     main_launches = {
-        k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] for k in LAUNCHES
+        k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + ksp2_small[k]
+        + ksp2_large[k]
+        for k in LAUNCHES
     }
 
     csrc = "openr_tpu_torch/csrc"
@@ -818,6 +1105,20 @@ def main(argv=None) -> int:
          "shape": {"S": b, "n_pad": graph.n_pad,
                    "bands": [[bd.rows, bd.k] for bd in graph.bands]},
          "match": True},
+        {"name": "ell_band_relax_masked", "route": "cuda",
+         "source": f"{csrc}/ell_relax_masked.cu",
+         "replaces": "openr_tpu/ops/pallas_ell.py:219",
+         "launches": main_launches["ell_band_relax_masked"],
+         "max_abs_err": max_err["ell_band_relax_masked"],
+         "ms": masked_kernel["1008"]["kernel_ms"],
+         "plain_ms": masked_kernel["1008"]["plain_ms"],
+         "bound_ms": masked_kernel["1008"]["bound_ms"],
+         "bound_by": masked_kernel["1008"]["bound_by"], "library_ms": None,
+         "call_ms": masked_kernel["1008"]["call_ms"],
+         "plain_call_ms": masked_kernel["1008"]["plain_call_ms"],
+         "shape": masked_kernel["1008"]["shape"], "match": True,
+         "at_10k": {k: masked_kernel["10k"][k] for k in (
+             "shape", "kernel_ms", "plain_ms", "bound_ms", "call_ms", "plain_call_ms")}},
         {"name": "rev_band_relax", "route": "cuda", "source": f"{csrc}/rev_relax.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:248",
          "launches": main_launches["rev_band_relax"],

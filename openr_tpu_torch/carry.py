@@ -2,11 +2,12 @@
 
 The "weights" of a route build are its inputs and compiled graph state:
 the link-state and prefix databases, the dense snapshot, the sliced-ELL
-bands (in-edge and out-edge), the grouped segments. These functions
-build the port's objects from plain Python data and numpy arrays, so any
-producer (a file, another implementation, a test) can hand state to the
-port without sharing a type with it, and turn a ``RouteDatabase`` into a
-canonical plain form for comparison.
+bands (in-edge and out-edge), the grouped segments, the KSP2 exclusion
+sets (as link keys). These functions build the port's objects from plain
+Python data and numpy arrays, so any producer (a file, another
+implementation, a test) can hand state to the port without sharing a type
+with it, and turn a ``RouteDatabase`` into a canonical plain form for
+comparison.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.graph.snapshot import GraphSnapshot
 from openr_tpu_torch.ops.spf_grouped import GridBand, GroupedGraph, Segment
-from openr_tpu_torch.ops.spf_sparse import EllBand, EllGraph
+from openr_tpu_torch.ops.spf_sparse import EllBand, EllGraph, link_key
 from openr_tpu_torch.types import (
     Adjacency,
     AdjacencyDatabase,
@@ -266,6 +267,15 @@ def grouped_from_numpy(
         overloaded=np.ascontiguousarray(overloaded, dtype=bool),
         direction=direction,
     )
+
+
+def links_from_keys(ls, key_sets) -> List[set]:
+    """Per set of plain link keys (``spf_sparse.link_key``: a link's
+    (node, iface) pair tuple, the same in either package), the set of
+    ``ls``'s own ``Link`` objects, as ``build_edge_masks`` takes them. A
+    key that names no link of ``ls`` raises."""
+    by_key = {link_key(link): link for link in ls.all_links()}
+    return [{by_key[tuple(key)] for key in keys} for keys in key_sets]
 
 
 def _freeze(x):

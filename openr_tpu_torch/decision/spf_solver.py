@@ -1,16 +1,20 @@
 """SpfSolver: per-prefix best-route selection and next-hop computation.
 
 Port note: mirrors ``openr_tpu/decision/spf_solver.py`` for the SP_ECMP
-route build. Shortest-path distances and ECMP first-hop sets come from
-the port's torch ops on the solver's device ("device" backend: the dense
-snapshot up to ``SPARSE_NODE_THRESHOLD`` nodes, sliced-ELL bands above
-it), or from the host Dijkstra oracle ("host" backend). Left out for
-later slices: the SP/KSP2 route-reuse caches and node-label patching
-(every build is the full build those caches fall back to), the resident
-incremental ELL state (each new topology version recompiles the bands),
-KSP2_ED_ECMP (raises ``NotImplementedError``), the native backend and
+and KSP2_ED_ECMP route builds. Shortest-path distances and ECMP
+first-hop sets come from the port's torch ops on the solver's device
+("device" backend: the dense snapshot up to ``SPARSE_NODE_THRESHOLD``
+nodes, sliced-ELL bands above it), or from the host Dijkstra oracle
+("host" backend). KSP2 second paths are solved on the device by the
+reference's per-build chunked masked dispatch (``_prefetch_ksp2_area``)
+at every area size, and primed into the ``LinkState``'s kth-path cache;
+the host backend computes them lazily with ``LinkState.get_kth_paths``.
+Left out for later slices: the incremental ``Ksp2Engine``, the SP/KSP2
+route-reuse caches and node-label patching (every build is the full
+build those caches fall back to), the resident incremental ELL state
+(each new topology version recompiles the bands), the native backend and
 plugin backends, the multi-area world batch, prewarm/speculation, the
-fault seams and every solver counter but ``decision.spf_host_fallback``.
+fault seams and every solver counter but the three in ``SPF_COUNTERS``.
 
 Behavioural parity with the reference ``openr/decision/Decision.cpp``
 SpfSolverImpl (buildRouteDb:569, createRouteForPrefix:402,
@@ -20,11 +24,11 @@ addBestPaths:1033, getNextHopsWithMetric:1124, getNextHopsThrift:1211).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
-import torch
 
 from openr_tpu_torch.decision.prefix_state import (
     NodeAndArea,
@@ -37,7 +41,7 @@ from openr_tpu_torch.decision.rib import (
     RibUnicastEntry,
 )
 from openr_tpu_torch.device import DeviceLike, resolve_device
-from openr_tpu_torch.graph.linkstate import LinkState
+from openr_tpu_torch.graph.linkstate import Link, LinkState
 from openr_tpu_torch.graph.snapshot import INF, SnapshotCache
 from openr_tpu_torch.types import (
     BinaryAddress,
@@ -62,8 +66,35 @@ SPARSE_NODE_THRESHOLD = 4096
 
 # solver counters, by the JAX package's names. spf_host_fallback counts the
 # device views' queries answered by a host Dijkstra instead: it must stay at
-# 0 on the route-build path.
-SPF_COUNTERS: Dict[str, int] = {"decision.spf_host_fallback": 0}
+# 0 on the route-build path. ksp2_device_batches counts masked KSP2 solves
+# (one per chunk of destinations); ksp2_host_fallbacks counts destinations
+# of such a batch whose exclusions the masks could not express, left to the
+# lazy host path.
+SPF_COUNTERS: Dict[str, int] = {
+    "decision.spf_host_fallback": 0,
+    "decision.ksp2_device_batches": 0,
+    "decision.ksp2_host_fallbacks": 0,
+}
+
+# KSP2 device prefetch: below this many KSP2 destinations in an area the
+# lazy host path takes them. The masked solve runs one relaxation per hop,
+# so areas whose root is more than KSP2_DEVICE_MAX_HOPS hops from some node
+# stay on the host too. KSP2_DEVICE_MASK_BUDGET bounds the bool mask slots
+# of one dispatch; _ksp2_chunk sizes the destination chunks by it.
+KSP2_DEVICE_MIN_DSTS = 32
+KSP2_DEVICE_MAX_HOPS = 16
+KSP2_DEVICE_MASK_BUDGET = 32_000_000
+
+
+def _ksp2_chunk(graph) -> int:
+    """Destinations per masked dispatch: the largest power of two up to
+    1024 whose [chunk, slots] mask, doubled, fits the budget (at least
+    1)."""
+    slots = sum(band.rows * band.k for band in graph.bands)
+    chunk = 1
+    while chunk < 1024 and chunk * 2 * max(1, slots) <= KSP2_DEVICE_MASK_BUDGET:
+        chunk *= 2
+    return chunk
 
 # per-solver view cache capacity (graphs, not views)
 VIEW_CACHE_CAP = 4
@@ -190,7 +221,7 @@ class SpfView:
         self._backend = backend
         if backend == "device":
             if len(ls.get_adjacency_databases()) > SPARSE_NODE_THRESHOLD:
-                self._init_device_sparse(snapshots.device)
+                self._init_device_sparse(snapshots)
             else:
                 self._init_device(snapshots)
         elif backend == "host":
@@ -219,19 +250,20 @@ class SpfView:
         )
         self._set_rows(packed.cpu().numpy(), srcs, srcs_dev.shape[0])
 
-    def _init_device_sparse(self, device: torch.device) -> None:
+    def _init_device_sparse(self, snapshots: SnapshotCache) -> None:
         """Large-area device view over sliced-ELL bands compiled from
-        this topology version: the same batched view as the dense path,
-        with no N x N matrix anywhere."""
+        this topology version (shared with the KSP2 masked solve): the
+        same batched view as the dense path, with no N x N matrix
+        anywhere."""
         from openr_tpu_torch.ops import spf_sparse
 
         if self._root not in self._ls.get_adjacency_databases():
             self._snap = None
             self._sid = None
             return
-        graph = spf_sparse.compile_ell(self._ls)
+        graph = snapshots.ell(self._ls)
         srcs = spf_sparse.ell_source_batch(graph, self._ls, self._root)
-        packed = spf_sparse.ell_view_batch_packed(graph, srcs, device)
+        packed = spf_sparse.ell_view_batch_packed(graph, srcs, snapshots.device)
         self._snap = _SparseIndexAdapter(graph)
         self._sid = graph.node_index[self._root]
         self._set_rows(packed.cpu().numpy(), srcs, len(srcs))
@@ -341,6 +373,15 @@ class SpfSolver:
         # keys, LRU-bounded: each view holds its graph, so a weak dict
         # could never collect
         self._views: Dict[LinkState, Dict] = {}
+        # per-prefix-state-version KSP2 destination sets
+        # (_prefetch_ksp2_paths)
+        self._ksp2_dsts_cache: Optional[tuple] = None
+        # host-clock split of the last build's KSP2 prefetch, in ms, summed
+        # over areas: hop_gate (the unit-metric SPF of the hop gate), graph
+        # (the in-edge bands), first_paths (host traces), masks, solve
+        # (upload, masked device solve, readback), second_paths (traces,
+        # priming); and the chunks and destinations it solved
+        self.ksp2_stats: Dict[str, float] = {}
 
     # -- static MPLS routes ----------------------------------------------
 
@@ -386,6 +427,10 @@ class SpfSolver:
         """Full RIB computation. reference: Decision.cpp:569 buildRouteDb."""
         if not any(ls.has_node(my_node_name) for ls in area_link_states.values()):
             return None
+
+        # KSP2 second paths, batched on the device and primed into each
+        # area's kth-path cache before the prefix loop reads them
+        self._prefetch_ksp2_paths(my_node_name, area_link_states, prefix_state)
 
         route_db = DecisionRouteDb()
         self.best_routes_cache.clear()
@@ -577,7 +622,15 @@ class SpfSolver:
                 area_link_states,
             )
         if falgo == PrefixForwardingAlgorithm.KSP2_ED_ECMP:
-            raise NotImplementedError("KSP2_ED_ECMP is not ported yet")
+            return self._select_best_paths_ksp2(
+                my_node_name,
+                prefix,
+                best,
+                entries,
+                has_bgp,
+                ftype,
+                area_link_states,
+            )
         return None
 
     # -- best route selection --------------------------------------------
@@ -722,6 +775,225 @@ class SpfSolver:
             area_link_states,
             entries,
         )
+        return self._add_best_paths(
+            my_node_name, prefix, best, entries, is_bgp, next_hops
+        )
+
+    # -- KSP2_ED_ECMP -----------------------------------------------------
+
+    def _prefetch_ksp2_paths(
+        self,
+        my_node_name: str,
+        area_link_states: AreaLinkStates,
+        prefix_state: PrefixState,
+    ) -> None:
+        """Batch the KSP2 second-path SPFs onto the device.
+
+        Host semantics (LinkState.get_kth_paths, reference
+        LinkState.cpp:763) run one Dijkstra per destination over the graph
+        minus that destination's first-path links. Here each area with at
+        least KSP2_DEVICE_MIN_DSTS KSP2 destinations solves them as
+        masked graphs on the device (``_prefetch_ksp2_area``) and primes
+        the area's kth-path cache; the others take the host path lazily.
+
+        The reference returns the incremental engine's affected set here
+        for its route-reuse cache; the port has neither yet, so every
+        build is a full build and nothing is returned."""
+        self.ksp2_stats = {}
+        if self.backend != "device":
+            return
+        # the destination scan is O(total prefix entries): cache it per
+        # prefix-state version
+        dsts_key = (
+            prefix_state,
+            prefix_state.version,
+            my_node_name,
+            tuple(sorted(area_link_states)),
+        )
+        if self._ksp2_dsts_cache is not None and self._ksp2_dsts_cache[0] == dsts_key:
+            area_dsts = self._ksp2_dsts_cache[1]
+        else:
+            area_dsts = {area: set() for area in area_link_states}
+            for prefix in prefix_state.prefixes():
+                for (node, p_area), entry in prefix_state.entries_for(prefix).items():
+                    if (
+                        entry.forwarding_algorithm
+                        == PrefixForwardingAlgorithm.KSP2_ED_ECMP
+                        and node != my_node_name
+                        and p_area in area_dsts
+                    ):
+                        area_dsts[p_area].add(node)
+            self._ksp2_dsts_cache = (dsts_key, area_dsts)
+        for area, ls in sorted(area_link_states.items()):
+            dsts = sorted(area_dsts[area])
+            if len(dsts) < KSP2_DEVICE_MIN_DSTS or not ls.has_node(my_node_name):
+                continue  # area covered by the host path
+            self._prefetch_ksp2_area(ls, my_node_name, dsts)
+
+    def _prefetch_ksp2_area(
+        self, ls: LinkState, my_node_name: str, dsts: List[str]
+    ) -> None:
+        """One area's KSP2 second paths by the reference's per-build
+        chunked masked dispatch (``spf_solver.py:2161-2213``), at every
+        area size: trace the first paths on the host, mask each
+        destination's first-path links, solve every destination's masked
+        graph on the device in chunks of ``_ksp2_chunk``, trace the second
+        paths from the rows and prime them into ``ls``. The reference's
+        incremental ``Ksp2Engine`` branch (areas of at most its
+        ``ENGINE_MAX_NODES``) is not ported yet; both prime the same
+        ``get_kth_paths`` semantics."""
+        from openr_tpu_torch.decision import ksp2_engine
+        from openr_tpu_torch.ops import spf_sparse
+
+        stats = self.ksp2_stats
+        last = [time.perf_counter()]
+
+        def lap(part: str) -> None:
+            # host ms since the previous lap, added to stats[part]
+            now = time.perf_counter()
+            stats[part] = stats.get(part, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+
+        high_diameter = ls.get_max_hops_to_node(my_node_name) > KSP2_DEVICE_MAX_HOPS
+        lap("hop_gate_ms")
+        if high_diameter:
+            return  # host Dijkstra wins
+        graph = self._snapshots.ell(ls)
+        sid = graph.node_index.get(my_node_name)
+        if sid is None:
+            return
+        lap("graph_ms")
+        # first paths: host trace off the one memoized base SPF
+        exclusion_sets = []
+        for dst in dsts:
+            links: Set[Link] = set()
+            for path in ls.get_kth_paths(my_node_name, dst, 1):
+                links.update(path)
+            exclusion_sets.append(links)
+        cands_of = ksp2_engine.make_cands_of(ls, graph.node_index)
+        transit_blocked = {
+            name
+            for name in graph.node_names
+            if ls.is_node_overloaded(name) and name != my_node_name
+        }
+        lap("first_paths_ms")
+        chunk = _ksp2_chunk(graph)
+        for start in range(0, len(dsts), chunk):
+            batch_dsts = dsts[start : start + chunk]
+            batch_excl = exclusion_sets[start : start + chunk]
+            pad = chunk - len(batch_dsts)
+            # pad rows solve the unmasked graph and are never traced
+            masks, ok = spf_sparse.build_edge_masks(
+                graph, batch_excl + [set()] * pad
+            )
+            lap("masks_ms")
+            drows = spf_sparse.ell_masked_distances(graph, sid, masks, self.device)
+            lap("solve_ms")
+            SPF_COUNTERS["decision.ksp2_device_batches"] += 1
+            for i, dst in enumerate(batch_dsts):
+                if not ok[i]:
+                    SPF_COUNTERS["decision.ksp2_host_fallbacks"] += 1
+                    continue  # host path computes it lazily
+                paths = ksp2_engine.trace_paths_from_row(
+                    my_node_name,
+                    dst,
+                    graph.node_index,
+                    drows[i].tolist(),
+                    batch_excl[i],
+                    cands_of,
+                    transit_blocked,
+                )
+                ls.prime_kth_paths(my_node_name, dst, 2, paths)
+            lap("second_paths_ms")
+        stats["chunks"] = stats.get("chunks", 0) + -(-len(dsts) // chunk)
+        stats["dsts"] = stats.get("dsts", 0) + len(dsts)
+
+    def _select_best_paths_ksp2(
+        self,
+        my_node_name: str,
+        prefix: IpPrefix,
+        best: BestRouteSelectionResult,
+        entries: PrefixEntries,
+        is_bgp: bool,
+        ftype: PrefixForwardingType,
+        area_link_states: AreaLinkStates,
+    ) -> Optional[RibUnicastEntry]:
+        """2-shortest edge-disjoint ECMP over SR-MPLS tunnels.
+        reference: Decision.cpp:908 selectBestPathsKsp2."""
+        if ftype != PrefixForwardingType.SR_MPLS:
+            return None
+
+        next_hops: Set[NextHop] = set()
+        paths: List[Tuple[str, list]] = []  # (area, path)
+
+        for area, ls in sorted(area_link_states.items()):
+            for node, best_area in sorted(best.all_node_areas):
+                if node == my_node_name and best_area == area:
+                    continue
+                for path in ls.get_kth_paths(my_node_name, node, 1):
+                    paths.append((area, path))
+
+            first_count = len(paths)
+            for node, best_area in sorted(best.all_node_areas):
+                if area != best_area:
+                    continue
+                for sec_path in ls.get_kth_paths(my_node_name, node, 2):
+                    # avoid double-spray: drop second paths that contain a
+                    # first path (anycast in meshes)
+                    if any(
+                        LinkState.path_a_in_path_b(paths[i][1], sec_path)
+                        for i in range(first_count)
+                    ):
+                        continue
+                    paths.append((area, sec_path))
+
+        if not paths:
+            return None
+
+        for path_area, path in paths:
+            ls = area_link_states[path_area]
+            adj_dbs = ls.get_adjacency_databases()
+            cost = 0
+            labels: List[int] = []
+            next_node = my_node_name
+            valid = True
+            for link in path:
+                hop_metric, next_node = link.metric_and_other(next_node)
+                cost += hop_metric
+                db = adj_dbs.get(next_node)
+                if db is None:
+                    valid = False
+                    break
+                labels.append(db.node_label)
+            if not valid:
+                continue
+            # stack order: bottom-of-stack first => reverse the hop
+            # order, then drop the first hop's own label (PHP)
+            del labels[0]
+            labels.reverse()
+            dst_entry = entries.get((next_node, path_area))
+            if dst_entry is not None and dst_entry.prepend_label is not None:
+                labels.insert(0, dst_entry.prepend_label)
+
+            mpls_action = None
+            if labels:
+                mpls_action = MplsAction(
+                    action=MplsActionCode.PUSH, push_labels=tuple(labels)
+                )
+            first_link = path[0]
+            next_hops.add(
+                make_next_hop(
+                    first_link.nh_v4_from(my_node_name)
+                    if prefix.is_v4
+                    else first_link.nh_v6_from(my_node_name),
+                    first_link.iface_from(my_node_name),
+                    cost,
+                    mpls_action,
+                    first_link.area,
+                    first_link.other_node(my_node_name),
+                )
+            )
+
         return self._add_best_paths(
             my_node_name, prefix, best, entries, is_bgp, next_hops
         )

@@ -32,6 +32,7 @@ import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.graph.linkstate import Link, LinkState
+from openr_tpu_torch.ops import spf_sparse
 
 # Distance/metric infinity sentinel: INF + INF == 2**31 - 2 still fits
 # in int32, so relaxation adds never wrap.
@@ -226,13 +227,30 @@ class SnapshotCache:
     """Versioned snapshot cache keyed by LinkState *identity* (weakly
     held); patches incrementally when the change journal covers the gap
     and the node set is unchanged. ``device`` (None = CUDA) is where the
-    snapshots' tensors live."""
+    snapshots' tensors live. It also holds each LinkState's compiled
+    in-edge ``EllGraph`` (``ell``), shared by the sparse SPF view and the
+    KSP2 masked solve."""
 
     def __init__(self, device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
         self._cache: "weakref.WeakKeyDictionary[LinkState, GraphSnapshot]" = (
             weakref.WeakKeyDictionary()
         )
+        self._ell: "weakref.WeakKeyDictionary[LinkState, tuple]" = (
+            weakref.WeakKeyDictionary()
+        )
+
+    def ell(self, ls: LinkState) -> spf_sparse.EllGraph:
+        """The in-edge ``EllGraph`` of ``ls`` at its current topology
+        version, compiled on the host once per version. Every change the
+        bands read (links up or down, metrics, node overload) bumps the
+        version."""
+        hit = self._ell.get(ls)
+        if hit is not None and hit[0] == ls.topology_version:
+            return hit[1]
+        graph = spf_sparse.compile_ell(ls)
+        self._ell[ls] = (ls.topology_version, graph)
+        return graph
 
     def get(self, ls: LinkState) -> GraphSnapshot:
         snap = self._cache.get(ls)
@@ -260,3 +278,4 @@ class SnapshotCache:
 
     def invalidate(self) -> None:
         self._cache.clear()
+        self._ell.clear()

@@ -14,6 +14,7 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {
     "minplus": 0,
     "ell_band_relax": 0,
+    "ell_band_relax_masked": 0,
     "rev_band_relax": 0,
     "batched_minplus": 0,
     "batched_minplus_t": 0,

@@ -47,6 +47,11 @@ SIGNATURES: Dict[str, List] = {
     "openr_ell_band_relax": [
         _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P,
     ],
+    # d, S, n_pad, src, w, mask, rows, k, overloaded, ov_is_int32, pos,
+    # out, stream
+    "openr_ell_band_relax_masked": [
+        _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P,
+    ],
     # dr, B, n_pad, v, w, rows, k, t_ids, overloaded, ov_is_int32, pos,
     # out, stream
     "openr_rev_band_relax": [

@@ -1,12 +1,13 @@
 """One band of the sliced-ELL relaxation: the sparse SPF relaxation step.
 
-Port note: the counterpart of ``openr_tpu/ops/pallas_ell.py::ell_band_relax``.
-``ell_band_relax`` launches the hand-written kernel in
-``csrc/ell_relax.cu`` on CUDA tensors and runs ``ell_band_relax_plain``
-on CPU tensors; there is no fallback from one to the other. The
+Port note: the counterpart of ``openr_tpu/ops/pallas_ell.py::ell_band_relax``
+and ``::ell_band_relax_masked``. ``ell_band_relax`` launches the
+hand-written kernel in ``csrc/ell_relax.cu`` and ``ell_band_relax_masked``
+(the KSP2 second-path relax, with a per-batch-row edge mask) the one in
+``csrc/ell_relax_masked.cu`` on CUDA tensors; each runs its ``*_plain``
+version on CPU tensors. There is no fallback from one to the other. The
 reversed-graph variant of the same Pallas module (the route sweep's
-``rev_band_relax``) is ``ops/rev_relax.py``; the masked (KSP2) variant is
-not ported yet.
+``rev_band_relax``) is ``ops/rev_relax.py``.
 """
 
 from __future__ import annotations
@@ -127,4 +128,96 @@ def ell_band_relax(
         )
     _build.check(rc, "ell_band_relax")
     LAUNCHES["ell_band_relax"] += 1
+    return view
+
+
+def _check_mask(d, src, mask) -> None:
+    if mask.dtype != torch.bool:
+        raise TypeError(f"ell_band_relax_masked: mask must be bool, got {mask.dtype}")
+    want = (d.shape[0], *src.shape)
+    if tuple(mask.shape) != want:
+        raise ValueError(
+            f"ell_band_relax_masked: mask {tuple(mask.shape)}, want {want}"
+        )
+    if mask.device != d.device:
+        raise ValueError(
+            f"ell_band_relax_masked: mask on {mask.device}, d on {d.device}"
+        )
+
+
+def ell_band_relax_masked_plain(
+    d: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    mask: torch.Tensor,
+    overloaded: torch.Tensor,
+    pos: int,
+) -> torch.Tensor:
+    """``[S, rows]``: ``ell_band_relax_plain`` with a per-batch-row edge
+    mask: ``mask [S, rows, k]`` bool, True where the edge is excluded for
+    that batch row (its weight becomes INF for that row only)."""
+    _check(d, src, w, overloaded, pos, None)
+    _check_mask(d, src, mask)
+    rows = src.shape[0]
+    idx = src.long()
+    w_eff = w.masked_fill(overloaded[idx] != 0, INF)
+    w_rows = w_eff[None].masked_fill(mask, INF)  # [S, rows, k]
+    gathered = d[:, idx]  # [S, rows, k]
+    relaxed = (gathered + w_rows).clamp_max_(INF).amin(2)
+    return torch.minimum(d[:, pos : pos + rows], relaxed)
+
+
+def ell_band_relax_masked(
+    d: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    mask: torch.Tensor,
+    overloaded: torch.Tensor,
+    pos: int,
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """One band of the per-batch-masked sliced-ELL relax (the KSP2
+    second-path graphs): ``ell_band_relax`` plus ``mask [S, rows, k]``
+    bool, contiguous, True where that edge is excluded for that batch
+    row. The kernel reads the mask as bytes.
+
+    Writes the band's ``[S, rows]`` block into ``out[:, pos:pos + rows]``
+    and returns that view, as ``ell_band_relax`` does. CUDA tensors go
+    through the hand-written kernel (current stream, not synchronised);
+    CPU tensors through ``ell_band_relax_masked_plain``. Any other device
+    raises."""
+    rows = _check(d, src, w, overloaded, pos, out)
+    _check_mask(d, src, mask)
+    view = out[:, pos : pos + rows]
+    if d.device.type == "cpu":
+        view.copy_(ell_band_relax_masked_plain(d, src, w, mask, overloaded, pos))
+        return view
+    if d.device.type != "cuda":
+        raise ValueError(f"ell_band_relax_masked: no kernel for device {d.device}")
+    from openr_tpu_torch.kernels import _build
+
+    if overloaded.dtype == torch.bool:
+        overloaded = overloaded.view(torch.uint8)
+    for name, t in (
+        ("d", d), ("src", src), ("w", w), ("mask", mask),
+        ("overloaded", overloaded), ("out", out),
+    ):
+        if not t.is_contiguous():
+            raise ValueError(f"ell_band_relax_masked: {name} must be contiguous")
+    s, n_pad = d.shape
+    k = src.shape[1]
+    if s == 0 or rows == 0:
+        return view
+    if s > 65535:
+        raise ValueError(f"ell_band_relax_masked: {s} batch rows exceed the grid")
+    lib = _build.library()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        rc = lib.openr_ell_band_relax_masked(
+            d.data_ptr(), s, n_pad, src.data_ptr(), w.data_ptr(),
+            mask.data_ptr(), rows, k, overloaded.data_ptr(),
+            int(overloaded.dtype == torch.int32), pos, out.data_ptr(), stream,
+        )
+    _build.check(rc, "ell_band_relax_masked")
+    LAUNCHES["ell_band_relax_masked"] += 1
     return view

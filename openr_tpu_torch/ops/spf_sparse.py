@@ -6,14 +6,20 @@ in-edge slots, ``compile_ell`` (both directions: per-link in-edge bands
 for the SPF views, per-neighbour out-edge bands for the route sweep of
 ``ops.route_sweep``), ``_as_device_ids``, ``direct_metrics``,
 ``_ell_relax``, ``_ell_view_batch``, ``_first_hops_from_rows``,
-``ell_view_batch_packed`` and ``ell_source_batch``. Each band of a relax
-step goes through ``ops.ell_relax.ell_band_relax`` (the hand-written CUDA
-kernel on the card, its plain torch version on the CPU), writing into its
-column slice of one output instead of concatenating band parts. The JAX
-``lax.while_loop`` becomes a Python loop with one host sync per hop.
-Left out for later slices: the resident incremental state (``EllState``,
-``ell_patch``, ``_warm_seed``, ``_ell_reconverge``), the masked KSP2 and
-all-sources solves, the flat edge-list graph, sharding and the
+``ell_view_batch_packed`` and ``ell_source_batch``; and the KSP2
+second-path solve: ``_ell_relax_masked``, ``_ell_masked_fixed_point``,
+``build_edge_masks`` and the non-resident ``ell_masked_distances``, which
+calls the fixed point directly (the reference's jitted entry
+``_ell_masked_source_batch`` has no counterpart in eager PyTorch). Each
+band of a relax step goes through ``ops.ell_relax.ell_band_relax`` (or
+``ell_band_relax_masked``: the hand-written CUDA kernels on the card,
+their plain torch versions on the CPU), writing into its column slice of
+one output instead of concatenating band parts. The JAX
+``lax.while_loop`` becomes a Python loop with one host sync per hop. Left out for later slices: the resident
+incremental state (``EllState``, ``ell_patch``, ``_warm_seed``,
+``_ell_reconverge``) and the solves that ride it
+(``ell_masked_distances_resident``, ``ell_all_view_rows(_masked)``), the
+all-sources solve, the flat edge-list graph, sharding and the
 tenant-plane dispatch.
 
 One relaxation step over the class bands costs S x (total slots) work:
@@ -34,7 +40,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from openr_tpu_torch.ops.ell_relax import ell_band_relax
+from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
 
@@ -73,6 +80,9 @@ class EllGraph:
     # (band, row, slot)}. What makes one member of a parallel group
     # excludable for KSP2. None for an "out" graph.
     slot_of: Optional[Dict[int, Dict[Tuple, Tuple[int, int, int]]]] = None
+
+
+_EMPTY_SLOTS: dict = {}
 
 
 def link_key(link) -> Tuple:
@@ -348,3 +358,109 @@ def ell_source_batch(graph: EllGraph, ls, src_name: str) -> List[int]:
         bucket *= 2
     bucket = min(bucket, graph.n_pad)
     return srcs + [sid] * (bucket - len(srcs))
+
+
+def _ell_relax_masked(d, bands, srcs_t, ws_t, masks_t, overloaded) -> torch.Tensor:
+    """One relaxation with a per-batch-row edge mask, [B, n_pad] -> a new
+    [B, n_pad]: ``masks_t[bi]`` is the band's [B, rows, k] bool mask, True
+    where that edge is excluded for that batch row (the KSP2
+    edge-disjoint second-path graphs). Each band writes its column slice
+    of the output in place, like ``_ell_relax``."""
+    out = torch.empty_like(d)
+    pos = 0
+    for band, s_b, w_b, m_b in zip(bands, srcs_t, ws_t, masks_t):
+        if band.start != pos:
+            raise ValueError(f"band {band} does not start at column {pos}")
+        ell_band_relax_masked(d, s_b, w_b, m_b, overloaded, pos, out=out)
+        pos += band.rows
+    out[:, pos:] = d[:, pos:]
+    return out
+
+
+def _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n):
+    """``(distances [B, n], hops)`` from ``src_id`` over B differently
+    masked graphs (reference semantics: LinkState.cpp:763 getKthPaths'
+    runSpf with linksToIgnore, one graph per destination). The init is
+    one relax with no overload mask, so an overloaded source still
+    originates; then one relax per hop until a hop changes nothing or
+    after ``n`` hops, one host sync per hop."""
+    b = masks_t[0].shape[0]
+    unit = torch.full((b, n), INF, dtype=torch.int32, device=overloaded.device)
+    unit[:, src_id] = 0
+    d = _ell_relax_masked(
+        unit, bands, srcs_t, ws_t, masks_t, torch.zeros_like(overloaded)
+    )
+    hops = 0
+    while hops < n:
+        nxt = _ell_relax_masked(d, bands, srcs_t, ws_t, masks_t, overloaded)
+        hops += 1
+        changed = bool((nxt < d).any())
+        d = nxt
+        if not changed:
+            break
+    return d, hops
+
+
+def build_edge_masks(graph: EllGraph, exclusion_sets, parallel_pairs=None):
+    """Per-band [B, rows, k] bool masks from per-batch-row link sets, and
+    ``ok [B]``. On a per-link-slot graph (``compile_ell`` direction "in")
+    every link, parallel group members included, maps to its own slot
+    through ``graph.slot_of``, so ``ok[b]`` is False only when an
+    exclusion names a node outside the graph (reference semantics:
+    LinkState.cpp:763 getKthPaths' linksToIgnore treats each Link as
+    first-class, LinkState.h:82). A link that is not in the bands (down
+    since the compile) masks nothing.
+
+    Collapsed graphs (no ``slot_of``) mask the first slot from the link's
+    other end; members of ``parallel_pairs`` cannot be told apart there
+    and flag ok=False."""
+    b = len(exclusion_sets)
+    parallel_pairs = parallel_pairs or set()
+    masks = [np.zeros((b, band.rows, band.k), dtype=bool) for band in graph.bands]
+    ok = np.ones(b, dtype=bool)
+    per_link = graph.slot_of is not None
+    for x, links in enumerate(exclusion_sets):
+        for link in links:
+            if not per_link and frozenset((link.n1, link.n2)) in parallel_pairs:
+                ok[x] = False
+                break
+            key = link_key(link) if per_link else None
+            for head in (link.n1, link.n2):
+                tail = link.other_node(head)
+                hid = graph.node_index.get(head)
+                tid = graph.node_index.get(tail)
+                if hid is None or tid is None:
+                    ok[x] = False
+                    break
+                if per_link:
+                    hit = graph.slot_of.get(hid, _EMPTY_SLOTS).get(key)
+                    if hit is not None:
+                        bi, r, slot = hit
+                        masks[bi][x, r, slot] = True
+                    continue
+                bi, band = _band_of(graph, hid)
+                r = hid - band.start
+                hits = np.flatnonzero(graph.src[bi][r] == tid)
+                if len(hits):
+                    masks[bi][x, r, hits[0]] = True
+            if not ok[x]:
+                break
+    return masks, ok
+
+
+def ell_masked_distances(
+    graph: EllGraph, src_id: int, masks, device: DeviceLike = None
+) -> np.ndarray:
+    """The batched masked solve from ``src_id`` on ``device`` (None =
+    CUDA): host [B, n_pad] int32, one row per mask batch row. The bands
+    and the masks are uploaded once per call; the masks are the bulk of
+    it ([B, slots] bytes)."""
+    dev = resolve_device(device)
+    d, _ = _ell_masked_fixed_point(
+        tuple(torch.from_numpy(s).to(dev) for s in graph.src),
+        tuple(torch.from_numpy(w).to(dev) for w in graph.w),
+        tuple(torch.from_numpy(m).to(dev) for m in masks),
+        torch.from_numpy(graph.overloaded).to(dev),
+        src_id, graph.bands, graph.n_pad,
+    )
+    return d.cpu().numpy()

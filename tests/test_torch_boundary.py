@@ -8,6 +8,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +16,8 @@ from openr_tpu_torch import carry
 from openr_tpu_torch.decision.spf_solver import SpfSolver
 from openr_tpu_torch.device import resolve_device
 from openr_tpu_torch.graph.snapshot import SnapshotCache
+from openr_tpu_torch.ops.minplus import INF
+from openr_tpu_torch.ops.spf_sparse import ell_masked_distances
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -44,7 +47,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
         m for m in sys.modules if m.split(".")[0] in BLOCKED
     )
     assert not loaded, loaded
-    print(len(names))
+    print(" ".join(names))
     """
 )
 
@@ -56,8 +59,11 @@ def test_port_and_chip_smoke_import_without_jax_or_openr_tpu():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    # every module of the port was imported (the package has > 20)
-    assert int(proc.stdout.strip().splitlines()[-1]) > 20
+    # every module of the port was imported (the package has > 20),
+    # the KSP2 ones among them
+    names = proc.stdout.strip().splitlines()[-1].split()
+    assert len(names) > 20
+    assert {"openr_tpu_torch.decision.ksp2_engine", "openr_tpu_torch.ops.ell_relax"} <= set(names)
 
 
 @pytest.fixture
@@ -76,9 +82,21 @@ def test_entry_points_raise_without_cuda(no_cuda):
         carry.snapshot_from_numpy(
             ["a"], [[0] * 128] * 128, [False] * 128
         )
+    graph = carry.ell_from_numpy(
+        ["a"], [(0, 1, 8)], [np.zeros((1, 8), np.int32)],
+        [np.full((1, 8), INF, np.int32)], np.zeros(128, bool),
+    )
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ell_masked_distances(graph, 0, [np.zeros((1, 1, 8), bool)])
 
 
 def test_entry_points_take_the_cpu_when_asked(no_cuda):
     assert SpfSolver("x", device="cpu").device == torch.device("cpu")
+    graph = carry.ell_from_numpy(
+        ["a"], [(0, 1, 8)], [np.zeros((1, 8), np.int32)],
+        [np.full((1, 8), INF, np.int32)], np.zeros(128, bool),
+    )
+    rows = ell_masked_distances(graph, 0, [np.zeros((2, 1, 8), bool)], device="cpu")
+    assert rows.shape == (2, 128) and (rows[:, 0] == 0).all()
     assert SnapshotCache("cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")

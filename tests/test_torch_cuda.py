@@ -71,6 +71,72 @@ def test_ell_band_relax_kernel_matches_plain(card, s, n_pad, rows, k, pos, mask_
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
+    "s,n_pad,rows,k,pos",
+    [
+        # the 10 000-node KSP2 chunk (256 destinations) over the in-bands
+        (256, 10112, 7488, 8, 0), (256, 10112, 2496, 16, 7488),
+        (256, 10112, 16, 1024, 9984),
+        # the 1008-node chunk (1024 destinations)
+        (1024, 1024, 744, 8, 0), (1024, 1024, 248, 16, 744), (1024, 1024, 16, 64, 992),
+        # ragged: S off 8/32/128, rows below a block, k off the vector width
+        (37, 300, 50, 9, 17), (3, 256, 5, 8, 100), (129, 700, 33, 64, 600),
+        (13, 256, 200, 24, 56), (2, 1100, 3, 1024, 1000),
+    ],
+)
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8, torch.int32])
+def test_ell_band_relax_masked_kernel_matches_plain(card, s, n_pad, rows, k, pos, mask_dtype):
+    rng = np.random.default_rng(s + n_pad + rows + k)
+    d = _mat(rng, (s, n_pad), 0.2).to(card)
+    src_np = rng.integers(0, n_pad, (rows, k)).astype(np.int32)
+    ov_np = rng.random(n_pad) < 0.1
+    src_np[:, 0] = rng.choice(np.flatnonzero(ov_np), size=rows)  # overloaded origins
+    src = torch.from_numpy(src_np).to(card)
+    w = _mat(rng, (rows, k), 0.2).to(card)
+    mask_np = rng.random((s, rows, k)) < 0.05
+    mask_np[::7] = True  # batch rows that lose every edge
+    mask = torch.from_numpy(mask_np).to(card)
+    ov = torch.from_numpy(ov_np).to(card).to(mask_dtype)
+    want = ell_relax.ell_band_relax_masked_plain(d, src, w, mask, ov, pos)
+    out = torch.full_like(d, -1)
+    view = ell_relax.ell_band_relax_masked(d, src, w, mask, ov, pos, out=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax_masked"] == 1
+    assert torch.equal(view, want)
+    assert torch.equal(out[:, pos : pos + rows], want)
+    assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
+    # a mask that starts off an 8-byte boundary takes the byte-wise path
+    flat = torch.zeros(mask.numel() + 1, dtype=torch.bool, device=card)
+    odd = flat[1:].view(mask.shape)
+    odd.copy_(mask)
+    assert odd.data_ptr() % 8 != 0
+    out.fill_(-1)
+    ell_relax.ell_band_relax_masked(d, src, w, odd, ov, pos, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, pos : pos + rows], want)
+
+
+@pytest.mark.cuda
+def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take(card):
+    d = torch.zeros((2, 16), dtype=torch.int32, device=card)
+    src = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    w = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    mask = torch.zeros((2, 4, 8), dtype=torch.bool, device=card)
+    ov = torch.zeros(16, dtype=torch.bool, device=card)
+    out = torch.empty_like(d)
+    for bad in (mask.to(torch.uint8), mask.to(torch.int32)):
+        with pytest.raises(TypeError, match="bool"):
+            ell_relax.ell_band_relax_masked(d, src, w, bad, ov, 0, out)
+    strided = torch.zeros((2, 8, 4), dtype=torch.bool, device=card).transpose(1, 2)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ell_relax.ell_band_relax_masked(d, src, w, strided, ov, 0, out)
+    with pytest.raises(ValueError, match="mask"):
+        ell_relax.ell_band_relax_masked(d, src, w, mask.cpu(), ov, 0, out)
+    assert LAUNCHES["ell_band_relax_masked"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
     "b,n_pad,rows,k,pos",
     [
         # the 10 000-node sweep's out-bands at a 1024-destination block

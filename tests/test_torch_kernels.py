@@ -1,6 +1,7 @@
 """The port's kernel modules against the JAX package's kernels.
 
-``minplus_plain``, ``ell_band_relax_plain``, ``rev_band_relax_plain``,
+``minplus_plain``, ``ell_band_relax_plain``,
+``ell_band_relax_masked_plain``, ``rev_band_relax_plain``,
 ``batched_minplus_plain`` and ``batched_minplus_t_plain`` are the versions
 the port runs on CPU tensors, and what the CUDA kernels are held against
 on the card. Here they are held against the JAX package's Pallas kernels (in
@@ -23,6 +24,7 @@ from openr_tpu.ops import spf as jax_spf
 from openr_tpu.ops import spf_grouped as jax_grouped
 from openr_tpu.ops import spf_sparse as jax_sparse
 from openr_tpu.ops.pallas_ell import ell_band_relax as jax_ell_band_relax
+from openr_tpu.ops.pallas_ell import ell_band_relax_masked as jax_ell_band_relax_masked
 from openr_tpu.ops.pallas_ell import rev_band_relax as jax_rev_band_relax
 from openr_tpu.ops.pallas_minplus import minplus as jax_pallas_minplus
 from openr_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -51,8 +53,8 @@ def _no_launches():
     reset_launches()
     yield
     assert set(LAUNCHES) == {
-        "minplus", "ell_band_relax", "rev_band_relax", "batched_minplus",
-        "batched_minplus_t",
+        "minplus", "ell_band_relax", "ell_band_relax_masked", "rev_band_relax",
+        "batched_minplus", "batched_minplus_t",
     }
     assert all(count == 0 for count in LAUNCHES.values()), LAUNCHES
 
@@ -206,6 +208,131 @@ def test_ell_band_relax_rejects_what_the_kernel_does_not_take():
         ell_relax.ell_band_relax(
             d.to("meta"), src.to("meta"), w.to("meta"), ov.to("meta"), 0,
             out.to("meta"),
+        )
+
+
+# -- ell_band_relax_masked: the KSP2 second-path band relax --------------------
+
+
+MASKED_CASES = [
+    # s, n_pad, rows, k, pos, inf_frac, overloaded fraction, mask
+    (3, 256, 40, 8, 100, 0.2, 0.2, "random"),
+    (13, 256, 130, 16, 126, 0.4, 0.1, "random"),
+    (1, 128, 7, 64, 121, 0.0, 0.5, "random"),
+    (9, 384, 16, 64, 300, 0.3, 0.0, "all_true"),
+    (10, 256, 200, 8, 56, 0.3, 0.3, "all_false"),
+    (8, 128, 128, 16, 0, 0.9, 1.0, "rows_true"),
+]
+
+
+def _mask(rng, kind, shape):
+    if kind == "all_true":
+        return np.ones(shape, dtype=bool)
+    if kind == "all_false":
+        return np.zeros(shape, dtype=bool)
+    mask = rng.random(shape) < 0.1
+    if kind == "rows_true":
+        mask[::3] = True  # some batch rows lose every edge
+    return mask
+
+
+@pytest.mark.parametrize("case", MASKED_CASES, ids=lambda c: "x".join(map(str, c[:5])) + c[7])
+def test_ell_band_relax_masked_plain_matches_pallas_interpret(case):
+    s, n_pad, rows, k, pos, inf_frac, ov_frac, kind = case
+    rng = np.random.default_rng(sum(case[:5]))
+    d, src, w, ov = _band(rng, s, n_pad, rows, k, pos, inf_frac, ov_frac)
+    # overloaded origins: some slots gather from overloaded nodes
+    if ov.any():
+        src[:, 0] = rng.choice(np.flatnonzero(ov), size=rows)
+    mask = _mask(rng, kind, (s, rows, k))
+    want = np.asarray(
+        jax_ell_band_relax_masked(
+            jnp.asarray(d), jnp.asarray(src), jnp.asarray(w), jnp.asarray(mask),
+            jnp.asarray(ov), pos, interpret=True,
+        )
+    )
+    for ovm in (_t(ov), _t(ov).to(torch.uint8), _t(ov).to(torch.int32)):
+        out = torch.empty((s, n_pad), dtype=torch.int32)
+        got = ell_relax.ell_band_relax_masked(_t(d), _t(src), _t(w), _t(mask), ovm, pos, out)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(out[:, pos : pos + rows].numpy(), want)
+    if kind == "all_false":
+        np.testing.assert_array_equal(
+            want, ell_relax.ell_band_relax_plain(_t(d), _t(src), _t(w), _t(ov), pos).numpy()
+        )
+    if kind == "all_true":
+        np.testing.assert_array_equal(want, d[:, pos : pos + rows])
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("s", [1, 8, 11])
+def test_full_masked_relax_matches_jax(impl, s):
+    # three bands and a padding tail, each band with its own [S, rows, k]
+    # mask: the port's in-place band writes equal the JAX concatenation
+    rng = np.random.default_rng(200 + s)
+    bands = (
+        jax_sparse.EllBand(0, 90, 8),
+        jax_sparse.EllBand(90, 30, 16),
+        jax_sparse.EllBand(120, 3, 64),
+    )
+    n_pad = 128
+    d = _mat(rng, (s, n_pad), 0.3)
+    srcs = [rng.integers(0, n_pad, (b.rows, b.k)).astype(np.int32) for b in bands]
+    ws = [_mat(rng, (b.rows, b.k), 0.3) for b in bands]
+    masks = [rng.random((s, b.rows, b.k)) < 0.2 for b in bands]
+    ov = rng.random(n_pad) < 0.2
+    want = np.asarray(
+        jax_sparse._ell_relax_masked(
+            jnp.asarray(d), bands, tuple(map(jnp.asarray, srcs)),
+            tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, masks)),
+            jnp.asarray(ov), impl=impl,
+        )
+    )
+    port_bands = tuple(port_sparse.EllBand(b.start, b.rows, b.k) for b in bands)
+    got = port_sparse._ell_relax_masked(
+        _t(d), port_bands, tuple(map(_t, srcs)), tuple(map(_t, ws)),
+        tuple(map(_t, masks)), _t(ov),
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ell_band_relax_masked_writes_into_out_slice():
+    rng = np.random.default_rng(6)
+    d, src, w, ov = _band(rng, 4, 128, 20, 8, 30, 0.3, 0.2)
+    mask = _t(rng.random((4, 20, 8)) < 0.3)
+    out = torch.full((4, 128), -7, dtype=torch.int32)
+    view = ell_relax.ell_band_relax_masked(_t(d), _t(src), _t(w), mask, _t(ov), 30, out=out)
+    want = ell_relax.ell_band_relax_masked_plain(_t(d), _t(src), _t(w), mask, _t(ov), 30)
+    assert torch.equal(view, want)
+    assert torch.equal(out[:, 30:50], want)
+    assert (out[:, :30] == -7).all() and (out[:, 50:] == -7).all()
+
+
+def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take():
+    d = torch.zeros((2, 16), dtype=torch.int32)
+    src = torch.zeros((4, 8), dtype=torch.int32)
+    w = torch.zeros((4, 8), dtype=torch.int32)
+    mask = torch.zeros((2, 4, 8), dtype=torch.bool)
+    ov = torch.zeros(16, dtype=torch.bool)
+    out = torch.empty_like(d)
+    with pytest.raises(TypeError, match="bool"):  # the kernel reads bytes 0/1
+        ell_relax.ell_band_relax_masked(d, src, w, mask.to(torch.int32), ov, 0, out)
+    with pytest.raises(TypeError, match="bool"):
+        ell_relax.ell_band_relax_masked(d, src, w, mask.to(torch.uint8), ov, 0, out)
+    with pytest.raises(ValueError, match="mask"):  # one batch row short
+        ell_relax.ell_band_relax_masked(d, src, w, mask[:1], ov, 0, out)
+    with pytest.raises(ValueError, match="mask"):  # slots do not match the band
+        ell_relax.ell_band_relax_masked(d, src, w, mask[:, :, :4], ov, 0, out)
+    with pytest.raises(ValueError):  # band past the last column
+        ell_relax.ell_band_relax_masked(d, src, w, mask, ov, 13, out)
+    with pytest.raises(TypeError):
+        ell_relax.ell_band_relax_masked(d.to(torch.int64), src, w, mask, ov, 0, out)
+    with pytest.raises(ValueError):  # out not shaped like d
+        ell_relax.ell_band_relax_masked(d, src, w, mask, ov, 0, out[:, :8])
+    with pytest.raises(ValueError, match="no kernel"):
+        ell_relax.ell_band_relax_masked(
+            d.to("meta"), src.to("meta"), w.to("meta"), mask.to("meta"),
+            ov.to("meta"), 0, out.to("meta"),
         )
 
 

@@ -285,8 +285,14 @@ def test_root_absent_gives_no_route_db():
 
 
 def test_ksp2_prefix_raises_not_implemented():
+    # KSP2_ED_ECMP is ported now (tests/test_torch_ksp2.py): a KSP2 prefix
+    # no longer raises. Without SR-MPLS it gets no route, as in openr_tpu
     topo = jax_topologies.grid(3, forwarding_algorithm=JaxAlgo.KSP2_ED_ECMP)
     twin = Twin(topo)
     solver = port_solver.SpfSolver("node-0", backend="device", device="cpu")
-    with pytest.raises(NotImplementedError, match="KSP2_ED_ECMP"):
-        solver.build_route_db("node-0", {"0": twin.ls}, twin.ps)
+    got = solver.build_route_db("node-0", {"0": twin.ls}, twin.ps)
+    want = jax_solver.SpfSolver("node-0", backend="device").build_route_db(
+        "node-0", {"0": twin.jax_ls}, twin.jax_ps
+    )
+    assert _plain(got, "node-0") == _plain(want, "node-0")
+    assert not got.unicast_routes and got.mpls_routes
