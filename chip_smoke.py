@@ -15,8 +15,13 @@ Phases, one JSON line each (``"phase": ...``):
    exactly (int32), at the shapes of the main path and at random ragged
    shapes with INF and overloaded nodes sprinkled in. ``kernel_ms`` and
    ``plain_ms`` are device time per call from the profiler's CUDA
-   activity (the script fails if the profiler records none);
-   ``call_ms`` is CUDA-event time per call, host launch path included.
+   activity. A session missed device activity, and is profiled again
+   (three times, then the script fails), when it records none, when a
+   band's or segment's reading is below the least time the card could
+   take for its bytes, or when a relax step's reading is below 0.9 of the
+   sum of its bands or segments, each profiled alone. ``call_ms`` is
+   CUDA-event time per call, host launch path included. The route sweep
+   kernels' bands and segments name the launch plan they took.
 4. ``dense``: ``SpfSolver(backend="device").build_route_db`` from
    ``rsw-0-0`` on the 1008-node fabric (dense regime), then churn events
    that bump one adjacency metric of ``fsw-0-0``; after every build the
@@ -36,8 +41,10 @@ Phases, one JSON line each (``"phase": ...``):
    over ``run_spf`` from every source), the backends must agree by node
    name, and each sample's route table must equal ``run_spf``'s.
    ``sweep_ms`` is the host clock around the whole sweep (it ends in a
-   readback); one more block is profiled for the card's busy time and
-   idle share; ``block_hops`` are the relax hops of each block. The
+   readback); one more block is profiled for the card's busy time, idle
+   share and the backend kernel's own device time (a session that
+   recorded none of that kernel is profiled again); ``block_hops`` are
+   the relax hops of each block. The
    launch counts are zeroed before the phase; each backend must launch
    its kernel, and the grouped sweeps no ELL kernel.
 7. ``sweep-10k``: the same on the 10 000-node fabric (block 1024); the
@@ -64,8 +71,9 @@ Phases, one JSON line each (``"phase": ...``):
    kernel's warp-per-row body on the 16 x 1024 spine band.
 
 The ``kernels`` phase of the route sweep's kernels (``rev_band_relax``,
-``batched_minplus``, ``batched_minplus_t``) runs at the 10 000-node
-sweep's shapes: one relax step of a 1024-destination block; that of
+``batched_minplus``, ``batched_minplus_t``) runs at both sweeps' shapes:
+one relax step of a 1024-destination block of the 10 000-node sweep and
+of a 256-destination block of the 1008-node one; that of
 ``ell_band_relax_masked`` at both KSP2 cells' chunks (S = 1024 over the
 1008-node in-bands, S = 256 over the 10 000-node ones).
 
@@ -151,13 +159,15 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled(torch, fn, what: str, attempts: int = 3):
+def profiled(torch, fn, what: str, attempts: int = 3, floor_us: float = 0.0):
     """Run ``fn`` under the profiler's CUDA activity (CUPTI) and return
     ``(key_averages, fn's result, host ms)``. A session that recorded no
-    device time for ``what`` (see ``device_us``) is reported on
-    stderr and run again, up to ``attempts`` times; then this raises."""
+    device time for ``what`` (see ``device_us``), or less than
+    ``floor_us``, missed device activity: it is reported on stderr and
+    run again, up to ``attempts`` times; then this raises."""
     from torch.profiler import ProfilerActivity, profile
 
+    got = 0.0
     for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -166,13 +176,18 @@ def profiled(torch, fn, what: str, attempts: int = 3):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         stats = prof.key_averages()
-        if device_us(stats, what):
+        got = device_us(stats, what)
+        if got and got >= floor_us:
             return stats, result, wall_ms
-        print(json.dumps({"profiler_session_without_device_time": what,
-                          "attempt": attempt + 1,
+        print(json.dumps({"profiler_session_missed_device_time": what,
+                          "attempt": attempt + 1, "device_us": got,
+                          "floor_us": floor_us,
                           "keys": [evt.key[:80] for evt in stats][:8]}),
               file=sys.stderr, flush=True)
-    raise RuntimeError(f"the profiler recorded no device time for {what}")
+    raise RuntimeError(
+        f"the profiler recorded {got} us of device time for {what} in "
+        f"{attempts} sessions, none of it at least {floor_us} us"
+    )
 
 
 def device_us(stats, name) -> float:
@@ -185,11 +200,28 @@ def device_us(stats, name) -> float:
     )
 
 
-def device_ms(torch, fn, calls: int, name=None) -> float:
+# the part of each route sweep kernel's name that the profiler's keys hold
+KERNEL_KEYS = {
+    "rev_band_relax": "rev_band_relax_",
+    "batched_minplus": "batched_minplus_kernel",
+    "batched_minplus_t": "batched_minplus_t_",
+}
+
+# a step's profiled device time below this share of the sum of its parts
+# (bands or segments, each profiled alone in the same run) means the
+# session missed device activity
+PARTS_SHARE = 0.9
+
+
+def device_ms(torch, fn, calls: int, name=None, parts_ms: float = 0.0,
+              least_ms: float = 0.0) -> float:
     """Device time per call of ``fn`` from the profiler's CUDA activity
     (CUPTI): the kernels whose name contains ``name``, or all device
-    activity (kernels, copies, fills) when ``name`` is None. Raises when
-    the profiler recorded no device time."""
+    activity (kernels, copies, fills) when ``name`` is None. ``parts_ms``
+    is the sum of the per-call times of ``fn``'s parts, ``least_ms`` the
+    least time the card could take for a call: a session below
+    ``PARTS_SHARE`` of the one or below the other is profiled again.
+    Raises when no session recorded device time (or enough of it)."""
     what = name or "a call"
     fn()
 
@@ -197,7 +229,8 @@ def device_ms(torch, fn, calls: int, name=None) -> float:
         for _ in range(calls):
             fn()
 
-    stats, _, _ = profiled(torch, run, what)
+    floor_ms = max(PARTS_SHARE * parts_ms, least_ms)
+    stats, _, _ = profiled(torch, run, what, floor_us=floor_ms * 1e3 * calls)
     return device_us(stats, what) / 1e3 / calls
 
 
@@ -205,6 +238,14 @@ def bound_ms(nbytes: int, nops: int):
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = nops / OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def band_least_ms(batch: int, rows: int, k: int) -> float:
+    """The least time one band of a relax step can take on the card: its
+    own ``[batch, rows]`` columns read and written once, its slots (id and
+    weight) read once. A profiled reading below it missed device
+    activity."""
+    return bound_ms(8 * batch * rows + 8 * rows * k, 0)[0]
 
 
 def load_network(topologies, LinkState, PrefixState, nodes: int):
@@ -302,8 +343,10 @@ def main(argv=None) -> int:
         batched_minplus_plain,
         batched_minplus_t,
         batched_minplus_t_plain,
+        minplus_t_plan,
     )
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
+    from openr_tpu_torch.ops.rev_relax import launch_plan as rev_launch_plan
     from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
     from openr_tpu_torch.types.lsdb import PrefixForwardingAlgorithm
 
@@ -419,7 +462,7 @@ def main(argv=None) -> int:
             "rows": band.rows, "k": band.k,
             "kernel_ms": device_ms(
                 torch, lambda: ell_band_relax(d_ell, s_b, w_b, ov, pos, band_out),
-                REPS, "ell_band_relax_kernel"),
+                REPS, "ell_band_relax_kernel", least_ms=band_least_ms(b, band.rows, band.k)),
             "plain_ms": device_ms(
                 torch, lambda: ell_band_relax_plain(d_ell, s_b, w_b, ov, pos),
                 REPS),
@@ -461,7 +504,8 @@ def main(argv=None) -> int:
     slots = sum(band.rows * band.k for band in graph.bands)
     ell_call = time_ms(torch, relax_kernel, REPS)
     ell_plain_call = time_ms(torch, relax_plain, REPS)
-    ell_ms = device_ms(torch, relax_kernel, REPS, "ell_band_relax_kernel")
+    ell_ms = device_ms(torch, relax_kernel, REPS, "ell_band_relax_kernel",
+                       parts_ms=sum(row["kernel_ms"] for row in band_rows))
     ell_plain = device_ms(torch, relax_plain, REPS)
     # each input read once: distance rows, band slots (src + w), the
     # overload mask; each output written once: the band columns. One add
@@ -513,7 +557,7 @@ def main(argv=None) -> int:
                 "kernel_ms": device_ms(
                     torch, lambda: ell_band_relax_masked(dm, s_b, w_b, m_b, g_ov, pos,
                                                          band_out),
-                    REPS, "masked_relax_"),
+                    REPS, "masked_relax_", least_ms=band_least_ms(s, band.rows, band.k)),
                 "plain_ms": device_ms(
                     torch, lambda: ell_band_relax_masked_plain(dm, s_b, w_b, m_b, g_ov, pos),
                     REPS),
@@ -545,7 +589,8 @@ def main(argv=None) -> int:
         )
         masked_kernel[label] = {
             "shape": {"S": s, "n_pad": g.n_pad, "bands": [[bd.rows, bd.k] for bd in g.bands]},
-            "kernel_ms": device_ms(torch, masked_step_kernel, REPS, "masked_relax_"),
+            "kernel_ms": device_ms(torch, masked_step_kernel, REPS, "masked_relax_",
+                                   parts_ms=sum(row["kernel_ms"] for row in m_rows)),
             "plain_ms": device_ms(torch, masked_step_plain, REPS),
             "call_ms": time_ms(torch, masked_step_kernel, REPS),
             "plain_call_ms": time_ms(torch, masked_step_plain, REPS),
@@ -576,51 +621,104 @@ def main(argv=None) -> int:
         emit({"phase": "kernels", "kernel": "ell_band_relax_masked", "cell": f"ksp2-{label}",
               "match": True, "checked_shapes": [list(x) for x in masked_ragged], **row})
 
-    # rev_band_relax at the 10 000-node sweep's out-bands: a block of the
-    # first 1024 destinations, two relax hops from the unit init (finite
-    # and INF distances mixed); then the same bands with a random overload
-    # mask whose nodes some destinations hit
-    out_graph = route_sweep.compile_out_ell(sparse_ls)
-    rv_t = tuple(torch.from_numpy(v).to(dev) for v in out_graph.src)
-    rw_t = tuple(torch.from_numpy(w).to(dev) for w in out_graph.w)
-    r_ov = torch.from_numpy(out_graph.overloaded).to(dev)
-    rb = SPARSE_SWEEP_BLOCK
-    t_blk = torch.arange(rb, dtype=torch.int32, device=dev)
-    dr = torch.full((rb, out_graph.n_pad), INF, dtype=torch.int32, device=dev)
-    dr[torch.arange(rb, device=dev), t_blk.long()] = 0
-    for _ in range(2):
-        dr = route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
-    ov_np = rng.random(out_graph.n_pad) < 0.05
-    t_np = np.arange(rb, dtype=np.int32)
-    t_np[::4] = rng.choice(np.flatnonzero(ov_np), size=t_np[::4].shape)
-    masks = [(r_ov, t_blk),
-             (torch.from_numpy(ov_np).to(dev), torch.from_numpy(t_np).to(dev))]
-    rev_rows = []
-    pos = 0
-    band_out = torch.empty_like(dr)
-    for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
-        for ovm, tt in masks:
-            compare("rev_band_relax",
-                    rev_band_relax(dr, v_b, w_b, tt, ovm, pos, band_out),
-                    rev_band_relax_plain(dr, v_b, w_b, tt, ovm, pos),
-                    f"out-band {band}")
-        rev_rows.append({
-            "rows": band.rows, "k": band.k,
-            "kernel_ms": device_ms(
-                torch, lambda: rev_band_relax(dr, v_b, w_b, t_blk, r_ov, pos, band_out),
-                REPS, "rev_band_relax_"),
-            "plain_ms": device_ms(
-                torch, lambda: rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, pos),
-                REPS),
-        })
-        pos += band.rows
-    for b_, n_pad, rows, k in [(3, 300, 50, 9), (37, 1000, 997, 8),
-                               (17, 256, 5, 200), (5, 700, 33, 64)]:
+    # rev_band_relax at each route sweep's out-bands and block (the
+    # 10 000-node fabric with 1024 destinations, the 1008-node one with
+    # 256): the block of the first destinations, two relax hops from the
+    # unit init (finite and INF distances mixed); then the same bands with
+    # a random overload mask whose nodes some destinations hit
+    sweep_cells = (("10k", sparse_ls, SPARSE_SWEEP_BLOCK),
+                   ("1008", dense_ls, DENSE_SWEEP_BLOCK))
+    rev_kernel = {}
+    for label, ls, rb in sweep_cells:
+        out_graph = route_sweep.compile_out_ell(ls)
+        rv_t = tuple(torch.from_numpy(v).to(dev) for v in out_graph.src)
+        rw_t = tuple(torch.from_numpy(w).to(dev) for w in out_graph.w)
+        r_ov = torch.from_numpy(out_graph.overloaded).to(dev)
+        t_blk = torch.arange(rb, dtype=torch.int32, device=dev)
+        dr = torch.full((rb, out_graph.n_pad), INF, dtype=torch.int32, device=dev)
+        dr[torch.arange(rb, device=dev), t_blk.long()] = 0
+        for _ in range(2):
+            dr = route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
+        ov_np = rng.random(out_graph.n_pad) < 0.05
+        t_np = np.arange(rb, dtype=np.int32)
+        t_np[::4] = rng.choice(np.flatnonzero(ov_np), size=t_np[::4].shape)
+        masks = [(r_ov, t_blk),
+                 (torch.from_numpy(ov_np).to(dev), torch.from_numpy(t_np).to(dev))]
+        rev_rows = []
+        pos = 0
+        band_out = torch.empty_like(dr)
+        for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
+            for ovm, tt in masks:
+                compare("rev_band_relax",
+                        rev_band_relax(dr, v_b, w_b, tt, ovm, pos, band_out),
+                        rev_band_relax_plain(dr, v_b, w_b, tt, ovm, pos),
+                        f"sweep-{label} out-band {band}")
+            plan = rev_launch_plan(rb, band.rows, band.k)
+            rev_rows.append({
+                "rows": band.rows, "k": band.k,
+                "plan": {"body": "wide" if plan.wide else "narrow",
+                         "chunk": plan.chunk, "grid": list(plan.grid)},
+                "kernel_ms": device_ms(
+                    torch, lambda: rev_band_relax(dr, v_b, w_b, t_blk, r_ov, pos, band_out),
+                    REPS, KERNEL_KEYS["rev_band_relax"],
+                    least_ms=band_least_ms(rb, band.rows, band.k)),
+                "plain_ms": device_ms(
+                    torch, lambda: rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, pos),
+                    REPS),
+            })
+            pos += band.rows
+
+        def rev_step_plain():
+            out = torch.empty_like(dr)
+            at = 0
+            for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
+                out[:, at : at + band.rows] = rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, at)
+                at += band.rows
+            out[:, at:] = dr[:, at:]
+            return out
+
+        def rev_step_kernel():
+            return route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
+
+        compare("rev_band_relax", rev_step_kernel(), rev_step_plain(),
+                f"sweep-{label}: one reversed relax step over all out-bands")
+        rslots = sum(band.rows * band.k for band in out_graph.bands)
+        # each input read once: the destination rows, the band slots (v + w),
+        # the overload mask, the destination ids; each output written once:
+        # the band columns. One add and one min per gathered slot and row.
+        rev_bound, rev_by = bound_ms(
+            4 * rb * out_graph.n_pad + 8 * rslots + out_graph.n_pad + 4 * rb
+            + 4 * rb * out_graph.n,
+            2 * rb * rslots,
+        )
+        rev_kernel[label] = {
+            "shape": {"B": rb, "n_pad": out_graph.n_pad,
+                      "bands": [[bd.rows, bd.k] for bd in out_graph.bands]},
+            "bands": rev_rows,
+            "kernel_ms": device_ms(torch, rev_step_kernel, REPS, KERNEL_KEYS["rev_band_relax"],
+                                   parts_ms=sum(row["kernel_ms"] for row in rev_rows)),
+            "plain_ms": device_ms(torch, rev_step_plain, REPS),
+            "call_ms": time_ms(torch, rev_step_kernel, REPS),
+            "plain_call_ms": time_ms(torch, rev_step_plain, REPS),
+            "bound_ms": rev_bound, "bound_by": rev_by,
+        }
+    # ragged: B = 1, B off the destination run, rows below a block, k of 1
+    # and slots staged as 8, 16 and 32, wide bands from 33 slots; half the
+    # destinations overloaded nodes, half overloaded nodes that the band's
+    # slots stage (the v == t exception)
+    rev_ragged = [(3, 300, 50, 9), (37, 1000, 997, 8), (17, 256, 5, 200),
+                  (5, 700, 33, 64), (1, 300, 50, 9), (1001, 1200, 300, 8),
+                  (37, 256, 5, 1), (300, 2000, 1300, 17), (300, 2000, 1300, 40)]
+    for b_, n_pad, rows, k in rev_ragged:
         dd, ww = rand_int((b_, n_pad), 0.3), rand_int((rows, k), 0.3)
-        vb = torch.from_numpy(rng.integers(0, n_pad, (rows, k)).astype(np.int32)).to(dev)
+        vb_np = rng.integers(0, n_pad, (rows, k)).astype(np.int32)
+        vb = torch.from_numpy(vb_np).to(dev)
         ovn = rng.random(n_pad) < 0.2
         tn = rng.integers(0, n_pad, b_).astype(np.int32)
         tn[::2] = rng.choice(np.flatnonzero(ovn), size=tn[::2].shape)
+        staged = np.unique(vb_np[ovn[vb_np]])
+        if staged.size:
+            tn[1::2] = rng.choice(staged, size=tn[1::2].shape)
         tt = torch.from_numpy(tn).to(dev)
         ovr = torch.from_numpy(ovn).to(dev)
         p = n_pad - rows
@@ -630,104 +728,93 @@ def main(argv=None) -> int:
                     rev_band_relax_plain(dd, vb, ww, tt, mask, p), (b_, n_pad, rows, k))
             compare("rev_band_relax", out[:, :p], torch.full_like(dd[:, :p], -1),
                     f"columns outside the band at {(b_, n_pad, rows, k)}")
+    for label, row in rev_kernel.items():
+        emit({"phase": "kernels", "kernel": "rev_band_relax", "cell": f"sweep-{label}",
+              "match": True, "checked_shapes": [list(x) for x in rev_ragged], **row})
 
-    def rev_step_plain():
-        out = torch.empty_like(dr)
-        at = 0
-        for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
-            out[:, at : at + band.rows] = rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, at)
-            at += band.rows
-        out[:, at:] = dr[:, at:]
-        return out
-
-    def rev_step_kernel():
-        return route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
-
-    compare("rev_band_relax", rev_step_kernel(), rev_step_plain(),
-            "one reversed relax step over all out-bands")
-    rslots = sum(band.rows * band.k for band in out_graph.bands)
-    rev_call = time_ms(torch, rev_step_kernel, REPS)
-    rev_plain_call = time_ms(torch, rev_step_plain, REPS)
-    rev_ms = device_ms(torch, rev_step_kernel, REPS, "rev_band_relax_")
-    rev_plain = device_ms(torch, rev_step_plain, REPS)
-    # each input read once: the destination rows, the band slots (v + w),
-    # the overload mask, the destination ids; each output written once:
-    # the band columns. One add and one min per gathered slot and row.
-    rev_bound, rev_by = bound_ms(
-        4 * rb * out_graph.n_pad + 8 * rslots + out_graph.n_pad + 4 * rb
-        + 4 * rb * out_graph.n,
-        2 * rb * rslots,
-    )
-    rev_shape = {"B": rb, "n_pad": out_graph.n_pad,
-                 "bands": [[bd.rows, bd.k] for bd in out_graph.bands]}
-    emit({"phase": "kernels", "kernel": "rev_band_relax", "shape": rev_shape,
-          "match": True, "bands": rev_rows,
-          "kernel_ms": rev_ms, "plain_ms": rev_plain, "bound_ms": rev_bound,
-          "call_ms": rev_call, "plain_call_ms": rev_plain_call})
-
-    # batched_minplus(_t) at the 10 000-node grouped sweep's segments: the
-    # masked source tables of the same destination block, two grouped
-    # relax hops from the unit init, in each kernel's layout
-    grp_graph = spf_grouped.compile_out_grouped(sparse_ls)
-    g_meta = spf_grouped.band_meta(grp_graph)
-    g_src, g_w = spf_grouped.device_tensors(grp_graph, dev)
-    g_ov = torch.from_numpy(grp_graph.overloaded).to(dev)
-    dg = torch.full((rb, grp_graph.n_pad), INF, dtype=torch.int32, device=dev)
-    dg[torch.arange(rb, device=dev), t_blk.long()] = 0
-    for _ in range(2):
-        dg = spf_grouped._grouped_relax(
-            dg, g_meta, g_src, g_w, g_ov, t_blk, spf_grouped.IMPLS[0]
-        )
-    segs = []
-    for src, w in zip(g_src, g_w):
-        idx = src.long()
-        blocked = g_ov[idx][None] & (src[None] != t_blk[:, None, None])
-        gath = dg[:, idx].masked_fill(blocked, INF)  # [B, G, S]
-        segs.append((gath.permute(1, 0, 2).contiguous(),
-                     gath.permute(1, 2, 0).contiguous(), w))
-    grouped_shapes = [[int(w.shape[0]), rb, int(w.shape[1]), int(w.shape[2])]
-                      for _, _, w in segs]
-    ragged = [(3, 5, 7, 9), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
-              (50, 300, 13, 6)]
+    # batched_minplus(_t) at each grouped sweep's segments and block: the
+    # masked source tables of the block's destinations, two grouped relax
+    # hops from the unit init, in each kernel's layout
     grouped_ops = {
-        "batched_minplus": (batched_minplus, batched_minplus_plain, 0),
-        "batched_minplus_t": (batched_minplus_t, batched_minplus_t_plain, 1),
+        "batched_minplus": (batched_minplus, batched_minplus_plain, 0,
+                            KERNEL_KEYS["batched_minplus"]),
+        "batched_minplus_t": (batched_minplus_t, batched_minplus_t_plain, 1,
+                              KERNEL_KEYS["batched_minplus_t"]),
     }
-    g_bytes = sum(4 * (g * b_ * s + g * s * r + g * b_ * r) for g, b_, s, r in grouped_shapes)
-    g_ops = sum(2 * g * b_ * s * r for g, b_, s, r in grouped_shapes)
-    grp_bound, grp_by = bound_ms(g_bytes, g_ops)
-    grouped_kernel = {}
-    for name, (kern, plain, layout) in grouped_ops.items():
-        for seg, shape in zip(segs, grouped_shapes):
-            compare(name, kern(seg[layout], seg[2]), plain(seg[layout], seg[2]),
-                    f"segment {shape}")
-        for g, b_, s, r in ragged:
-            gath = rand_int((g, s, b_) if layout else (g, b_, s), 0.3)
-            w = rand_int((g, s, r), 0.3)
-            compare(name, kern(gath, w), plain(gath, w), (g, b_, s, r))
+    grouped_kernel = {name: {} for name in grouped_ops}
+    for label, ls, rb in sweep_cells:
+        grp_graph = spf_grouped.compile_out_grouped(ls)
+        g_meta = spf_grouped.band_meta(grp_graph)
+        g_src, g_w = spf_grouped.device_tensors(grp_graph, dev)
+        g_ov = torch.from_numpy(grp_graph.overloaded).to(dev)
+        t_blk = torch.arange(rb, dtype=torch.int32, device=dev)
+        dg = torch.full((rb, grp_graph.n_pad), INF, dtype=torch.int32, device=dev)
+        dg[torch.arange(rb, device=dev), t_blk.long()] = 0
+        for _ in range(2):
+            dg = spf_grouped._grouped_relax(
+                dg, g_meta, g_src, g_w, g_ov, t_blk, spf_grouped.IMPLS[0]
+            )
+        segs = []
+        for src, w in zip(g_src, g_w):
+            idx = src.long()
+            blocked = g_ov[idx][None] & (src[None] != t_blk[:, None, None])
+            gath = dg[:, idx].masked_fill(blocked, INF)  # [B, G, S]
+            segs.append((gath.permute(1, 0, 2).contiguous(),
+                         gath.permute(1, 2, 0).contiguous(), w))
+        grouped_shapes = [[int(w.shape[0]), rb, int(w.shape[1]), int(w.shape[2])]
+                          for _, _, w in segs]
+        g_bytes = sum(4 * (g_ * b_ * s_g + g_ * s_g * r_ + g_ * b_ * r_)
+                      for g_, b_, s_g, r_ in grouped_shapes)
+        g_ops = sum(2 * g_ * b_ * s_g * r_ for g_, b_, s_g, r_ in grouped_shapes)
+        grp_bound, grp_by = bound_ms(g_bytes, g_ops)
+        for name, (kern, plain, layout, key) in grouped_ops.items():
+            seg_rows = []
+            for seg, shape in zip(segs, grouped_shapes):
+                compare(name, kern(seg[layout], seg[2]), plain(seg[layout], seg[2]),
+                        f"sweep-{label} segment {shape}")
+                row = {"shape": shape}
+                if layout:
+                    plan = minplus_t_plan(*shape)
+                    row["plan"] = {"r_tile": plan.r_tile, "threads": plan.threads,
+                                   "s_chunk": plan.s_chunk, "splits": plan.splits,
+                                   "grid": list(plan.grid)}
+                # the least time: gath read once, the output written once
+                g_, b_, s_g, r_ = shape
+                row["kernel_ms"] = device_ms(
+                    torch, lambda seg=seg: kern(seg[layout], seg[2]), REPS, key,
+                    least_ms=bound_ms(4 * g_ * b_ * (s_g + r_), 0)[0])
+                seg_rows.append(row)
 
-        def step_kernel(kern=kern, layout=layout):
-            return [kern(seg[layout], seg[2]) for seg in segs]
+            def step_kernel(kern=kern, layout=layout):
+                return [kern(seg[layout], seg[2]) for seg in segs]
 
-        def step_plain(plain=plain, layout=layout):
-            return [plain(seg[layout], seg[2]) for seg in segs]
+            def step_plain(plain=plain, layout=layout):
+                return [plain(seg[layout], seg[2]) for seg in segs]
 
-        grouped_kernel[name] = {
-            "kernel_ms": device_ms(torch, step_kernel, REPS, "batched_minplus_kernel"),
-            "plain_ms": device_ms(torch, step_plain, REPS),
-            "call_ms": time_ms(torch, step_kernel, REPS),
-            "plain_call_ms": time_ms(torch, step_plain, REPS),
-            "segments": [
-                {"shape": shape,
-                 "kernel_ms": device_ms(torch, lambda seg=seg: kern(seg[layout], seg[2]),
-                                        REPS, "batched_minplus_kernel")}
-                for seg, shape in zip(segs, grouped_shapes)
-            ],
-        }
-        emit({"phase": "kernels", "kernel": name,
-              "shape": {"segments_GBSR": grouped_shapes}, "match": True,
-              "checked_shapes": [list(x) for x in ragged],
-              "bound_ms": grp_bound, **grouped_kernel[name]})
+            grouped_kernel[name][label] = {
+                "shape": {"segments_GBSR": grouped_shapes},
+                "segments": seg_rows,
+                "kernel_ms": device_ms(torch, step_kernel, REPS, key,
+                                       parts_ms=sum(row["kernel_ms"] for row in seg_rows)),
+                "plain_ms": device_ms(torch, step_plain, REPS),
+                "call_ms": time_ms(torch, step_kernel, REPS),
+                "plain_call_ms": time_ms(torch, step_plain, REPS),
+                "bound_ms": grp_bound, "bound_by": grp_by,
+            }
+    # ragged: S past the Pallas s-block cap of 512, S split on and off, R
+    # past one R-tile, B off 32, single elements
+    grouped_ragged = [(3, 5, 7, 9), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
+                      (50, 300, 13, 6), (3, 33, 1030, 20), (4, 100, 700, 40),
+                      (1, 1, 1, 1), (5, 70, 64, 17), (2, 1000, 3, 100)]
+    for name, (kern, plain, layout, _) in grouped_ops.items():
+        for g_, b_, s_g, r_ in grouped_ragged:
+            gath = rand_int((g_, s_g, b_) if layout else (g_, b_, s_g), 0.3)
+            w = rand_int((g_, s_g, r_), 0.3)
+            compare(name, kern(gath, w), plain(gath, w), (g_, b_, s_g, r_))
+        for label, row in grouped_kernel[name].items():
+            emit({"phase": "kernels", "kernel": name, "cell": f"sweep-{label}",
+                  "match": True, "checked_shapes": [list(x) for x in grouped_ragged],
+                  **row})
 
     # -- 4./5. the main path: route builds through the kernels ---------------
     def drive(phase, ls, ps, events, nodes):
@@ -897,15 +984,10 @@ def main(argv=None) -> int:
             launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             for k in LAUNCHES:
                 phase_launches[k] += launches[k]
-            if label == "ell":
-                if launches["rev_band_relax"] == 0:
-                    raise AssertionError(f"{phase}: the ELL sweep launched no rev_band_relax")
-                stray = {k: v for k, v in launches.items() if k != "rev_band_relax" and v}
-            else:
-                impl = label.split("/")[1]
-                if launches[impl] == 0:
-                    raise AssertionError(f"{phase}: the {label} sweep launched no {impl}")
-                stray = {k: v for k, v in launches.items() if k != impl and v}
+            kernel = "rev_band_relax" if label == "ell" else label.split("/")[1]
+            if launches[kernel] == 0:
+                raise AssertionError(f"{phase}: the {label} sweep launched no {kernel}")
+            stray = {k: v for k, v in launches.items() if k != kernel and v}
             if stray:
                 raise AssertionError(f"{phase}: the {label} sweep launched {stray}")
             names = result.graph.node_names
@@ -926,13 +1008,16 @@ def main(argv=None) -> int:
                     raise AssertionError(
                         f"{phase}: {label} route table of {nm} differs from run_spf"
                     )
-            # one more block under the profiler: the card's busy share
+            # one more block under the profiler: the card's busy share; a
+            # session that recorded none of the backend's own kernel missed
+            # device activity and is run again
             ids = torch.arange(block, dtype=torch.int32, device=dev) % ell_graph.n_pad
             sweeper.solve_block(ids).cpu()
             stats, _, block_wall = profiled(
-                torch, lambda: sweeper.solve_block(ids).cpu(), "a call"
+                torch, lambda: sweeper.solve_block(ids).cpu(), KERNEL_KEYS[kernel]
             )
             busy = device_us(stats, "a call") / 1e3
+            block_kernel_ms = device_us(stats, KERNEL_KEYS[kernel]) / 1e3
             top = sorted(
                 stats, key=lambda e: getattr(e, "self_device_time_total", 0) or 0,
                 reverse=True,
@@ -943,6 +1028,7 @@ def main(argv=None) -> int:
                 "block_hops": sweeper.block_hops[: -(-ell_graph.n_pad // block)],
                 "launches": launches,
                 "profiled_block_ms": block_wall, "block_device_busy_ms": busy,
+                "block_kernel_ms": block_kernel_ms,
                 "block_device_idle_share": 1 - busy / block_wall,
                 "block_top_device_ms": [
                     [evt.key[:60], (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
@@ -1084,6 +1170,20 @@ def main(argv=None) -> int:
         for k in LAUNCHES
     }
 
+    def sweep_row(cells):
+        """A route sweep kernel's closing-line fields: its times at the
+        10 000-node sweep's shapes, with each band's or segment's launch
+        plan and time, and the same at the 1008-node sweep's block."""
+        row = cells["10k"]
+        parts = {k: row[k] for k in ("bands", "segments") if k in row}
+        return {
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "call_ms": row["call_ms"],
+            "plain_call_ms": row["plain_call_ms"], "shape": row["shape"], **parts,
+            "at_1008": {k: v for k, v in cells["1008"].items() if k != "bound_by"},
+        }
+
     csrc = "openr_tpu_torch/csrc"
     print(smi, flush=True)
     emit({"kernels": [
@@ -1123,20 +1223,12 @@ def main(argv=None) -> int:
          "replaces": "openr_tpu/ops/pallas_ell.py:248",
          "launches": main_launches["rev_band_relax"],
          "max_abs_err": max_err["rev_band_relax"],
-         "ms": rev_ms, "plain_ms": rev_plain,
-         "bound_ms": rev_bound, "bound_by": rev_by, "library_ms": None,
-         "call_ms": rev_call, "plain_call_ms": rev_plain_call,
-         "shape": rev_shape, "match": True},
+         **sweep_row(rev_kernel), "match": True},
     ] + [
         {"name": name, "route": "cuda", "source": f"{csrc}/grouped_minplus.cu",
          "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": max_err[name],
-         "ms": grouped_kernel[name]["kernel_ms"],
-         "plain_ms": grouped_kernel[name]["plain_ms"],
-         "bound_ms": grp_bound, "bound_by": grp_by, "library_ms": None,
-         "call_ms": grouped_kernel[name]["call_ms"],
-         "plain_call_ms": grouped_kernel[name]["plain_call_ms"],
-         "shape": {"segments_GBSR": grouped_shapes}, "match": True}
+         **sweep_row(grouped_kernel[name]), "match": True}
         for name, replaces in (
             ("batched_minplus", "openr_tpu/ops/pallas_grouped.py:247"),
             ("batched_minplus_t", "openr_tpu/ops/pallas_grouped.py:203"),

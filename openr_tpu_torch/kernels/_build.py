@@ -53,14 +53,18 @@ SIGNATURES: Dict[str, List] = {
         _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P,
     ],
     # dr, B, n_pad, v, w, rows, k, t_ids, overloaded, ov_is_int32, pos,
-    # out, stream
+    # chunk, out, stream
     "openr_rev_band_relax": [
-        _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+        _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P,
     ],
     # gath [G, B, S], w [G, S, R], out [G, B, R], G, B, S, R, stream
     "openr_batched_minplus": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # gath_t [G, S, B], w [G, S, R], out [G, R, B], G, B, S, R, stream
-    "openr_batched_minplus_t": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # gath_t [G, S, B], w [G, S, R], out [G, R, B], scratch
+    # [splits, G, R, B] (null without a split), G, B, S, R, r_tile,
+    # threads, s_chunk, splits, stream
+    "openr_batched_minplus_t": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
 }
 
 _lock = threading.Lock()

@@ -11,6 +11,9 @@ takes any ``G, B, S, R``.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Tuple
+
 import torch
 
 from openr_tpu_torch.kernels import LAUNCHES
@@ -19,6 +22,74 @@ INF = (1 << 30) - 1
 
 # bound on the broadcast temporary of the plain versions (elements)
 _PLAIN_CHUNK_ELEMS = 1 << 24
+
+# batched_minplus_t's launch (csrc/grouped_minplus.cu): a thread owns a
+# (g, b) column and an R-tile of at most R_TILE_MAX accumulators; a block
+# holds MAX_THREADS columns, or down to MIN_THREADS when the grid is thin.
+# S is split (chunks of at least MIN_S_CHUNK) while the columns times
+# R-tiles fall short of TARGET_THREADS (16 warps for each of an H100's 132
+# SMs); then blocks shrink, and then R-tiles, until the grid holds
+# MIN_BLOCKS (two a SM) or can shrink no further.
+R_TILE_MAX = 16
+MAX_THREADS = 128
+MIN_THREADS = 32
+MIN_S_CHUNK = 4
+TARGET_THREADS = 132 * 512
+MIN_BLOCKS = 2 * 132
+GRID_YZ_MAX = 65535
+GRID_X_MAX = 2**31 - 1
+# every operand of the kernel holds fewer elements: 32-bit indices
+MAX_ELEMS = 2**31 - 1
+
+
+class MinplusTPlan(NamedTuple):
+    """How one ``batched_minplus_t`` call launches: accumulators a thread
+    (``r_tile``), columns a block (``threads``), the S range of a split
+    (``s_chunk``) and the number of splits, the grid
+    ``(G * b-blocks, R-tiles, splits)``, and the partial-min scratch's
+    shape ``[splits, G, R, B]``, or ``()`` when S is not split (the
+    kernel then writes the output)."""
+
+    r_tile: int
+    threads: int
+    s_chunk: int
+    splits: int
+    grid: Tuple[int, int, int]
+    scratch_shape: Tuple[int, ...]
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def minplus_t_plan(g: int, b: int, s: int, r: int) -> MinplusTPlan:
+    """The launch of ``[G, S, B] x [G, S, R] -> [G, R, B]`` (``g, b, r``
+    >= 1, ``s`` >= 0) by the rule above the class."""
+    if g < 1 or b < 1 or r < 1 or s < 0:
+        raise ValueError(f"batched_minplus_t plan: G={g}, B={b}, S={s}, R={r}")
+    r_tile = min(R_TILE_MAX, _pow2_at_least(r))
+    cols = g * b * -(-r // r_tile)
+    splits = 1
+    if cols < TARGET_THREADS and s >= 2 * MIN_S_CHUNK:
+        splits = min(-(-TARGET_THREADS // cols), s // MIN_S_CHUNK, GRID_YZ_MAX)
+    s_chunk = max(1, -(-s // splits))
+    splits = max(1, -(-s // s_chunk))
+    threads = MAX_THREADS
+
+    def blocks() -> int:
+        return g * -(-b // threads) * -(-r // r_tile) * splits
+
+    while blocks() < MIN_BLOCKS and threads > MIN_THREADS:
+        threads //= 2
+    while blocks() < MIN_BLOCKS and r_tile > 1:
+        r_tile //= 2
+    grid = (g * -(-b // threads), -(-r // r_tile), splits)
+    if grid[0] > GRID_X_MAX or grid[1] > GRID_YZ_MAX:
+        raise ValueError(
+            f"batched_minplus_t: G={g}, B={b}, R={r} exceed the grid {grid}"
+        )
+    return MinplusTPlan(r_tile, threads, s_chunk, splits, grid,
+                        (splits, g, r, b) if splits > 1 else ())
 
 
 def _check(name: str, gath, w, transposed: bool):
@@ -74,26 +145,23 @@ def batched_minplus_t_plain(gath_t: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return out
 
 
-def _launch(name: str, entry: str, gath, w, out_shape, dims) -> torch.Tensor:
+def _kernel_operands(name: str, gath, w) -> None:
+    """Raise unless the kernel can take ``gath`` and ``w``."""
     if gath.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {gath.device}")
-    from openr_tpu_torch.kernels import _build
-
     if not (gath.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name}: the kernel takes contiguous operands")
-    out = torch.empty(out_shape, dtype=torch.int32, device=gath.device)
-    if out.numel() == 0:
-        return out
-    g, b, s, r = dims
+
+
+def _run(name: str, entry: str, device, *args) -> None:
+    from openr_tpu_torch.kernels import _build
+
     lib = _build.library()
-    with torch.cuda.device(gath.device):
-        stream = torch.cuda.current_stream(gath.device).cuda_stream
-        rc = getattr(lib, entry)(
-            gath.data_ptr(), w.data_ptr(), out.data_ptr(), g, b, s, r, stream
-        )
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
     _build.check(rc, name)
     LAUNCHES[name] += 1
-    return out
 
 
 def batched_minplus(gath: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -104,21 +172,40 @@ def batched_minplus(gath: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     g, b, s, r = _check("batched_minplus", gath, w, False)
     if gath.device.type == "cpu":
         return batched_minplus_plain(gath, w)
-    return _launch(
-        "batched_minplus", "openr_batched_minplus", gath, w, (g, b, r),
-        (g, b, s, r),
-    )
+    _kernel_operands("batched_minplus", gath, w)
+    out = torch.empty((g, b, r), dtype=torch.int32, device=gath.device)
+    if out.numel():
+        _run("batched_minplus", "openr_batched_minplus", gath.device,
+             gath.data_ptr(), w.data_ptr(), out.data_ptr(), g, b, s, r)
+    return out
 
 
 def batched_minplus_t(gath_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``[G, S, B] x [G, S, R] -> [G, R, B]``: the same contraction with
-    the batch last. CUDA tensors go through the hand-written kernel;
-    CPU tensors through ``batched_minplus_t_plain``. Any other device
-    raises."""
+    the batch last. CUDA tensors go through the hand-written kernel,
+    launched as ``minplus_t_plan`` says (a split S takes a scratch
+    ``[splits, G, R, B]`` allocated here); CPU tensors through
+    ``batched_minplus_t_plain``. Any other device raises."""
     g, b, s, r = _check("batched_minplus_t", gath_t, w, True)
     if gath_t.device.type == "cpu":
         return batched_minplus_t_plain(gath_t, w)
-    return _launch(
-        "batched_minplus_t", "openr_batched_minplus_t", gath_t, w, (g, r, b),
-        (g, b, s, r),
-    )
+    _kernel_operands("batched_minplus_t", gath_t, w)
+    if not g * r * b:
+        return torch.empty((g, r, b), dtype=torch.int32, device=gath_t.device)
+    plan = minplus_t_plan(g, b, s, r)
+    most = max(gath_t.numel(), w.numel(), g * r * b, math.prod(plan.scratch_shape))
+    if most > MAX_ELEMS:
+        raise ValueError(
+            f"batched_minplus_t: {most} elements in one operand exceed the "
+            f"kernel's 32-bit indices"
+        )
+    out = torch.empty((g, r, b), dtype=torch.int32, device=gath_t.device)
+    scratch = None
+    if plan.scratch_shape:
+        scratch = torch.empty(plan.scratch_shape, dtype=torch.int32,
+                              device=gath_t.device)
+    _run("batched_minplus_t", "openr_batched_minplus_t", gath_t.device,
+         gath_t.data_ptr(), w.data_ptr(), out.data_ptr(),
+         None if scratch is None else scratch.data_ptr(), g, b, s, r,
+         plan.r_tile, plan.threads, plan.s_chunk, plan.splits)
+    return out

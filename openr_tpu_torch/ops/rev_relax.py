@@ -14,11 +14,56 @@ the source.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from openr_tpu_torch.kernels import LAUNCHES
 
 INF = (1 << 30) - 1
+
+# the kernel's block shapes (csrc/rev_relax.cu): a narrow block holds
+# NARROW_ROWS band rows, one a thread with its slots staged; a wide one
+# (k >= WIDE_K) WIDE_ROWS, one a warp
+NARROW_ROWS = 128
+WIDE_ROWS = 8
+WIDE_K = 33
+# longest run of destination rows a narrow block walks with its slots
+# staged (runs of 64 measured slower on an H100 at the 10 000-node
+# sweep's bands); the run shrinks until the grid holds MIN_BLOCKS (two
+# blocks for each of an H100's 132 SMs)
+MAX_CHUNK = 32
+MIN_BLOCKS = 2 * 132
+GRID_Y_MAX = 65535
+
+
+class RevPlan(NamedTuple):
+    """How one band launches: ``wide`` body or not, band rows a block,
+    destination rows a block walks (``chunk``), and the grid
+    ``(band-row tiles, destination runs)``."""
+
+    wide: bool
+    rows_per_block: int
+    chunk: int
+    grid: Tuple[int, int]
+
+
+def launch_plan(b: int, rows: int, k: int) -> RevPlan:
+    """The launch of one band of ``rows`` band rows with ``k`` slots over
+    ``b`` destination rows (both >= 1): the longest power-of-two run up to
+    ``MAX_CHUNK`` (1 for a wide band, which stages nothing) that
+    leaves at least ``MIN_BLOCKS`` blocks, or a run of 1; never so short
+    that the runs overflow the grid's y limit."""
+    if b < 1 or rows < 1 or k < 0:
+        raise ValueError(f"rev_band_relax plan: b={b}, rows={rows}, k={k}")
+    wide = k >= WIDE_K
+    per = WIDE_ROWS if wide else NARROW_ROWS
+    tiles = -(-rows // per)
+    chunk = 1 if wide else MAX_CHUNK
+    while chunk > 1 and tiles * -(-b // chunk) < MIN_BLOCKS:
+        chunk //= 2
+    chunk = max(chunk, -(-b // GRID_Y_MAX))
+    return RevPlan(wide, per, chunk, (tiles, -(-b // chunk)))
 
 
 def _check(dr, v, w, t_ids, overloaded, pos, out) -> int:
@@ -103,8 +148,8 @@ def rev_band_relax(
     lie in ``[0, n_pad)``, as ``compile_ell`` makes them.
 
     CUDA tensors go through the hand-written kernel (launched on the
-    current stream, not synchronised); CPU tensors through
-    ``rev_band_relax_plain``. Any other device raises."""
+    current stream, not synchronised, as ``launch_plan`` says); CPU
+    tensors through ``rev_band_relax_plain``. Any other device raises."""
     rows = _check(dr, v, w, t_ids, overloaded, pos, out)
     view = out[:, pos : pos + rows]
     if dr.device.type == "cpu":
@@ -126,15 +171,15 @@ def rev_band_relax(
     k = v.shape[1]
     if b == 0 or rows == 0:
         return view
-    if b > 65535:
-        raise ValueError(f"rev_band_relax: {b} destination rows exceed the grid")
+    plan = launch_plan(b, rows, k)
     lib = _build.library()
     with torch.cuda.device(dr.device):
         stream = torch.cuda.current_stream(dr.device).cuda_stream
         rc = lib.openr_rev_band_relax(
             dr.data_ptr(), b, n_pad, v.data_ptr(), w.data_ptr(), rows, k,
             t_ids.data_ptr(), overloaded.data_ptr(),
-            int(overloaded.dtype == torch.int32), pos, out.data_ptr(), stream,
+            int(overloaded.dtype == torch.int32), pos, plan.chunk,
+            out.data_ptr(), stream,
         )
     _build.check(rc, "rev_band_relax")
     LAUNCHES["rev_band_relax"] += 1

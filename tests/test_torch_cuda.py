@@ -142,9 +142,16 @@ def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take(card):
         # the 10 000-node sweep's out-bands at a 1024-destination block
         (1024, 10112, 7488, 8, 0), (1024, 10112, 2496, 16, 7488),
         (1024, 10112, 16, 1024, 9984),
-        # ragged: narrow and wide (warp per row, k >= 64) bodies
+        # ragged: narrow and wide (warp per row, k >= 33) bodies
         (3, 300, 50, 9, 17), (13, 256, 200, 24, 56), (5, 700, 33, 64, 600),
         (2, 130, 3, 200, 127),
+        # the 1008-node sweep's out-bands at a 256-destination block
+        (256, 1024, 744, 8, 0), (256, 1024, 248, 16, 744), (256, 1024, 16, 64, 992),
+        # B off the destination run (1000 = 31 runs of 32 + 8; 300 = 37
+        # runs of 8 + 4), B = 1, rows below a tile with k = 1, 17 slots
+        # (staged as 32), 40 slots (the wide body from 33)
+        (1000, 10112, 7488, 8, 0), (1, 300, 50, 9, 17), (37, 256, 5, 1, 100),
+        (300, 2000, 1300, 17, 700), (300, 2000, 1300, 40, 700),
     ],
 )
 @pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8, torch.int32])
@@ -172,6 +179,44 @@ def test_rev_band_relax_kernel_matches_plain(card, b, n_pad, rows, k, pos, mask_
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,rows,k", [(1000, 300, 8), (300, 1300, 17), (5, 33, 1), (64, 40, 100)])
+def test_rev_band_relax_kernel_staged_overloaded_destinations(card, b, rows, k):
+    """Destinations that are overloaded nodes the band's slots stage: the
+    v == t exception lets their edges through, per destination row of a
+    block's run."""
+    n_pad = 2 * rows + 64
+    pos = n_pad - rows
+    rng = np.random.default_rng(b + rows + k)
+    v_np = rng.integers(0, pos, (rows, k)).astype(np.int32)
+    ov_np = np.zeros(n_pad, dtype=bool)
+    ov_np[v_np[::2].reshape(-1)] = True  # every slot of every other row
+    t_np = rng.choice(np.unique(v_np[::2]), size=b).astype(np.int32)
+    t_np[::5] = rng.integers(0, n_pad, t_np[::5].shape)  # and some others
+    # as in a sweep: dr[b, t] = 0; the band's own columns start at INF
+    d_np = _mat(rng, (b, n_pad), 0.2).numpy()
+    d_np[np.arange(b), t_np] = 0
+    d_np[:, pos:] = INF
+    d = torch.from_numpy(d_np).to(card)
+    v = torch.from_numpy(v_np).to(card)
+    w = _mat(rng, (rows, k), 0.0).to(card)
+    t_ids = torch.from_numpy(t_np).to(card)
+    ov = torch.from_numpy(ov_np).to(card)
+    want = rev_relax.rev_band_relax_plain(d, v, w, t_ids, ov, pos)
+    out = torch.full_like(d, -1)
+    got = rev_relax.rev_band_relax(d, v, w, t_ids, ov, pos, out=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rev_band_relax"] == 1
+    assert torch.equal(got, want)
+    assert (out[:, :pos] == -1).all()
+    # without the exception the rows whose slots are all overloaded stay
+    # INF: the exception made a difference
+    blocked = rev_relax.rev_band_relax_plain(
+        d, v, w, torch.full_like(t_ids, -1), ov, pos
+    )
+    assert not torch.equal(blocked, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "g,b,s,r",
     [
@@ -179,6 +224,11 @@ def test_rev_band_relax_kernel_matches_plain(card, b, n_pad, rows, k, pos, mask_
         (624, 1024, 4, 12), (624, 1024, 12, 4), (4, 1024, 4, 624), (4, 1024, 624, 4),
         # ragged, and S past the Pallas s-block cap of 512
         (3, 5, 7, 9), (1, 1, 1, 1), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
+        # the 1008-node grouped sweep's segments at B = 256
+        (62, 256, 4, 12), (62, 256, 12, 4), (4, 256, 4, 62), (4, 256, 62, 4),
+        # S split with R past one R-tile and B off 32; no split with R past
+        # one R-tile and B off 32
+        (3, 33, 1030, 20), (4, 100, 700, 40), (2, 1000, 3, 100), (5, 70, 64, 17),
     ],
 )
 @pytest.mark.parametrize("transposed", [False, True], ids=["bgs", "sgb"])
@@ -198,3 +248,25 @@ def test_batched_minplus_kernel_matches_plain(card, g, b, s, r, transposed):
     torch.cuda.synchronize()
     assert LAUNCHES[name] == 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "g,b,s,r,splits,r_tiles",
+    [(4, 1024, 624, 4, True, False), (3, 33, 1030, 20, True, True),
+     (4, 1024, 4, 624, False, True), (2, 1000, 3, 100, False, True)],
+)
+def test_batched_minplus_t_kernel_split_and_r_tiles(card, g, b, s, r, splits, r_tiles):
+    """The S-split branch (partials in a scratch, then the reduce kernel)
+    and the R-tiled grid, each against the plain version; the plan the
+    wrapper takes splits S, and tiles R, exactly when the test says."""
+    plan = grouped_minplus.minplus_t_plan(g, b, s, r)
+    assert (plan.splits > 1) == splits
+    assert (plan.grid[1] > 1) == r_tiles
+    rng = np.random.default_rng(g * b + s * r)
+    gath = _mat(rng, (g, s, b), 0.3).to(card)
+    w = _mat(rng, (g, s, r), 0.3).to(card)
+    got = grouped_minplus.batched_minplus_t(gath, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_minplus_t"] == 1
+    assert torch.equal(got, grouped_minplus.batched_minplus_t_plain(gath, w))

@@ -1,0 +1,172 @@
+"""The launch plans of the route sweep's two redesigned CUDA kernels.
+
+``rev_relax.launch_plan`` (``csrc/rev_relax.cu``) and
+``grouped_minplus.minplus_t_plan`` (``csrc/grouped_minplus.cu``,
+``batched_minplus_t``) are pure functions of the shapes, so their grids
+are checked here on the CPU, for a sweep of shapes that includes both
+route sweeps' own (the 1008-node fabric at a 256-destination block, the
+10 000-node one at 1024): each output element is covered by exactly one
+(block, thread) and each reduction term by exactly one split, the grid
+stays within CUDA's limits, the scratch matches the splits, and the
+sweeps' shapes give the card at least two blocks for each of its 132 SMs.
+The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+
+from openr_tpu_torch.graph.linkstate import LinkState
+from openr_tpu_torch.models import topologies
+from openr_tpu_torch.ops import grouped_minplus as gm
+from openr_tpu_torch.ops import rev_relax as rr
+from openr_tpu_torch.ops import route_sweep, spf_grouped
+
+GRID_X_MAX = 2**31 - 1
+GRID_YZ_MAX = 65535
+SMS = 132
+
+# (B, rows, k) of each out-band of the two route sweeps
+SWEEP_REV = {
+    1000: [(256, 744, 8), (256, 248, 16), (256, 16, 64)],
+    10000: [(1024, 7488, 8), (1024, 2496, 16), (1024, 16, 1024)],
+}
+# (G, B, S, R) of each grouped segment of the two route sweeps
+SWEEP_GROUPED = {
+    1000: [(62, 256, 4, 12), (62, 256, 12, 4), (4, 256, 4, 62), (4, 256, 62, 4)],
+    10000: [(624, 1024, 4, 12), (624, 1024, 12, 4), (4, 1024, 4, 624),
+            (4, 1024, 624, 4)],
+}
+SWEEP_BLOCK = {1000: 256, 10000: 1024}
+
+REV_SHAPES = sorted(
+    {shape for shapes in SWEEP_REV.values() for shape in shapes}
+    | {(b, rows, k) for b in (1, 33, 255, 1001) for rows in (1, 129, 744)
+       for k in (0, 1, 17, 64, 200)}
+    | {(70000, 3, 8), (70000, 9, 64), (65535, 1, 1)}
+)
+GROUPED_SHAPES = sorted(
+    {shape for shapes in SWEEP_GROUPED.values() for shape in shapes}
+    | {(g, b, s, r) for g in (1, 7) for b in (1, 33, 1000) for s in (0, 7, 8, 1030)
+       for r in (1, 17, 100)}
+    | {(3, 9, 1030, 5), (50, 300, 13, 6), (1, 1, 1, 1_000_000)}
+)
+
+
+def _cover(n: int, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """How often each index of ``range(n)`` lies in one of the ranges
+    ``[starts[i], ends[i])``, clipped to ``n``."""
+    hits = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(hits, np.minimum(starts, n), 1)
+    np.add.at(hits, np.minimum(ends, n), -1)
+    return np.cumsum(hits)[:n]
+
+
+@pytest.mark.parametrize("b,rows,k", REV_SHAPES)
+def test_rev_plan_covers_each_output_once_within_the_grid(b, rows, k):
+    plan = rr.launch_plan(b, rows, k)
+    assert plan.wide == (k >= rr.WIDE_K)
+    assert plan.rows_per_block == (rr.WIDE_ROWS if plan.wide else rr.NARROW_ROWS)
+    assert plan.chunk >= 1 and (plan.wide or plan.chunk <= rr.MAX_CHUNK or b > rr.GRID_Y_MAX)
+    tiles, runs = plan.grid
+    assert 1 <= tiles <= GRID_X_MAX and 1 <= runs <= GRID_YZ_MAX
+    # blockIdx.x * rows_per_block + thread -> band row j; blockIdx.y *
+    # chunk + step -> destination row b: each exactly once, no empty block
+    row0 = np.arange(tiles) * plan.rows_per_block
+    rows_cover = _cover(rows, row0, row0 + plan.rows_per_block)
+    b0 = np.arange(runs) * plan.chunk
+    b_cover = _cover(b, b0, b0 + plan.chunk)
+    assert (rows_cover == 1).all() and (b_cover == 1).all()
+    assert (tiles - 1) * plan.rows_per_block < rows and (runs - 1) * plan.chunk < b
+
+
+@pytest.mark.parametrize("nodes", sorted(SWEEP_REV))
+def test_rev_plan_fills_the_card_at_the_sweeps_shapes(nodes):
+    for b, rows, k in SWEEP_REV[nodes]:
+        plan = rr.launch_plan(b, rows, k)
+        assert math.prod(plan.grid) >= 2 * SMS, (b, rows, k, plan)
+    # the narrow bands reuse each staged slot tile across a run of
+    # destinations wherever the grid allows it
+    assert rr.launch_plan(1024, 7488, 8).chunk == rr.MAX_CHUNK
+    assert rr.launch_plan(1024, 2496, 16).chunk == rr.MAX_CHUNK
+    assert rr.launch_plan(256, 744, 8).chunk > 1
+
+
+@pytest.mark.parametrize("g,b,s,r", GROUPED_SHAPES)
+def test_minplus_t_plan_covers_each_output_once_within_the_grid(g, b, s, r):
+    plan = gm.minplus_t_plan(g, b, s, r)
+    assert plan.r_tile in (1, 2, 4, 8, 16)
+    assert plan.threads in (32, 64, 128)
+    gx, gy, gz = plan.grid
+    assert 1 <= gx <= GRID_X_MAX and 1 <= gy <= GRID_YZ_MAX and 1 <= gz <= GRID_YZ_MAX
+    assert gz == plan.splits
+    b_blocks = -(-b // plan.threads)
+    assert gx == g * b_blocks
+    # blockIdx.x -> g = x / b_blocks and the b-block x % b_blocks, thread
+    # -> b, live below B: every (g, b) column once
+    blk = np.arange(gx)
+    g_of, b0 = blk // b_blocks, (blk % b_blocks) * plan.threads
+    start = g_of * b + b0
+    assert (_cover(g * b, start, g_of * b + np.minimum(b0 + plan.threads, b)) == 1).all()
+    assert (b_blocks - 1) * plan.threads < b
+    # blockIdx.y -> R-tile: every r once
+    r0 = np.arange(gy) * plan.r_tile
+    assert (_cover(r, r0, r0 + plan.r_tile) == 1).all()
+    assert (gy - 1) * plan.r_tile < r
+    # blockIdx.z -> S chunk: every s once, no empty split
+    s0 = np.arange(gz) * plan.s_chunk
+    assert (_cover(s, s0, s0 + plan.s_chunk) == 1).all()
+    assert plan.splits == 1 or (plan.splits - 1) * plan.s_chunk < s
+    if plan.splits > 1:
+        assert plan.s_chunk >= gm.MIN_S_CHUNK
+        assert plan.scratch_shape == (plan.splits, g, r, b)
+    else:
+        assert plan.scratch_shape == ()
+        assert plan.s_chunk >= s
+
+
+@pytest.mark.parametrize("nodes", sorted(SWEEP_GROUPED))
+def test_minplus_t_plan_fills_the_card_at_the_sweeps_shapes(nodes):
+    for shape in SWEEP_GROUPED[nodes]:
+        plan = gm.minplus_t_plan(*shape)
+        assert math.prod(plan.grid) >= 2 * SMS, (shape, plan)
+    # the thin 10 000-node segment splits S; its wide ones keep each gath
+    # column in one thread (a single R-tile)
+    assert gm.minplus_t_plan(4, 1024, 624, 4).splits > 1
+    assert gm.minplus_t_plan(624, 1024, 4, 12).grid[1:] == (1, 1)
+    assert gm.minplus_t_plan(624, 1024, 12, 4).grid[1:] == (1, 1)
+
+
+@pytest.fixture(scope="module", params=sorted(SWEEP_BLOCK))
+def sweep_graphs(request):
+    nodes = request.param
+    topo = topologies.fat_tree_nodes(nodes)
+    ls = LinkState(area=topo.area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    return nodes, route_sweep.compile_out_ell(ls), spf_grouped.compile_out_grouped(ls)
+
+
+def test_sweep_shapes_are_the_sweeps_own(sweep_graphs):
+    """The shapes above are those the route sweeps give the kernels."""
+    nodes, ell, grouped = sweep_graphs
+    block = SWEEP_BLOCK[nodes]
+    assert [(block, bd.rows, bd.k) for bd in ell.bands] == SWEEP_REV[nodes]
+    assert [
+        (seg.w.shape[0], block, seg.w.shape[1], seg.w.shape[2])
+        for band in grouped.bands for seg in band.segments
+    ] == SWEEP_GROUPED[nodes]
+
+
+@pytest.mark.parametrize(
+    "fn,args",
+    [(rr.launch_plan, (0, 5, 8)), (rr.launch_plan, (3, 0, 8)),
+     (gm.minplus_t_plan, (0, 1, 1, 1)), (gm.minplus_t_plan, (1, 0, 1, 1)),
+     (gm.minplus_t_plan, (1, 1, -1, 1)), (gm.minplus_t_plan, (1, 1, 1, 0))],
+)
+def test_plans_reject_empty_launches(fn, args):
+    with pytest.raises(ValueError):
+        fn(*args)
