@@ -16,21 +16,28 @@ Phases, one JSON line each (``"phase": ...``):
    shapes with INF and overloaded nodes sprinkled in. ``kernel_ms`` and
    ``plain_ms`` are device time per call from the profiler's CUDA
    activity. A session missed device activity, and is profiled again
-   (three times, then the script fails), when it records none, when a
-   band's or segment's reading is below the least time the card could
-   take for its bytes, or when a relax step's reading is below 0.9 of the
-   sum of its bands or segments, each profiled alone. ``call_ms`` is
-   CUDA-event time per call, host launch path included. The route sweep
-   kernels' bands and segments name the launch plan they took.
+   (three times, then the script fails), when it records none, when it
+   holds fewer kernel records than its calls launched, or when a relax
+   step's reading is below 0.9 of the sum of its bands or segments, each
+   profiled alone. ``call_ms`` is
+   CUDA-event time per call, host launch path included. The bands and
+   segments of ``ell_band_relax`` and the route sweep kernels name the
+   launch plan they took.
 4. ``dense``: ``SpfSolver(backend="device").build_route_db`` from
    ``rsw-0-0`` on the 1008-node fabric (dense regime), then churn events
    that bump one adjacency metric of ``fsw-0-0``; after every build the
    route database must equal the host Dijkstra solver's. ``view_ms`` is
    the part spent in the build's one SPF view (graph compile or patch,
    device solve, readback). One more profiled build gives the card's
-   busy time and idle share. Launch counts and the solver's host-SPF
-   fallback count are zeroed before the phase and read after it; the
-   fallback count must stay at 0.
+   busy time, idle share, heaviest device ops and each launched kernel's
+   device time (``kernel_device_ms``, with its ``kernel_records`` beside
+   the build's launches); a session that holds less device time of a
+   kernel the build launched than its launches times its least time a
+   launch at the main path's shapes missed device activity and is
+   profiled again on a fresh churn event (three times, then the script
+   fails). Launch counts and
+   the solver's host-SPF fallback count are zeroed before the phase and
+   read after it; the fallback count must stay at 0.
 5. ``sparse``: the same on the 10 000-node fabric (sliced-ELL regime).
 6. ``sweep-1008``: the all-sources route sweep of the 1008-node fabric
    (block 256), on three backends: the out-edge ELL sweep
@@ -62,7 +69,7 @@ Phases, one JSON line each (``"phase": ...``):
    SPF, the KSP2 graph compile, the host first-path traces, the mask build, the masked solve (upload,
    device relax hops, readback; ``hops`` from its launch count), the
    second-path traces and route assembly (the rest). One more build is
-   profiled. The KSP2 device batches must be > 0, its host fallbacks and
+   profiled, as in ``dense``. The KSP2 device batches must be > 0, its host fallbacks and
    the views' host-SPF fallbacks 0, and ``ell_band_relax_masked`` must
    launch.
 9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
@@ -159,16 +166,20 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled(torch, fn, what: str, attempts: int = 3, floor_us: float = 0.0):
+def profiled(torch, fn, short, attempts: int = 3, prepare=None):
     """Run ``fn`` under the profiler's CUDA activity (CUPTI) and return
-    ``(key_averages, fn's result, host ms)``. A session that recorded no
-    device time for ``what`` (see ``device_us``), or less than
-    ``floor_us``, missed device activity: it is reported on stderr and
-    run again, up to ``attempts`` times; then this raises."""
+    ``(key_averages, fn's result, host ms)``. ``short(stats, result)``
+    names what the session's device activity lacks (``{}`` when it is
+    whole, see ``lacking``); a session that lacks some missed device
+    activity: it is reported on stderr and run again, up to ``attempts``
+    times; then this raises. ``prepare(attempt)``, when given, runs
+    before each session, outside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    got = 0.0
+    gaps = {}
     for attempt in range(attempts):
+        if prepare is not None:
+            prepare(attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -176,35 +187,71 @@ def profiled(torch, fn, what: str, attempts: int = 3, floor_us: float = 0.0):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         stats = prof.key_averages()
-        got = device_us(stats, what)
-        if got and got >= floor_us:
+        gaps = short(stats, result)
+        if not gaps:
             return stats, result, wall_ms
-        print(json.dumps({"profiler_session_missed_device_time": what,
-                          "attempt": attempt + 1, "device_us": got,
-                          "floor_us": floor_us,
+        print(json.dumps({"profiler_session_missed_device_time": gaps,
+                          "attempt": attempt + 1,
                           "keys": [evt.key[:80] for evt in stats][:8]}),
               file=sys.stderr, flush=True)
     raise RuntimeError(
-        f"the profiler recorded {got} us of device time for {what} in "
-        f"{attempts} sessions, none of it at least {floor_us} us"
+        f"the profiler missed device time in {attempts} sessions: {gaps}"
     )
+
+
+def _keys(name):
+    return (name,) if isinstance(name, str) else tuple(name)
 
 
 def device_us(stats, name) -> float:
     """Device microseconds in ``stats`` of the kernels whose name holds
-    ``name`` (all device activity when ``name`` is ``"a call"``)."""
+    ``name``, or any of the strings of a tuple ``name`` (all device
+    activity when ``name`` is ``"a call"``)."""
     return sum(
         getattr(evt, "self_device_time_total", 0) or 0
         for evt in stats
-        if name == "a call" or name in evt.key
+        if name == "a call" or any(key in evt.key for key in _keys(name))
     )
 
 
-# the part of each route sweep kernel's name that the profiler's keys hold
+def top_device_ms(stats, n: int = 6):
+    """The ``n`` heaviest device ops in ``stats``: ``[key, ms, count]``."""
+    top = sorted(stats, key=lambda e: getattr(e, "self_device_time_total", 0) or 0,
+                 reverse=True)[:n]
+    return [[evt.key[:60], (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
+             evt.count] for evt in top]
+
+
+def kernel_records(stats, name) -> int:
+    """How many kernel executions of ``name`` (as in ``device_us``) the
+    profiler recorded in ``stats``."""
+    return sum(evt.count for evt in stats if any(key in evt.key for key in _keys(name)))
+
+
+def lacking(stats, name, floor_us: float = 0.0, records: int = 0) -> dict:
+    """``{}`` when ``stats`` hold device time of ``name``, at least
+    ``floor_us`` of it, and at least ``records`` kernel executions of it;
+    else what fell short. A session that lost kernel records, or recorded
+    none of a kernel it ran, missed device activity."""
+    got = device_us(stats, name)
+    n = kernel_records(stats, name) if records else 0
+    if got and got >= floor_us and n >= records:
+        return {}
+    return {str(name): {"device_us": got, "floor_us": floor_us,
+                        "records": n, "want_records": records}}
+
+
+# the parts of each kernel's names that the profiler's keys hold (a split
+# batched_minplus launch ends in the reduce kernel it shares with _t; no
+# session launches both)
 KERNEL_KEYS = {
-    "rev_band_relax": "rev_band_relax_",
-    "batched_minplus": "batched_minplus_kernel",
-    "batched_minplus_t": "batched_minplus_t_",
+    "minplus": ("minplus_kernel",),
+    "ell_band_relax": ("ell_band_relax_",),
+    "ell_band_relax_masked": ("masked_relax_",),
+    "rev_band_relax": ("rev_band_relax_",),
+    "batched_minplus": ("batched_minplus_rows", "batched_minplus_cols",
+                        "batched_minplus_t_reduce"),
+    "batched_minplus_t": ("batched_minplus_t_",),
 }
 
 # a step's profiled device time below this share of the sum of its parts
@@ -214,14 +261,15 @@ PARTS_SHARE = 0.9
 
 
 def device_ms(torch, fn, calls: int, name=None, parts_ms: float = 0.0,
-              least_ms: float = 0.0) -> float:
+              records: int = 0) -> float:
     """Device time per call of ``fn`` from the profiler's CUDA activity
     (CUPTI): the kernels whose name contains ``name``, or all device
-    activity (kernels, copies, fills) when ``name`` is None. ``parts_ms``
-    is the sum of the per-call times of ``fn``'s parts, ``least_ms`` the
-    least time the card could take for a call: a session below
-    ``PARTS_SHARE`` of the one or below the other is profiled again.
-    Raises when no session recorded device time (or enough of it)."""
+    activity (kernels, copies, fills) when ``name`` is None. ``records``
+    is the number of kernel executions of ``name`` a call launches and
+    ``parts_ms`` the sum of the per-call times of ``fn``'s parts: a
+    session with fewer records than ``calls`` x ``records``, or below
+    ``PARTS_SHARE`` of the parts, is profiled again. Raises when no
+    session recorded device time (or all of it)."""
     what = name or "a call"
     fn()
 
@@ -229,8 +277,9 @@ def device_ms(torch, fn, calls: int, name=None, parts_ms: float = 0.0,
         for _ in range(calls):
             fn()
 
-    floor_ms = max(PARTS_SHARE * parts_ms, least_ms)
-    stats, _, _ = profiled(torch, run, what, floor_us=floor_ms * 1e3 * calls)
+    floor_us = PARTS_SHARE * parts_ms * 1e3 * calls
+    stats, _, _ = profiled(
+        torch, run, lambda st, _: lacking(st, what, floor_us, records * calls))
     return device_us(stats, what) / 1e3 / calls
 
 
@@ -241,11 +290,41 @@ def bound_ms(nbytes: int, nops: int):
 
 
 def band_least_ms(batch: int, rows: int, k: int) -> float:
-    """The least time one band of a relax step can take on the card: its
-    own ``[batch, rows]`` columns read and written once, its slots (id and
-    weight) read once. A profiled reading below it missed device
-    activity."""
+    """The least time one band of a relax step can take on the card from
+    device memory: its own ``[batch, rows]`` columns read and written
+    once, its slots (id and weight) read once."""
     return bound_ms(8 * batch * rows + 8 * rows * k, 0)[0]
+
+
+def build_lacking(stats, launched, least_launch_ms) -> dict:
+    """What a profiled route build's session lacks (``lacking``) of the
+    kernels the build launched, ``launched[name]`` times each: every one
+    must show device time of at least its launches x its least time a
+    launch. Its kernel records are not held to its launches: a build's
+    session lost one of 21 records in three sessions running on an H100,
+    where 30-call kernel sessions never did; the phase line shows both."""
+    gaps = {}
+    for name, n in launched.items():
+        gaps.update(lacking(stats, KERNEL_KEYS[name], n * least_launch_ms[name] * 1e3))
+    return gaps
+
+
+def churn_build(torch, solver, areas, ps, root, LAUNCHES):
+    """A function for ``profiled`` that builds the route database and
+    returns it, the kernels the build launched and how often, and the
+    build's host ms. Each session needs a fresh churn event before it
+    (``profiled``'s ``prepare``): a view already solved is cached."""
+
+    def build():
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = solver.build_route_db(root, areas, ps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return got, {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] > before[k]}, ms
+
+    return build
 
 
 def load_network(topologies, LinkState, PrefixState, nodes: int):
@@ -338,11 +417,13 @@ def main(argv=None) -> int:
         ell_band_relax_masked_plain,
         ell_band_relax_plain,
     )
+    from openr_tpu_torch.ops.ell_relax import launch_plan as ell_launch_plan
     from openr_tpu_torch.ops.grouped_minplus import (
         batched_minplus,
         batched_minplus_plain,
         batched_minplus_t,
         batched_minplus_t_plain,
+        minplus_plan,
         minplus_t_plan,
     )
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
@@ -431,9 +512,14 @@ def main(argv=None) -> int:
     s_, k_, n_ = d_rows.shape[0], t_mat.shape[0], t_mat.shape[1]
     mp_call = time_ms(torch, lambda: minplus(d_rows, t_mat), REPS)
     mp_plain_call = time_ms(torch, lambda: minplus_plain(d_rows, t_mat), REPS)
-    mp_ms = device_ms(torch, lambda: minplus(d_rows, t_mat), REPS, "minplus_kernel")
+    mp_ms = device_ms(torch, lambda: minplus(d_rows, t_mat), REPS, KERNEL_KEYS["minplus"],
+                      records=1)
     mp_plain = device_ms(torch, lambda: minplus_plain(d_rows, t_mat), REPS)
     mp_bound, mp_by = bound_ms(4 * (s_ * k_ + k_ * n_ + s_ * n_), 2 * s_ * k_ * n_)
+    # the least time one launch of each route-build kernel can take at the
+    # main path's shapes (its bytes over the card's memory rate): a
+    # profiled build below launches x this missed device activity
+    least_launch_ms = {"minplus": bound_ms(4 * (s_ * k_ + k_ * n_ + s_ * n_), 0)[0]}
     emit({"phase": "kernels", "kernel": "minplus",
           "shape": [[s_, k_], [k_, n_]], "match": True,
           "checked_shapes": [list(x) for x in shapes],
@@ -458,11 +544,14 @@ def main(argv=None) -> int:
         compare("ell_band_relax", ell_band_relax(d_ell, s_b, w_b, ov, pos, band_out),
                 ell_band_relax_plain(d_ell, s_b, w_b, ov, pos),
                 f"band {band}")
+        plan = ell_launch_plan(b, band.rows, band.k)
         band_rows.append({
             "rows": band.rows, "k": band.k,
+            "plan": {"body": "wide" if plan.wide else "narrow",
+                     "row_threads": plan.row_threads, "grid": list(plan.grid)},
             "kernel_ms": device_ms(
                 torch, lambda: ell_band_relax(d_ell, s_b, w_b, ov, pos, band_out),
-                REPS, "ell_band_relax_kernel", least_ms=band_least_ms(b, band.rows, band.k)),
+                REPS, KERNEL_KEYS["ell_band_relax"], records=1),
             "plain_ms": device_ms(
                 torch, lambda: ell_band_relax_plain(d_ell, s_b, w_b, ov, pos),
                 REPS),
@@ -471,7 +560,14 @@ def main(argv=None) -> int:
                 REPS),
         })
         pos += band.rows
-    for s, n_pad, rows, k in [(3, 300, 50, 9), (8, 1000, 997, 8), (17, 256, 5, 200)]:
+    # ragged: narrow bands, and wide ones (k from 33) with S of 1 to 300,
+    # rows of one, a block's 16 and one past, k off the row's threads and
+    # the unroll
+    ell_ragged = [(3, 300, 50, 9), (8, 1000, 997, 8), (17, 256, 5, 200)] + [
+        (s, rows + k + 37, rows, k) for k in (33, 64, 255, 256, 257, 1024, 1500)
+        for s in (1, 8, 13, 300) for rows in (1, 16, 17)
+    ]
+    for s, n_pad, rows, k in ell_ragged:
         dd, ww = rand_int((s, n_pad), 0.3), rand_int((rows, k), 0.3)
         sb = torch.from_numpy(rng.integers(0, n_pad, (rows, k)).astype(np.int32)).to(dev)
         ovr = torch.from_numpy(rng.random(n_pad) < 0.2).to(dev)
@@ -501,11 +597,14 @@ def main(argv=None) -> int:
 
     compare("ell_band_relax", relax_kernel()[:, : graph.n], relax_plain()[:, : graph.n],
             "one relax step over all bands")
+    least_launch_ms["ell_band_relax"] = min(
+        band_least_ms(b, bd.rows, bd.k) for bd in graph.bands)
     slots = sum(band.rows * band.k for band in graph.bands)
     ell_call = time_ms(torch, relax_kernel, REPS)
     ell_plain_call = time_ms(torch, relax_plain, REPS)
-    ell_ms = device_ms(torch, relax_kernel, REPS, "ell_band_relax_kernel",
-                       parts_ms=sum(row["kernel_ms"] for row in band_rows))
+    ell_ms = device_ms(torch, relax_kernel, REPS, KERNEL_KEYS["ell_band_relax"],
+                       parts_ms=sum(row["kernel_ms"] for row in band_rows),
+                       records=len(graph.bands))
     ell_plain = device_ms(torch, relax_plain, REPS)
     # each input read once: distance rows, band slots (src + w), the
     # overload mask; each output written once: the band columns. One add
@@ -518,6 +617,7 @@ def main(argv=None) -> int:
           "shape": {"S": b, "n_pad": graph.n_pad,
                     "bands": [[bd.rows, bd.k] for bd in graph.bands]},
           "match": True, "bands": band_rows,
+          "checked_shapes": [list(x) for x in ell_ragged],
           "kernel_ms": ell_ms, "plain_ms": ell_plain, "bound_ms": ell_bound,
           "call_ms": ell_call, "plain_call_ms": ell_plain_call})
 
@@ -557,7 +657,7 @@ def main(argv=None) -> int:
                 "kernel_ms": device_ms(
                     torch, lambda: ell_band_relax_masked(dm, s_b, w_b, m_b, g_ov, pos,
                                                          band_out),
-                    REPS, "masked_relax_", least_ms=band_least_ms(s, band.rows, band.k)),
+                    REPS, KERNEL_KEYS["ell_band_relax_masked"], records=1),
                 "plain_ms": device_ms(
                     torch, lambda: ell_band_relax_masked_plain(dm, s_b, w_b, m_b, g_ov, pos),
                     REPS),
@@ -579,6 +679,9 @@ def main(argv=None) -> int:
 
         compare("ell_band_relax_masked", masked_step_kernel(), masked_step_plain(),
                 f"{label}: one masked relax step over all bands")
+        least_launch_ms["ell_band_relax_masked"] = min(
+            [band_least_ms(s, bd.rows, bd.k) for bd in g.bands]
+            + [least_launch_ms.get("ell_band_relax_masked", float("inf"))])
         m_slots = sum(band.rows * band.k for band in g.bands)
         # each input read once: the distance rows, the band slots (src + w),
         # the mask (a byte a slot and row), the overload mask; each output
@@ -589,8 +692,10 @@ def main(argv=None) -> int:
         )
         masked_kernel[label] = {
             "shape": {"S": s, "n_pad": g.n_pad, "bands": [[bd.rows, bd.k] for bd in g.bands]},
-            "kernel_ms": device_ms(torch, masked_step_kernel, REPS, "masked_relax_",
-                                   parts_ms=sum(row["kernel_ms"] for row in m_rows)),
+            "kernel_ms": device_ms(torch, masked_step_kernel, REPS,
+                                   KERNEL_KEYS["ell_band_relax_masked"],
+                                   parts_ms=sum(row["kernel_ms"] for row in m_rows),
+                                   records=len(g.bands)),
             "plain_ms": device_ms(torch, masked_step_plain, REPS),
             "call_ms": time_ms(torch, masked_step_kernel, REPS),
             "plain_call_ms": time_ms(torch, masked_step_plain, REPS),
@@ -660,8 +765,7 @@ def main(argv=None) -> int:
                          "chunk": plan.chunk, "grid": list(plan.grid)},
                 "kernel_ms": device_ms(
                     torch, lambda: rev_band_relax(dr, v_b, w_b, t_blk, r_ov, pos, band_out),
-                    REPS, KERNEL_KEYS["rev_band_relax"],
-                    least_ms=band_least_ms(rb, band.rows, band.k)),
+                    REPS, KERNEL_KEYS["rev_band_relax"], records=1),
                 "plain_ms": device_ms(
                     torch, lambda: rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, pos),
                     REPS),
@@ -696,7 +800,8 @@ def main(argv=None) -> int:
                       "bands": [[bd.rows, bd.k] for bd in out_graph.bands]},
             "bands": rev_rows,
             "kernel_ms": device_ms(torch, rev_step_kernel, REPS, KERNEL_KEYS["rev_band_relax"],
-                                   parts_ms=sum(row["kernel_ms"] for row in rev_rows)),
+                                   parts_ms=sum(row["kernel_ms"] for row in rev_rows),
+                                   records=len(out_graph.bands)),
             "plain_ms": device_ms(torch, rev_step_plain, REPS),
             "call_ms": time_ms(torch, rev_step_kernel, REPS),
             "plain_call_ms": time_ms(torch, rev_step_plain, REPS),
@@ -773,16 +878,14 @@ def main(argv=None) -> int:
                 compare(name, kern(seg[layout], seg[2]), plain(seg[layout], seg[2]),
                         f"sweep-{label} segment {shape}")
                 row = {"shape": shape}
-                if layout:
-                    plan = minplus_t_plan(*shape)
-                    row["plan"] = {"r_tile": plan.r_tile, "threads": plan.threads,
-                                   "s_chunk": plan.s_chunk, "splits": plan.splits,
-                                   "grid": list(plan.grid)}
-                # the least time: gath read once, the output written once
-                g_, b_, s_g, r_ = shape
+                plan = (minplus_t_plan if layout else minplus_plan)(*shape)
+                row["plan"] = {k: list(v) if k == "grid" else v
+                               for k, v in plan._asdict().items() if k != "scratch_shape"}
+                # a split S adds the reduce kernel's record
+                row["records"] = 1 + (plan.splits > 1)
                 row["kernel_ms"] = device_ms(
                     torch, lambda seg=seg: kern(seg[layout], seg[2]), REPS, key,
-                    least_ms=bound_ms(4 * g_ * b_ * (s_g + r_), 0)[0])
+                    records=row["records"])
                 seg_rows.append(row)
 
             def step_kernel(kern=kern, layout=layout):
@@ -795,7 +898,8 @@ def main(argv=None) -> int:
                 "shape": {"segments_GBSR": grouped_shapes},
                 "segments": seg_rows,
                 "kernel_ms": device_ms(torch, step_kernel, REPS, key,
-                                       parts_ms=sum(row["kernel_ms"] for row in seg_rows)),
+                                       parts_ms=sum(row["kernel_ms"] for row in seg_rows),
+                                       records=sum(row["records"] for row in seg_rows)),
                 "plain_ms": device_ms(torch, step_plain, REPS),
                 "call_ms": time_ms(torch, step_kernel, REPS),
                 "plain_call_ms": time_ms(torch, step_plain, REPS),
@@ -806,15 +910,28 @@ def main(argv=None) -> int:
     grouped_ragged = [(3, 5, 7, 9), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
                       (50, 300, 13, 6), (3, 33, 1030, 20), (4, 100, 700, 40),
                       (1, 1, 1, 1), (5, 70, 64, 17), (2, 1000, 3, 100)]
+    # and for batched_minplus: G of 1 to 4, S up to 2000, R from 1 to 700
+    # and B from 1 to 1100, which take both bodies with and without a split
+    # S; an operand off a 16-byte boundary (scalar loads)
+    grouped_ragged_rows = grouped_ragged + [
+        (1 + i % 4, b_, (3, 8, 624, 2000)[i % 4], r_)
+        for i, (r_, b_) in enumerate(
+            (r_, b_) for r_ in (1, 5, 16, 17, 624, 700) for b_ in (1, 33, 1100))
+    ]
     for name, (kern, plain, layout, _) in grouped_ops.items():
-        for g_, b_, s_g, r_ in grouped_ragged:
+        checked = grouped_ragged_rows if name == "batched_minplus" else grouped_ragged
+        for g_, b_, s_g, r_ in checked:
             gath = rand_int((g_, s_g, b_) if layout else (g_, b_, s_g), 0.3)
             w = rand_int((g_, s_g, r_), 0.3)
             compare(name, kern(gath, w), plain(gath, w), (g_, b_, s_g, r_))
         for label, row in grouped_kernel[name].items():
             emit({"phase": "kernels", "kernel": name, "cell": f"sweep-{label}",
-                  "match": True, "checked_shapes": [list(x) for x in grouped_ragged],
+                  "match": True, "checked_shapes": [list(x) for x in checked],
                   **row})
+    odd = rand_int((3 * 70 * 8 + 1,), 0.3)[1:].view(3, 70, 8)
+    w = rand_int((3, 8, 12), 0.3)
+    compare("batched_minplus", batched_minplus(odd, w), batched_minplus_plain(odd, w),
+            "gath off a 16-byte boundary")
 
     # -- 4./5. the main path: route builds through the kernels ---------------
     def drive(phase, ls, ps, events, nodes):
@@ -826,8 +943,6 @@ def main(argv=None) -> int:
         the device views' host-SPF fallbacks are zeroed just before and
         read just after; the host solver launches nothing, and the device
         solver must take no SPF to the host."""
-        from torch.profiler import ProfilerActivity, profile
-
         device_solver = SpfSolver(root, backend="device", device=dev)
         host_solver = SpfSolver(root, backend="host", device=dev)
         areas = {ls.area: ls}
@@ -868,13 +983,10 @@ def main(argv=None) -> int:
             view_ms.append((t1 - t0) * 1e3)
             per_build.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
             check(got, step)
-        bump_metric(ls, "fsw-0-0", 9)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            got = device_solver.build_route_db(root, areas, ps)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        stats, (got, launched, wall_ms), _ = profiled(
+            torch, churn_build(torch, device_solver, areas, ps, root, LAUNCHES),
+            lambda st, res: build_lacking(st, res[1], least_launch_ms),
+            prepare=lambda attempt: bump_metric(ls, "fsw-0-0", 9 + attempt))
         check(got, events + 1)
         t0 = time.perf_counter()
         lfa_got = SpfSolver(
@@ -890,10 +1002,7 @@ def main(argv=None) -> int:
                 f"{phase}: {fallbacks} SPF queries of the device views went "
                 "to the host Dijkstra"
             )
-        busy_ms = sum(
-            getattr(evt, "self_device_time_total", 0) or 0
-            for evt in prof.key_averages()
-        ) / 1e3
+        busy_ms = device_us(stats, "a call") / 1e3
         launches = dict(LAUNCHES)
         emit({
             "phase": phase, "nodes": nodes, "root": root, "events": events,
@@ -905,6 +1014,11 @@ def main(argv=None) -> int:
                 statistics.median(view_ms[1:]) if events else None
             ),
             "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernel_device_ms": {k: device_us(stats, KERNEL_KEYS[k]) / 1e3
+                                 for k in launched},
+            "profiled_launches": launched,
+            "kernel_records": {k: kernel_records(stats, KERNEL_KEYS[k]) for k in launched},
+            "top_device_ms": top_device_ms(stats),
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "launches": launches, "launches_per_build": per_build,
             "lfa_build_ms": lfa_ms, "spf_host_fallbacks": fallbacks,
@@ -1014,14 +1128,10 @@ def main(argv=None) -> int:
             ids = torch.arange(block, dtype=torch.int32, device=dev) % ell_graph.n_pad
             sweeper.solve_block(ids).cpu()
             stats, _, block_wall = profiled(
-                torch, lambda: sweeper.solve_block(ids).cpu(), KERNEL_KEYS[kernel]
-            )
+                torch, lambda: sweeper.solve_block(ids).cpu(),
+                lambda st, _: lacking(st, KERNEL_KEYS[kernel]))
             busy = device_us(stats, "a call") / 1e3
             block_kernel_ms = device_us(stats, KERNEL_KEYS[kernel]) / 1e3
-            top = sorted(
-                stats, key=lambda e: getattr(e, "self_device_time_total", 0) or 0,
-                reverse=True,
-            )[:6]
             report[label] = {
                 "sweep_ms": sweep_ms, "blocks": len(result.digests) // block
                 + (len(result.digests) % block > 0),
@@ -1030,11 +1140,7 @@ def main(argv=None) -> int:
                 "profiled_block_ms": block_wall, "block_device_busy_ms": busy,
                 "block_kernel_ms": block_kernel_ms,
                 "block_device_idle_share": 1 - busy / block_wall,
-                "block_top_device_ms": [
-                    [evt.key[:60], (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
-                     evt.count]
-                    for evt in top
-                ],
+                "block_top_device_ms": top_device_ms(stats),
             }
         ref = by_name["ell"]
         for label, digests in by_name.items():
@@ -1063,8 +1169,6 @@ def main(argv=None) -> int:
         copy of the databases, then one more churn build under the
         profiler. The launch counts and the solver counters are zeroed
         just before and read just after."""
-        from torch.profiler import ProfilerActivity, profile
-
         (ls, ps), (host_ls, host_ps) = worlds
         nodes = len(ls.get_adjacency_databases())
         areas, host_areas = {ls.area: ls}, {host_ls.area: host_ls}
@@ -1122,14 +1226,14 @@ def main(argv=None) -> int:
             build["launches"] = {k: v for k, v in launches.items() if v}
             builds.append(build)
             check(got, step)
-        for l in (ls, host_ls):
-            bump_metric(l, "fsw-0-0", 9)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            got = device_solver.build_route_db(root, areas, ps)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+
+        def bump(attempt):
+            for l in (ls, host_ls):
+                bump_metric(l, "fsw-0-0", 9 + attempt)
+
+        stats, (got, launched, wall_ms), _ = profiled(
+            torch, churn_build(torch, device_solver, areas, ps, root, LAUNCHES),
+            lambda st, res: build_lacking(st, res[1], least_launch_ms), prepare=bump)
         check(got, events + 1)
         counters = dict(SPF_COUNTERS)
         if counters["decision.ksp2_device_batches"] == 0:
@@ -1139,10 +1243,7 @@ def main(argv=None) -> int:
         launches = dict(LAUNCHES)
         if launches["ell_band_relax_masked"] == 0:
             raise AssertionError(f"{phase}: KSP2 builds launched no ell_band_relax_masked")
-        busy_ms = sum(
-            getattr(evt, "self_device_time_total", 0) or 0
-            for evt in prof.key_averages()
-        ) / 1e3
+        busy_ms = device_us(stats, "a call") / 1e3
         events_only = builds[1:]
         emit({
             "phase": phase, "nodes": nodes, "root": root, "events": events,
@@ -1155,6 +1256,11 @@ def main(argv=None) -> int:
             },
             "event_builds": events_only,
             "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernel_device_ms": {k: device_us(stats, KERNEL_KEYS[k]) / 1e3
+                                 for k in launched},
+            "profiled_launches": launched,
+            "kernel_records": {k: kernel_records(stats, KERNEL_KEYS[k]) for k in launched},
+            "top_device_ms": top_device_ms(stats),
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "counters": counters, "launches": launches,
             "unicast_routes": len(got.unicast_routes),

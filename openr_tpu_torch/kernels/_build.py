@@ -43,9 +43,9 @@ SIGNATURES: Dict[str, List] = {
     # a, b, out, S, K, N, stream
     "openr_minplus": [_P, _P, _P, _I, _I, _I, _P],
     # d, S, n_pad, src, w, rows, k, overloaded, ov_is_int32, pos,
-    # out, stream
+    # row_threads, out, stream
     "openr_ell_band_relax": [
-        _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P,
+        _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P,
     ],
     # d, S, n_pad, src, w, mask, rows, k, overloaded, ov_is_int32, pos,
     # out, stream
@@ -57,8 +57,12 @@ SIGNATURES: Dict[str, List] = {
     "openr_rev_band_relax": [
         _P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P,
     ],
-    # gath [G, B, S], w [G, S, R], out [G, B, R], G, B, S, R, stream
-    "openr_batched_minplus": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # gath [G, B, S], w [G, S, R], out [G, B, R], scratch
+    # [splits, G, B, R] (null without a split), G, B, S, R, body (0 rows,
+    # 1 cols), r_tile, threads, chunk, s_chunk, splits, stream
+    "openr_batched_minplus": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
     # gath_t [G, S, B], w [G, S, R], out [G, R, B], scratch
     # [splits, G, R, B] (null without a split), G, B, S, R, r_tile,
     # threads, s_chunk, splits, stream

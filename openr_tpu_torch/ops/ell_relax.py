@@ -12,11 +12,53 @@ reversed-graph variant of the same Pallas module (the route sweep's
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
 from openr_tpu_torch.kernels import LAUNCHES
 
 INF = (1 << 30) - 1
+
+# ell_band_relax's launch (csrc/ell_relax.cu): a narrow band (k < WIDE_K)
+# gives each (s, j) row one thread, NARROW_ROWS rows a block; a wide one
+# gives a row 32 to WIDE_THREADS threads of a WIDE_THREADS block, grown by
+# doubling while the grid holds fewer than TARGET_WARPS warps (16 for each
+# of an H100's 132 SMs) and each thread keeps at least MIN_SLOTS slots
+NARROW_ROWS = 128
+WIDE_K = 33
+WIDE_THREADS = 256
+MIN_ROW_THREADS = 32
+MIN_SLOTS = 4
+TARGET_WARPS = 132 * 16
+GRID_Y_MAX = 65535
+
+
+class EllPlan(NamedTuple):
+    """How one band launches: ``wide`` body or not, threads a (s, j) row
+    (``row_threads``, 1 for the narrow body), band rows a block, and the
+    grid ``(band-row tiles, batch rows)``."""
+
+    wide: bool
+    row_threads: int
+    rows_per_block: int
+    grid: Tuple[int, int]
+
+
+def launch_plan(s: int, rows: int, k: int) -> EllPlan:
+    """The launch of one band of ``rows`` band rows with ``k`` slots over
+    ``s`` batch rows (both >= 1, ``s`` within the grid's y limit) by the
+    rule above the class."""
+    if s < 1 or rows < 1 or k < 0 or s > GRID_Y_MAX:
+        raise ValueError(f"ell_band_relax plan: s={s}, rows={rows}, k={k}")
+    if k < WIDE_K:
+        return EllPlan(False, 1, NARROW_ROWS, (-(-rows // NARROW_ROWS), s))
+    threads = MIN_ROW_THREADS
+    while (threads < WIDE_THREADS and s * rows * threads // 32 < TARGET_WARPS
+           and k >= MIN_SLOTS * 2 * threads):
+        threads *= 2
+    per = WIDE_THREADS // threads
+    return EllPlan(True, threads, per, (-(-rows // per), s))
 
 
 def _check(d, src, w, overloaded, pos, out) -> int:
@@ -94,8 +136,8 @@ def ell_band_relax(
     lie in ``[0, n_pad)``, as ``compile_ell`` makes them.
 
     CUDA tensors go through the hand-written kernel (launched on the
-    current stream, not synchronised); CPU tensors through
-    ``ell_band_relax_plain``. Any other device raises."""
+    current stream, not synchronised, as ``launch_plan`` says); CPU
+    tensors through ``ell_band_relax_plain``. Any other device raises."""
     rows = _check(d, src, w, overloaded, pos, out)
     view = out[:, pos : pos + rows]
     if d.device.type == "cpu":
@@ -116,15 +158,14 @@ def ell_band_relax(
     k = src.shape[1]
     if s == 0 or rows == 0:
         return view
-    if s > 65535:
-        raise ValueError(f"ell_band_relax: {s} batch rows exceed the grid")
+    plan = launch_plan(s, rows, k)
     lib = _build.library()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         rc = lib.openr_ell_band_relax(
             d.data_ptr(), s, n_pad, src.data_ptr(), w.data_ptr(), rows, k,
             overloaded.data_ptr(), int(overloaded.dtype == torch.int32),
-            pos, out.data_ptr(), stream,
+            pos, plan.row_threads, out.data_ptr(), stream,
         )
     _build.check(rc, "ell_band_relax")
     LAUNCHES["ell_band_relax"] += 1

@@ -23,19 +23,32 @@ INF = (1 << 30) - 1
 # bound on the broadcast temporary of the plain versions (elements)
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
-# batched_minplus_t's launch (csrc/grouped_minplus.cu): a thread owns a
-# (g, b) column and an R-tile of at most R_TILE_MAX accumulators; a block
-# holds MAX_THREADS columns, or down to MIN_THREADS when the grid is thin.
-# S is split (chunks of at least MIN_S_CHUNK) while the columns times
+# The launches of csrc/grouped_minplus.cu. batched_minplus_t: a thread
+# owns a (g, b) column and an R-tile of at most R_TILE_MAX accumulators; a
+# block holds MAX_THREADS columns, or down to MIN_THREADS when the grid is
+# thin. S is split (chunks of at least MIN_S_CHUNK) while the columns times
 # R-tiles fall short of TARGET_THREADS (16 warps for each of an H100's 132
 # SMs); then blocks shrink, and then R-tiles, until the grid holds
-# MIN_BLOCKS (two a SM) or can shrink no further.
+# MIN_BLOCKS (two a SM) or can shrink no further. batched_minplus where
+# R <= R_TILE_MAX (its "rows" body): a thread owns a (g, b) row and all its
+# R, MAX_THREADS rows a block, and S is split in the same way, in chunks
+# that are whole int4 vectors (VEC), but only from SPLIT_MIN_S sources on;
+# its blocks and R-tiles never shrink (a second launch for 12 sources, and
+# smaller blocks or R-tiles, all measured slower on an H100 at both sweeps'
+# segments). Where
+# R > R_TILE_MAX (its "cols" body): a thread owns a (g, r) column and walks
+# a run of up to RUN_B_MAX b rows, a block holds up to MAX_THREADS
+# neighbouring r of one run; the runs shrink until the grid holds
+# MIN_BLOCKS, then S is split as for rows.
 R_TILE_MAX = 16
 MAX_THREADS = 128
 MIN_THREADS = 32
 MIN_S_CHUNK = 4
 TARGET_THREADS = 132 * 512
 MIN_BLOCKS = 2 * 132
+RUN_B_MAX = 8
+SPLIT_MIN_S = 32
+VEC = 4
 GRID_YZ_MAX = 65535
 GRID_X_MAX = 2**31 - 1
 # every operand of the kernel holds fewer elements: 32-bit indices
@@ -58,22 +71,49 @@ class MinplusTPlan(NamedTuple):
     scratch_shape: Tuple[int, ...]
 
 
+class MinplusPlan(NamedTuple):
+    """How one ``batched_minplus`` call launches: the ``body`` ("rows"
+    or "cols"), accumulators a thread (``r_tile``: R rounded up to a power
+    of two for rows, 1 for cols), threads a block (b rows for rows, r
+    columns for cols), b rows a cols thread walks (``chunk``; 1 for rows),
+    the S range of a split and the number of splits, the grid (rows:
+    ``(G * b-blocks, 1, splits)``; cols: ``(G * r-blocks, b-runs,
+    splits)``), and the scratch's shape
+    ``[splits, G, B, R]``, or ``()`` when S is not split."""
+
+    body: str
+    r_tile: int
+    threads: int
+    chunk: int
+    s_chunk: int
+    splits: int
+    grid: Tuple[int, int, int]
+    scratch_shape: Tuple[int, ...]
+
+
 def _pow2_at_least(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
+def _split_s(work: int, s: int, least_s: int, align: int) -> Tuple[int, int]:
+    """``(s_chunk, splits)``: S (at least ``least_s`` long) split while
+    ``work`` threads fall short of TARGET_THREADS, in chunks of at least
+    MIN_S_CHUNK that are multiples of ``align``; one chunk of all S
+    otherwise."""
+    if work >= TARGET_THREADS or s < max(least_s, 2 * MIN_S_CHUNK):
+        return max(1, s), 1
+    splits = min(-(-TARGET_THREADS // work), s // MIN_S_CHUNK, GRID_YZ_MAX)
+    s_chunk = -(-(-(-s // splits)) // align) * align
+    return s_chunk, -(-s // s_chunk)
+
+
 def minplus_t_plan(g: int, b: int, s: int, r: int) -> MinplusTPlan:
     """The launch of ``[G, S, B] x [G, S, R] -> [G, R, B]`` (``g, b, r``
-    >= 1, ``s`` >= 0) by the rule above the class."""
+    >= 1, ``s`` >= 0) by the rule above the classes."""
     if g < 1 or b < 1 or r < 1 or s < 0:
         raise ValueError(f"batched_minplus_t plan: G={g}, B={b}, S={s}, R={r}")
     r_tile = min(R_TILE_MAX, _pow2_at_least(r))
-    cols = g * b * -(-r // r_tile)
-    splits = 1
-    if cols < TARGET_THREADS and s >= 2 * MIN_S_CHUNK:
-        splits = min(-(-TARGET_THREADS // cols), s // MIN_S_CHUNK, GRID_YZ_MAX)
-    s_chunk = max(1, -(-s // splits))
-    splits = max(1, -(-s // s_chunk))
+    s_chunk, splits = _split_s(g * b * -(-r // r_tile), s, 0, 1)
     threads = MAX_THREADS
 
     def blocks() -> int:
@@ -90,6 +130,33 @@ def minplus_t_plan(g: int, b: int, s: int, r: int) -> MinplusTPlan:
         )
     return MinplusTPlan(r_tile, threads, s_chunk, splits, grid,
                         (splits, g, r, b) if splits > 1 else ())
+
+
+def minplus_plan(g: int, b: int, s: int, r: int) -> MinplusPlan:
+    """The launch of ``[G, B, S] x [G, S, R] -> [G, B, R]`` (``g, b, r``
+    >= 1, ``s`` >= 0) by the rule above the classes."""
+    if g < 1 or b < 1 or r < 1 or s < 0:
+        raise ValueError(f"batched_minplus plan: G={g}, B={b}, S={s}, R={r}")
+    if r <= R_TILE_MAX:
+        r_tile = _pow2_at_least(r)
+        s_chunk, splits = _split_s(g * b, s, SPLIT_MIN_S, VEC)
+        grid = (g * -(-b // MAX_THREADS), 1, splits)
+        body, threads, chunk = "rows", MAX_THREADS, 1
+    else:
+        r_tile, body = 1, "cols"
+        threads = min(MAX_THREADS, -(-r // 32) * 32)
+        r_blocks = -(-r // threads)
+        chunk = RUN_B_MAX
+        while chunk > 1 and g * r_blocks * -(-b // chunk) < MIN_BLOCKS:
+            chunk //= 2
+        while -(-b // chunk) > GRID_YZ_MAX and chunk < RUN_B_MAX:
+            chunk *= 2
+        s_chunk, splits = _split_s(g * r * -(-b // chunk), s, SPLIT_MIN_S, VEC)
+        grid = (g * r_blocks, -(-b // chunk), splits)
+    if grid[0] > GRID_X_MAX or grid[1] > GRID_YZ_MAX:
+        raise ValueError(f"batched_minplus: G={g}, B={b}, R={r} exceed the grid {grid}")
+    return MinplusPlan(body, r_tile, threads, chunk, s_chunk, splits, grid,
+                       (splits, g, b, r) if splits > 1 else ())
 
 
 def _check(name: str, gath, w, transposed: bool):
@@ -164,19 +231,43 @@ def _run(name: str, entry: str, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _alloc(name: str, gath, w, out_shape, scratch_shape):
+    """The output and the split scratch (None without a split); raises
+    unless every operand fits the kernel's 32-bit indices."""
+    most = max(gath.numel(), w.numel(), math.prod(out_shape),
+               math.prod(scratch_shape))
+    if most > MAX_ELEMS:
+        raise ValueError(
+            f"{name}: {most} elements in one operand exceed the kernel's "
+            f"32-bit indices"
+        )
+    out = torch.empty(out_shape, dtype=torch.int32, device=gath.device)
+    scratch = None
+    if scratch_shape:
+        scratch = torch.empty(scratch_shape, dtype=torch.int32, device=gath.device)
+    return out, scratch
+
+
 def batched_minplus(gath: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``[G, B, S] x [G, S, R] -> [G, B, R]`` int32 over (min, +),
     saturating at INF. CUDA tensors go through the hand-written kernel
-    (launched on the current stream, not synchronised); CPU tensors
-    through ``batched_minplus_plain``. Any other device raises."""
+    (launched on the current stream, not synchronised, as ``minplus_plan``
+    says; a split S takes a scratch ``[splits, G, B, R]`` allocated here);
+    CPU tensors through ``batched_minplus_plain``. Any other device
+    raises."""
     g, b, s, r = _check("batched_minplus", gath, w, False)
     if gath.device.type == "cpu":
         return batched_minplus_plain(gath, w)
     _kernel_operands("batched_minplus", gath, w)
-    out = torch.empty((g, b, r), dtype=torch.int32, device=gath.device)
-    if out.numel():
-        _run("batched_minplus", "openr_batched_minplus", gath.device,
-             gath.data_ptr(), w.data_ptr(), out.data_ptr(), g, b, s, r)
+    if not g * b * r:
+        return torch.empty((g, b, r), dtype=torch.int32, device=gath.device)
+    plan = minplus_plan(g, b, s, r)
+    out, scratch = _alloc("batched_minplus", gath, w, (g, b, r), plan.scratch_shape)
+    _run("batched_minplus", "openr_batched_minplus", gath.device,
+         gath.data_ptr(), w.data_ptr(), out.data_ptr(),
+         None if scratch is None else scratch.data_ptr(), g, b, s, r,
+         int(plan.body == "cols"), plan.r_tile, plan.threads, plan.chunk,
+         plan.s_chunk, plan.splits)
     return out
 
 
@@ -193,17 +284,7 @@ def batched_minplus_t(gath_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not g * r * b:
         return torch.empty((g, r, b), dtype=torch.int32, device=gath_t.device)
     plan = minplus_t_plan(g, b, s, r)
-    most = max(gath_t.numel(), w.numel(), g * r * b, math.prod(plan.scratch_shape))
-    if most > MAX_ELEMS:
-        raise ValueError(
-            f"batched_minplus_t: {most} elements in one operand exceed the "
-            f"kernel's 32-bit indices"
-        )
-    out = torch.empty((g, r, b), dtype=torch.int32, device=gath_t.device)
-    scratch = None
-    if plan.scratch_shape:
-        scratch = torch.empty(plan.scratch_shape, dtype=torch.int32,
-                              device=gath_t.device)
+    out, scratch = _alloc("batched_minplus_t", gath_t, w, (g, r, b), plan.scratch_shape)
     _run("batched_minplus_t", "openr_batched_minplus_t", gath_t.device,
          gath_t.data_ptr(), w.data_ptr(), out.data_ptr(),
          None if scratch is None else scratch.data_ptr(), g, b, s, r,

@@ -70,6 +70,36 @@ def test_ell_band_relax_kernel_matches_plain(card, s, n_pad, rows, k, pos, mask_
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 64, 255, 256, 257, 1024, 1500])
+@pytest.mark.parametrize("s", [1, 8, 13, 300])
+@pytest.mark.parametrize("rows", [1, 16, 17])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_ell_band_relax_wide_kernel_matches_plain(card, k, s, rows, mask_dtype):
+    """Wide bands (k >= 33): a row's slots split over 32 to 256 threads,
+    as the launch plan says, joined by warp and block min-reductions; k
+    off the thread count and the unroll, rows off a block's row count."""
+    plan = ell_relax.launch_plan(s, rows, k)
+    assert plan.wide
+    n_pad = rows + k + 37
+    pos = n_pad - rows - 5
+    rng = np.random.default_rng(k * 1000 + s * 10 + rows)
+    d = _mat(rng, (s, n_pad), 0.2).to(card)
+    src_np = rng.integers(0, n_pad, (rows, k)).astype(np.int32)
+    ov_np = rng.random(n_pad) < 0.1
+    src_np[:, -1] = rng.choice(np.flatnonzero(ov_np), size=rows)  # overloaded origins
+    src = torch.from_numpy(src_np).to(card)
+    w = _mat(rng, (rows, k), 0.2).to(card)
+    ov = torch.from_numpy(ov_np).to(card).to(mask_dtype)
+    want = ell_relax.ell_band_relax_plain(d, src, w, ov, pos)
+    out = torch.full_like(d, -1)
+    view = ell_relax.ell_band_relax(d, src, w, ov, pos, out=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax"] == 1
+    assert torch.equal(view, want)
+    assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "s,n_pad,rows,k,pos",
     [
@@ -248,6 +278,45 @@ def test_batched_minplus_kernel_matches_plain(card, g, b, s, r, transposed):
     torch.cuda.synchronize()
     assert LAUNCHES[name] == 1
     assert torch.equal(got, want)
+
+
+# G = 1..4 in turn, B, S and R on and off the vector width, the R-tile
+# and the cols body's threads; both bodies with and without a split S
+BATCHED_RAGGED = [
+    (1 + i % 4, b, s, r)
+    for i, (r, b, s) in enumerate(
+        (r, b, s) for r in (1, 5, 16, 17, 624, 700) for b in (1, 33, 1100)
+        for s in (3, 8, 624, 2000)
+    )
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,b,s,r", BATCHED_RAGGED)
+def test_batched_minplus_kernel_ragged(card, g, b, s, r):
+    plan = grouped_minplus.minplus_plan(g, b, s, r)
+    assert plan.body == ("rows" if r <= 16 else "cols")
+    rng = np.random.default_rng(g + b * 7 + s * 11 + r * 13)
+    gath = _mat(rng, (g, b, s), 0.3).to(card)
+    w = _mat(rng, (g, s, r), 0.3).to(card)
+    got = grouped_minplus.batched_minplus(gath, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_minplus"] == 1
+    assert torch.equal(got, grouped_minplus.batched_minplus_plain(gath, w))
+
+
+@pytest.mark.cuda
+def test_batched_minplus_kernel_unaligned_operands(card):
+    """Operands off a 16-byte boundary take the scalar loads and stores."""
+    rng = np.random.default_rng(5)
+    g, b, s, r = 3, 70, 8, 12
+    flat = _mat(rng, (g * b * s + 1,), 0.3).to(card)
+    gath = flat[1:].view(g, b, s)
+    assert gath.data_ptr() % 16 != 0
+    w = _mat(rng, (g, s, r), 0.3).to(card)
+    got = grouped_minplus.batched_minplus(gath, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, grouped_minplus.batched_minplus_plain(gath, w))
 
 
 @pytest.mark.cuda

@@ -1,19 +1,22 @@
-"""The launch plans of the route sweep's two redesigned CUDA kernels.
+"""The launch plans of the port's redesigned CUDA kernels.
 
-``rev_relax.launch_plan`` (``csrc/rev_relax.cu``) and
+``ell_relax.launch_plan`` (``csrc/ell_relax.cu``), ``rev_relax.launch_plan``
+(``csrc/rev_relax.cu``), ``grouped_minplus.minplus_plan`` and
 ``grouped_minplus.minplus_t_plan`` (``csrc/grouped_minplus.cu``,
-``batched_minplus_t``) are pure functions of the shapes, so their grids
-are checked here on the CPU, for a sweep of shapes that includes both
-route sweeps' own (the 1008-node fabric at a 256-destination block, the
-10 000-node one at 1024): each output element is covered by exactly one
-(block, thread) and each reduction term by exactly one split, the grid
-stays within CUDA's limits, the scratch matches the splits, and the
-sweeps' shapes give the card at least two blocks for each of its 132 SMs.
-The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+``batched_minplus`` and ``batched_minplus_t``) are pure functions of the
+shapes, so their grids are checked here on the CPU, for a sweep of shapes
+that includes the main path's own (the sparse route build's in-bands at
+the 10 000-node fabric; both route sweeps: the 1008-node fabric at a
+256-destination block, the 10 000-node one at 1024): each output element
+is covered by exactly one (block, thread) and each reduction term by
+exactly one split, the grid stays within CUDA's limits, the scratch
+matches the splits, and the main path's shapes fill the card. The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -21,9 +24,10 @@ import pytest
 
 from openr_tpu_torch.graph.linkstate import LinkState
 from openr_tpu_torch.models import topologies
+from openr_tpu_torch.ops import ell_relax as er
 from openr_tpu_torch.ops import grouped_minplus as gm
 from openr_tpu_torch.ops import rev_relax as rr
-from openr_tpu_torch.ops import route_sweep, spf_grouped
+from openr_tpu_torch.ops import route_sweep, spf_grouped, spf_sparse
 
 GRID_X_MAX = 2**31 - 1
 GRID_YZ_MAX = 65535
@@ -41,6 +45,16 @@ SWEEP_GROUPED = {
             (4, 1024, 624, 4)],
 }
 SWEEP_BLOCK = {1000: 256, 10000: 1024}
+# (S, rows, k) of each in-band of the 10 000-node sparse route build's view
+# solve (the root's batch of itself and its 4 fabric switches, padded)
+SPARSE_ELL = [(8, 7488, 8), (8, 2496, 16), (8, 16, 1024)]
+
+ELL_SHAPES = sorted(
+    set(SPARSE_ELL)
+    | {(s, rows, k) for s in (1, 8, 13, 300) for rows in (1, 16, 17, 129)
+       for k in (0, 8, 32, 33, 64, 255, 256, 257, 1024, 1500)}
+    | {(65535, 3, 40), (2, 100_000, 2048)}
+)
 
 REV_SHAPES = sorted(
     {shape for shapes in SWEEP_REV.values() for shape in shapes}
@@ -53,6 +67,9 @@ GROUPED_SHAPES = sorted(
     | {(g, b, s, r) for g in (1, 7) for b in (1, 33, 1000) for s in (0, 7, 8, 1030)
        for r in (1, 17, 100)}
     | {(3, 9, 1030, 5), (50, 300, 13, 6), (1, 1, 1, 1_000_000)}
+    | {(g, b, s, r) for g in (1, 4) for b in (1, 33, 1100) for s in (3, 8, 624, 2000)
+       for r in (5, 16, 17, 624, 700)}
+    | {(1, 500_000, 4, 40), (2, 1, 20, 33)}
 )
 
 
@@ -63,6 +80,49 @@ def _cover(n: int, starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
     np.add.at(hits, np.minimum(starts, n), 1)
     np.add.at(hits, np.minimum(ends, n), -1)
     return np.cumsum(hits)[:n]
+
+
+@pytest.mark.parametrize("s,rows,k", ELL_SHAPES)
+def test_ell_plan_covers_each_output_once_within_the_grid(s, rows, k):
+    plan = er.launch_plan(s, rows, k)
+    assert plan.wide == (k >= er.WIDE_K)
+    tiles, batch = plan.grid
+    assert 1 <= tiles <= GRID_X_MAX and batch == s <= GRID_YZ_MAX
+    # blockIdx.x * rows_per_block + (thread >> log2 row_threads) -> band
+    # row j, blockIdx.y -> batch row s: each (s, j) row once, no empty block
+    row0 = np.arange(tiles) * plan.rows_per_block
+    assert (_cover(rows, row0, row0 + plan.rows_per_block) == 1).all()
+    assert (tiles - 1) * plan.rows_per_block < rows
+    if not plan.wide:
+        assert (plan.row_threads, plan.rows_per_block) == (1, er.NARROW_ROWS)
+        return
+    # a row's threads are whole warps of one block; lane l takes slots
+    # l, l + row_threads, ...: every slot once
+    assert plan.row_threads in (32, 64, 128, 256)
+    assert plan.row_threads * plan.rows_per_block == er.WIDE_THREADS
+    lanes = np.arange(plan.row_threads)
+    slots = np.concatenate([np.arange(l, k, plan.row_threads) for l in lanes])
+    assert np.array_equal(np.sort(slots), np.arange(k))
+    # the threads grew only while the grid lacked warps and each thread
+    # kept MIN_SLOTS slots, and stopped for one of those reasons
+    half = plan.row_threads // 2
+    if plan.row_threads > er.MIN_ROW_THREADS:
+        assert s * rows * half // 32 < er.TARGET_WARPS and k >= er.MIN_SLOTS * plan.row_threads
+    assert (plan.row_threads == er.WIDE_THREADS
+            or s * rows * plan.row_threads // 32 >= er.TARGET_WARPS
+            or k < er.MIN_SLOTS * 2 * plan.row_threads)
+
+
+def test_ell_plan_fills_the_card_at_the_sparse_bands():
+    for s, rows, k in SPARSE_ELL:
+        plan = er.launch_plan(s, rows, k)
+        warps = math.prod(plan.grid) * (er.WIDE_THREADS if plan.wide else er.NARROW_ROWS) // 32
+        assert warps >= 4 * SMS, (s, rows, k, plan)
+    # the spine band: a block of 256 threads a row, 4 slots a thread, where
+    # a thread a row gave the band 128 threads in all
+    spine = er.launch_plan(8, 16, 1024)
+    assert spine.wide and spine.row_threads == 256 and spine.grid == (16, 8)
+    assert not er.launch_plan(8, 2496, 16).wide
 
 
 @pytest.mark.parametrize("b,rows,k", REV_SHAPES)
@@ -128,6 +188,78 @@ def test_minplus_t_plan_covers_each_output_once_within_the_grid(g, b, s, r):
         assert plan.s_chunk >= s
 
 
+@pytest.mark.parametrize("g,b,s,r", GROUPED_SHAPES)
+def test_minplus_plan_covers_each_output_once_within_the_grid(g, b, s, r):
+    plan = gm.minplus_plan(g, b, s, r)
+    assert plan.body == ("rows" if r <= gm.R_TILE_MAX else "cols")
+    assert plan.threads in (32, 64, 128)
+    gx, gy, gz = plan.grid
+    assert 1 <= gx <= GRID_X_MAX and 1 <= gy <= GRID_YZ_MAX and 1 <= gz <= GRID_YZ_MAX
+    assert gz == plan.splits
+    if plan.body == "rows":
+        # a block of MAX_THREADS rows, each with all its R: never shrunk
+        assert plan.r_tile == min(gm.R_TILE_MAX, 1 << (r - 1).bit_length()) >= r
+        assert plan.threads == gm.MAX_THREADS and plan.chunk == 1
+        # blockIdx.x -> (g, b-block), thread -> b, blockIdx.y -> R-tile
+        b_blocks = -(-b // plan.threads)
+        assert gx == g * b_blocks and (b_blocks - 1) * plan.threads < b
+        blk = np.arange(gx)
+        g_of, b0 = blk // b_blocks, (blk % b_blocks) * plan.threads
+        start = g_of * b + b0
+        assert (_cover(g * b, start, g_of * b + np.minimum(b0 + plan.threads, b)) == 1).all()
+        r0 = np.arange(gy) * plan.r_tile
+        assert (_cover(r, r0, r0 + plan.r_tile) == 1).all()
+        assert (gy - 1) * plan.r_tile < r
+    else:
+        assert plan.r_tile == 1 and 1 <= plan.chunk <= gm.RUN_B_MAX
+        # blockIdx.x -> (g, r-block), thread -> r, blockIdx.y -> b-run
+        r_blocks = -(-r // plan.threads)
+        assert gx == g * r_blocks and (r_blocks - 1) * plan.threads < r
+        blk = np.arange(gx)
+        g_of, r0 = blk // r_blocks, (blk % r_blocks) * plan.threads
+        start = g_of * r + r0
+        assert (_cover(g * r, start, g_of * r + np.minimum(r0 + plan.threads, r)) == 1).all()
+        b0 = np.arange(gy) * plan.chunk
+        assert (_cover(b, b0, b0 + plan.chunk) == 1).all()
+        assert (gy - 1) * plan.chunk < b
+    # blockIdx.z -> S chunk: every s once, no empty split; only S of
+    # SPLIT_MIN_S or more splits, in whole int4 vectors of MIN_S_CHUNK or
+    # more
+    s0 = np.arange(gz) * plan.s_chunk
+    assert (_cover(s, s0, s0 + plan.s_chunk) == 1).all()
+    if plan.splits > 1:
+        assert (plan.splits - 1) * plan.s_chunk < s and s >= gm.SPLIT_MIN_S
+        assert plan.s_chunk >= gm.MIN_S_CHUNK and plan.s_chunk % gm.VEC == 0
+        assert plan.scratch_shape == (plan.splits, g, b, r)
+    else:
+        assert plan.scratch_shape == ()
+        assert plan.s_chunk >= s
+
+
+def test_minplus_plan_fills_the_card_at_the_sweeps_shapes():
+    # the 10 000-node sweep's segments (device-bound) give the card at
+    # least two blocks a SM
+    for shape in SWEEP_GROUPED[10000]:
+        plan = gm.minplus_plan(*shape)
+        assert math.prod(plan.grid) >= 2 * SMS, (shape, plan)
+    # R <= 16 keeps a whole row's R in one thread; the thin segment splits
+    # S; R > 16 puts neighbouring r on neighbouring lanes, runs of 8 rows
+    assert gm.minplus_plan(624, 1024, 4, 12)[:3] == ("rows", 16, 128)
+    assert gm.minplus_plan(624, 1024, 12, 4).grid[1:] == (1, 1)
+    assert gm.minplus_plan(4, 1024, 624, 4).splits == 16
+    assert gm.minplus_plan(4, 1024, 4, 624)[:4] == ("cols", 1, 128, 8)
+    # the 1008-node sweep's (launch-bound) segments: only the one with 62
+    # sources splits, and a run shrinks to give the cols body two blocks a SM
+    assert [gm.minplus_plan(*x).splits > 1 for x in SWEEP_GROUPED[1000]] == [
+        False, False, False, True]
+    assert math.prod(gm.minplus_plan(4, 256, 4, 62).grid) >= 2 * SMS
+
+
+def test_minplus_plan_takes_every_body_with_and_without_a_split():
+    seen = {(p.body, p.splits > 1) for p in map(lambda x: gm.minplus_plan(*x), GROUPED_SHAPES)}
+    assert seen == {("rows", False), ("rows", True), ("cols", False), ("cols", True)}
+
+
 @pytest.mark.parametrize("nodes", sorted(SWEEP_GROUPED))
 def test_minplus_t_plan_fills_the_card_at_the_sweeps_shapes(nodes):
     for shape in SWEEP_GROUPED[nodes]:
@@ -140,13 +272,19 @@ def test_minplus_t_plan_fills_the_card_at_the_sweeps_shapes(nodes):
     assert gm.minplus_t_plan(624, 1024, 12, 4).grid[1:] == (1, 1)
 
 
-@pytest.fixture(scope="module", params=sorted(SWEEP_BLOCK))
-def sweep_graphs(request):
-    nodes = request.param
+@functools.lru_cache(maxsize=None)
+def _link_state(nodes: int) -> LinkState:
     topo = topologies.fat_tree_nodes(nodes)
     ls = LinkState(area=topo.area)
     for name in sorted(topo.adj_dbs):
         ls.update_adjacency_database(topo.adj_dbs[name])
+    return ls
+
+
+@pytest.fixture(scope="module", params=sorted(SWEEP_BLOCK))
+def sweep_graphs(request):
+    nodes = request.param
+    ls = _link_state(nodes)
     return nodes, route_sweep.compile_out_ell(ls), spf_grouped.compile_out_grouped(ls)
 
 
@@ -165,8 +303,23 @@ def test_sweep_shapes_are_the_sweeps_own(sweep_graphs):
     "fn,args",
     [(rr.launch_plan, (0, 5, 8)), (rr.launch_plan, (3, 0, 8)),
      (gm.minplus_t_plan, (0, 1, 1, 1)), (gm.minplus_t_plan, (1, 0, 1, 1)),
-     (gm.minplus_t_plan, (1, 1, -1, 1)), (gm.minplus_t_plan, (1, 1, 1, 0))],
+     (gm.minplus_t_plan, (1, 1, -1, 1)), (gm.minplus_t_plan, (1, 1, 1, 0)),
+     (er.launch_plan, (0, 5, 40)), (er.launch_plan, (3, 0, 40)),
+     (er.launch_plan, (3, 5, -1)), (er.launch_plan, (65536, 5, 8)),
+     (gm.minplus_plan, (0, 1, 1, 1)), (gm.minplus_plan, (1, 0, 1, 1)),
+     (gm.minplus_plan, (1, 1, -1, 1)), (gm.minplus_plan, (1, 1, 1, 0)),
+     (gm.minplus_plan, (0, 1, 1, 40)), (gm.minplus_plan, (1, 0, 1, 40)),
+     (gm.minplus_plan, (1, 1, -1, 40)), (gm.minplus_plan, (1, 600_000, 4, 40))],
 )
 def test_plans_reject_empty_launches(fn, args):
     with pytest.raises(ValueError):
         fn(*args)
+
+
+def test_sparse_bands_are_the_route_builds_own():
+    """SPARSE_ELL is what the 10 000-node route build's view solve gives
+    ``ell_band_relax``: its in-bands and its batch of source rows."""
+    ls = _link_state(10000)
+    graph = spf_sparse.compile_ell(ls)
+    s = len(spf_sparse.ell_source_batch(graph, ls, "rsw-0-0"))
+    assert [(s, bd.rows, bd.k) for bd in graph.bands] == SPARSE_ELL
