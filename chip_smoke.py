@@ -68,21 +68,27 @@ Phases, one JSON line each (``"phase": ...``):
    paths). Each build is split into the view, the hop gate's unit-metric
    SPF, the KSP2 graph compile, the host first-path traces, the mask build, the masked solve (upload,
    device relax hops, readback; ``hops`` from its launch count), the
-   second-path traces and route assembly (the rest). One more build is
-   profiled, as in ``dense``. The KSP2 device batches must be > 0, its host fallbacks and
-   the views' host-SPF fallbacks 0, and ``ell_band_relax_masked`` must
-   launch.
+   second-path traces and route assembly (the rest), with the bytes of
+   bit-packed edge masks the build uploaded (``mask_bytes``) beside the
+   bytes the same masks took as bool cells. One more build is profiled,
+   as in ``dense``. The KSP2 device batches must be > 0, its host
+   fallbacks and the views' host-SPF fallbacks 0, and
+   ``ell_band_relax_masked`` must launch.
 9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
    sampled KSP2 prefixes (the stride of ``benchmarks/bench_scale.py``'s
    ``ksp2_churn_bench``), the rest SP_ECMP: one chunk of 256, the masked
-   kernel's warp-per-row body on the 16 x 1024 spine band.
+   kernel's block-per-row wide body on the 16 x 1024 spine band.
 
 The ``kernels`` phase of the route sweep's kernels (``rev_band_relax``,
 ``batched_minplus``, ``batched_minplus_t``) runs at both sweeps' shapes:
 one relax step of a 1024-destination block of the 10 000-node sweep and
 of a 256-destination block of the 1008-node one; that of
 ``ell_band_relax_masked`` at both KSP2 cells' chunks (S = 1024 over the
-1008-node in-bands, S = 256 over the 10 000-node ones).
+1008-node in-bands, S = 256 over the 10 000-node ones), with bit-packed
+masks, beside two bounds: the packed mask's and a byte mask's; that of
+``minplus`` at the dense route build's ``[8, 1024] x [1024, 1024]`` and
+at ``[64, 1024] x [1024, 1024]`` (a high-degree root's batch), each with
+its launch plan.
 
 Then one ``{"kernels": [...]}`` line (time, bound, plain time and main-path
 launches of every kernel) and, last, ``{"ok": true, "device": {...}}``.
@@ -245,7 +251,7 @@ def lacking(stats, name, floor_us: float = 0.0, records: int = 0) -> dict:
 # batched_minplus launch ends in the reduce kernel it shares with _t; no
 # session launches both)
 KERNEL_KEYS = {
-    "minplus": ("minplus_kernel",),
+    "minplus": ("minplus_tile", "minplus_split_reduce"),
     "ell_band_relax": ("ell_band_relax_",),
     "ell_band_relax_masked": ("masked_relax_",),
     "rev_band_relax": ("rev_band_relax_",),
@@ -416,6 +422,9 @@ def main(argv=None) -> int:
         ell_band_relax_masked,
         ell_band_relax_masked_plain,
         ell_band_relax_plain,
+        mask_words,
+        masked_plan,
+        pack_edge_mask,
     )
     from openr_tpu_torch.ops.ell_relax import launch_plan as ell_launch_plan
     from openr_tpu_torch.ops.grouped_minplus import (
@@ -427,6 +436,7 @@ def main(argv=None) -> int:
         minplus_t_plan,
     )
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
+    from openr_tpu_torch.ops.minplus import minplus_plan as dense_plan
     from openr_tpu_torch.ops.rev_relax import launch_plan as rev_launch_plan
     from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
     from openr_tpu_torch.types.lsdb import PrefixForwardingAlgorithm
@@ -505,26 +515,55 @@ def main(argv=None) -> int:
     d_rows = spf_ops._initial_rows(arrays.metric, srcs)
     compare("minplus", minplus(d_rows, t_mat), minplus_plain(d_rows, t_mat),
             f"main path {tuple(d_rows.shape)}x{tuple(t_mat.shape)}")
-    shapes = [(8, 1024, 1024), (5, 77, 300), (33, 129, 65), (1, 1, 1), (64, 1024, 1024)]
+    # ragged: S on and off the 8-row S-tile, N % 4 != 0 (scalar b loads),
+    # K = 0, a thin grid with a long K (many K splits), S-tiles past one
+    # grid.y sweep
+    shapes = [(8, 1024, 1024), (5, 77, 300), (33, 129, 65), (1, 1, 1), (64, 1024, 1024),
+              (16, 1024, 1024), (32, 1024, 1024), (8, 1000, 1001), (3, 0, 10),
+              (1, 50_000, 7), (20, 4000, 40), (1024, 1024, 1024), (1_100_000, 2, 3)]
     for s, k, n in shapes:
         a, b = rand_int((s, k), 0.3), rand_int((k, n), 0.3)
         compare("minplus", minplus(a, b), minplus_plain(a, b), (s, k, n))
+
+    def plan_fields(plan):
+        return {k: list(v) if isinstance(v, tuple) else v
+                for k, v in plan._asdict().items()}
+
+    def minplus_row(a):
+        """Device ms, plain ms, bound and plan of ``minplus(a, t_mat)``: a
+        split K adds the reduce kernel's record to each call."""
+        s, k, n = a.shape[0], t_mat.shape[0], t_mat.shape[1]
+        plan = dense_plan(s, k, n)
+        bound, by = bound_ms(4 * (s * k + k * n + s * n), 2 * s * k * n)
+        return {
+            "shape": [[s, k], [k, n]], "plan": plan_fields(plan),
+            "kernel_ms": device_ms(torch, lambda: minplus(a, t_mat), REPS,
+                                   KERNEL_KEYS["minplus"],
+                                   records=1 + (plan.splits > 1)),
+            "plain_ms": device_ms(torch, lambda: minplus_plain(a, t_mat), REPS),
+            "bound_ms": bound, "bound_by": by,
+            "call_ms": time_ms(torch, lambda: minplus(a, t_mat), REPS),
+            "plain_call_ms": time_ms(torch, lambda: minplus_plain(a, t_mat), REPS),
+        }
+
     s_, k_, n_ = d_rows.shape[0], t_mat.shape[0], t_mat.shape[1]
-    mp_call = time_ms(torch, lambda: minplus(d_rows, t_mat), REPS)
-    mp_plain_call = time_ms(torch, lambda: minplus_plain(d_rows, t_mat), REPS)
-    mp_ms = device_ms(torch, lambda: minplus(d_rows, t_mat), REPS, KERNEL_KEYS["minplus"],
-                      records=1)
-    mp_plain = device_ms(torch, lambda: minplus_plain(d_rows, t_mat), REPS)
-    mp_bound, mp_by = bound_ms(4 * (s_ * k_ + k_ * n_ + s_ * n_), 2 * s_ * k_ * n_)
+    mp_row = minplus_row(d_rows)
+    # a high-degree root's batch: 64 distance rows, random, over the same
+    # metric matrix
+    rows64 = rand_int((64, k_), 0.3)
+    compare("minplus", minplus(rows64, t_mat), minplus_plain(rows64, t_mat),
+            f"(64, {k_}) x {tuple(t_mat.shape)}")
+    mp_row64 = minplus_row(rows64)
+    mp_ms, mp_plain = mp_row["kernel_ms"], mp_row["plain_ms"]
+    mp_call, mp_plain_call = mp_row["call_ms"], mp_row["plain_call_ms"]
+    mp_bound, mp_by = mp_row["bound_ms"], mp_row["bound_by"]
     # the least time one launch of each route-build kernel can take at the
     # main path's shapes (its bytes over the card's memory rate): a
     # profiled build below launches x this missed device activity
     least_launch_ms = {"minplus": bound_ms(4 * (s_ * k_ + k_ * n_ + s_ * n_), 0)[0]}
-    emit({"phase": "kernels", "kernel": "minplus",
-          "shape": [[s_, k_], [k_, n_]], "match": True,
-          "checked_shapes": [list(x) for x in shapes],
-          "kernel_ms": mp_ms, "plain_ms": mp_plain, "bound_ms": mp_bound,
-          "call_ms": mp_call, "plain_call_ms": mp_plain_call})
+    emit({"phase": "kernels", "kernel": "minplus", "match": True,
+          "checked_shapes": [list(x) for x in shapes], **mp_row,
+          "at_s64": mp_row64})
 
     # ell_band_relax at the sparse main path's bands: the 10 000-node
     # fabric's sliced-ELL graph, relaxing the root batch's first rows
@@ -641,7 +680,8 @@ def main(argv=None) -> int:
         for band in g.bands:
             m = rng.random((s, band.rows, band.k)) < 0.05
             m[::7] = True
-            g_masks.append(torch.from_numpy(m).to(dev))
+            # packed on the card: no large host temporaries
+            g_masks.append(pack_edge_mask(torch.from_numpy(m).to(dev)))
         g_ov = torch.from_numpy(rng.random(g.n_pad) < 0.05).to(dev)
         m_rows = []
         pos = 0
@@ -654,6 +694,7 @@ def main(argv=None) -> int:
                         want, f"{label} band {band}")
             m_rows.append({
                 "rows": band.rows, "k": band.k,
+                "plan": plan_fields(masked_plan(s, band.rows, band.k)),
                 "kernel_ms": device_ms(
                     torch, lambda: ell_band_relax_masked(dm, s_b, w_b, m_b, g_ov, pos,
                                                          band_out),
@@ -683,13 +724,15 @@ def main(argv=None) -> int:
             [band_least_ms(s, bd.rows, bd.k) for bd in g.bands]
             + [least_launch_ms.get("ell_band_relax_masked", float("inf"))])
         m_slots = sum(band.rows * band.k for band in g.bands)
+        m_words = sum(mask_words(band.rows, band.k) for band in g.bands)
         # each input read once: the distance rows, the band slots (src + w),
-        # the mask (a byte a slot and row), the overload mask; each output
-        # written once: the band columns. One add and one min a slot and row.
-        m_bound, m_by = bound_ms(
-            4 * s * g.n_pad + 8 * m_slots + s * m_slots + g.n_pad + 4 * s * g.n,
-            2 * s * m_slots,
-        )
+        # the packed mask (a bit a slot and row, in int32 words), the
+        # overload mask; each output written once: the band columns. One
+        # add and one min a slot and row. The byte-mask bound counts a byte
+        # a slot and row instead (the mask an earlier kernel read as bytes).
+        rest = 4 * s * g.n_pad + 8 * m_slots + g.n_pad + 4 * s * g.n
+        m_bound, m_by = bound_ms(rest + 4 * s * m_words, 2 * s * m_slots)
+        m_bound_bytes, _ = bound_ms(rest + s * m_slots, 2 * s * m_slots)
         masked_kernel[label] = {
             "shape": {"S": s, "n_pad": g.n_pad, "bands": [[bd.rows, bd.k] for bd in g.bands]},
             "kernel_ms": device_ms(torch, masked_step_kernel, REPS,
@@ -699,23 +742,28 @@ def main(argv=None) -> int:
             "plain_ms": device_ms(torch, masked_step_plain, REPS),
             "call_ms": time_ms(torch, masked_step_kernel, REPS),
             "plain_call_ms": time_ms(torch, masked_step_plain, REPS),
-            "bound_ms": m_bound, "bound_by": m_by, "bands": m_rows,
+            "bound_ms": m_bound, "bound_by": m_by, "bound_bytemask_ms": m_bound_bytes,
+            "bands": m_rows,
         }
-    # ragged: S off 8, 32 and 128, rows below a block, k of 8, 9, 24, 64
-    # and 1024, all-set and all-clear masks, a mask off an 8-byte boundary
+    # ragged: S off 8, 32 and 128, rows below a block, k of 8, 9 and 24
+    # (bits straddling words), 33, 64, 1024 and 3000 (two staged pieces a
+    # row), all-set and all-clear masks, a mask off a 16-byte boundary
     masked_ragged = [(37, 300, 50, 8), (3, 256, 5, 9), (129, 700, 33, 64),
-                     (13, 256, 200, 24), (2, 1100, 3, 1024), (1, 130, 2, 1024)]
+                     (13, 256, 200, 24), (2, 1100, 3, 1024), (1, 130, 2, 1024),
+                     (5, 500, 7, 33), (9, 3100, 3, 3000)]
     for s, n_pad, rows, k in masked_ragged:
         dd, ww = rand_int((s, n_pad), 0.3), rand_int((rows, k), 0.3)
         sb = torch.from_numpy(rng.integers(0, n_pad, (rows, k)).astype(np.int32)).to(dev)
         ovr = torch.from_numpy(rng.random(n_pad) < 0.2).to(dev)
         p = n_pad - rows
-        flat = torch.zeros(s * rows * k + 1, dtype=torch.bool, device=dev)
-        odd = flat[1:].view(s, rows, k)
-        odd.copy_(torch.from_numpy(rng.random((s, rows, k)) < 0.05))
-        for mask in (torch.from_numpy(rng.random((s, rows, k)) < 0.05).to(dev),
-                     torch.ones((s, rows, k), dtype=torch.bool, device=dev),
-                     torch.zeros((s, rows, k), dtype=torch.bool, device=dev), odd):
+        words = mask_words(rows, k)
+        flat = torch.zeros(s * words + 1, dtype=torch.int32, device=dev)
+        odd = flat[1:].view(s, words)
+        odd.copy_(pack_edge_mask(torch.from_numpy(rng.random((s, rows, k)) < 0.05).to(dev)))
+        for mask in (pack_edge_mask(torch.from_numpy(rng.random((s, rows, k)) < 0.05).to(dev)),
+                     pack_edge_mask(torch.ones((s, rows, k), dtype=torch.bool, device=dev)),
+                     pack_edge_mask(torch.zeros((s, rows, k), dtype=torch.bool, device=dev)),
+                     odd):
             out = torch.full_like(dd, -1)
             compare("ell_band_relax_masked",
                     ell_band_relax_masked(dd, sb, ww, mask, ovr, p, out),
@@ -1174,7 +1222,13 @@ def main(argv=None) -> int:
         areas, host_areas = {ls.area: ls}, {host_ls.area: host_ls}
         device_solver = SpfSolver(root, backend="device", device=dev)
         host_solver = SpfSolver(root, backend="host", device=dev)
-        n_bands = len(spf_sparse.compile_ell(ls).bands)
+        ksp2_graph = spf_sparse.compile_ell(ls)
+        n_bands = len(ksp2_graph.bands)
+        # a chunk's masks: packed words, and the bytes of bool cells
+        chunk_words = _ksp2_chunk(ksp2_graph) * sum(
+            mask_words(bd.rows, bd.k) for bd in ksp2_graph.bands)
+        chunk_cells = _ksp2_chunk(ksp2_graph) * sum(
+            bd.rows * bd.k for bd in ksp2_graph.bands)
         want_dsts = len({
             node for prefix in ps.prefixes()
             for (node, _), entry in ps.entries_for(prefix).items()
@@ -1223,6 +1277,11 @@ def main(argv=None) -> int:
                 stats[k] for k in KSP2_PARTS)
             build["hops"] = launches["ell_band_relax_masked"] / (n_bands * stats["chunks"]) - 1
             build["chunks"] = stats["chunks"]
+            build["mask_bytes"] = stats["mask_bytes"]
+            build["bool_mask_bytes"] = stats["chunks"] * chunk_cells
+            if build["mask_bytes"] != 4 * stats["chunks"] * chunk_words:
+                raise AssertionError(f"{phase}: {build['mask_bytes']} mask bytes uploaded "
+                                     f"for {stats['chunks']} chunks")
             build["launches"] = {k: v for k, v in launches.items() if v}
             builds.append(build)
             check(got, step)
@@ -1255,6 +1314,8 @@ def main(argv=None) -> int:
                 for k in ("view_ms", *KSP2_PARTS, "assembly_ms")
             },
             "event_builds": events_only,
+            "mask_bytes_per_build": builds[-1]["mask_bytes"],
+            "bool_mask_bytes_per_build": builds[-1]["bool_mask_bytes"],
             "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
             "kernel_device_ms": {k: device_us(stats, KERNEL_KEYS[k]) / 1e3
                                  for k in launched},
@@ -1300,7 +1361,9 @@ def main(argv=None) -> int:
          "ms": mp_ms, "plain_ms": mp_plain,
          "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": None,
          "call_ms": mp_call, "plain_call_ms": mp_plain_call,
-         "shape": [[s_, k_], [k_, n_]], "match": True},
+         "shape": [[s_, k_], [k_, n_]], "plan": mp_row["plan"], "match": True,
+         "at_s64": {k: mp_row64[k] for k in (
+             "shape", "plan", "kernel_ms", "plain_ms", "bound_ms", "call_ms")}},
         {"name": "ell_band_relax", "route": "cuda", "source": f"{csrc}/ell_relax.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:196",
          "launches": main_launches["ell_band_relax"],
@@ -1320,11 +1383,14 @@ def main(argv=None) -> int:
          "plain_ms": masked_kernel["1008"]["plain_ms"],
          "bound_ms": masked_kernel["1008"]["bound_ms"],
          "bound_by": masked_kernel["1008"]["bound_by"], "library_ms": None,
+         "bound_bytemask_ms": masked_kernel["1008"]["bound_bytemask_ms"],
          "call_ms": masked_kernel["1008"]["call_ms"],
          "plain_call_ms": masked_kernel["1008"]["plain_call_ms"],
-         "shape": masked_kernel["1008"]["shape"], "match": True,
+         "shape": masked_kernel["1008"]["shape"], "bands": masked_kernel["1008"]["bands"],
+         "match": True,
          "at_10k": {k: masked_kernel["10k"][k] for k in (
-             "shape", "kernel_ms", "plain_ms", "bound_ms", "call_ms", "plain_call_ms")}},
+             "shape", "bands", "kernel_ms", "plain_ms", "bound_ms", "bound_bytemask_ms",
+             "call_ms", "plain_call_ms")}},
         {"name": "rev_band_relax", "route": "cuda", "source": f"{csrc}/rev_relax.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:248",
          "launches": main_launches["rev_band_relax"],

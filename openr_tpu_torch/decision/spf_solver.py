@@ -380,7 +380,8 @@ class SpfSolver:
         # over areas: hop_gate (the unit-metric SPF of the hop gate), graph
         # (the in-edge bands), first_paths (host traces), masks, solve
         # (upload, masked device solve, readback), second_paths (traces,
-        # priming); and the chunks and destinations it solved
+        # priming); and the chunks and destinations it solved, and the
+        # bytes of packed edge masks it uploaded (mask_bytes)
         self.ksp2_stats: Dict[str, float] = {}
 
     # -- static MPLS routes ----------------------------------------------
@@ -886,6 +887,7 @@ class SpfSolver:
             masks, ok = spf_sparse.build_edge_masks(
                 graph, batch_excl + [set()] * pad
             )
+            stats["mask_bytes"] = stats.get("mask_bytes", 0) + sum(m.nbytes for m in masks)
             lap("masks_ms")
             drows = spf_sparse.ell_masked_distances(graph, sid, masks, self.device)
             lap("solve_ms")

@@ -40,17 +40,18 @@ _I = ctypes.c_int
 # C entry point -> argtypes. Every pointer and the stream are c_void_p:
 # without argtypes ctypes would pass a Python int as a 32-bit C int.
 SIGNATURES: Dict[str, List] = {
-    # a, b, out, S, K, N, stream
-    "openr_minplus": [_P, _P, _P, _I, _I, _I, _P],
+    # a, b, out, scratch [splits, S, N] (null without a split), S, K, N,
+    # k_warps, k_chunk, splits, stream
+    "openr_minplus": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # d, S, n_pad, src, w, rows, k, overloaded, ov_is_int32, pos,
     # row_threads, out, stream
     "openr_ell_band_relax": [
         _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P,
     ],
-    # d, S, n_pad, src, w, mask, rows, k, overloaded, ov_is_int32, pos,
-    # out, stream
+    # d, S, n_pad, src, w, mask (packed int32 words), rows, k, overloaded,
+    # ov_is_int32, pos, kmax, group, row_threads, chunk, out, stream
     "openr_ell_band_relax_masked": [
-        _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P,
+        _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ],
     # dr, B, n_pad, v, w, rows, k, t_ids, overloaded, ov_is_int32, pos,
     # chunk, out, stream

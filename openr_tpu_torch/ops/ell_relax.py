@@ -8,6 +8,12 @@ hand-written kernel in ``csrc/ell_relax.cu`` and ``ell_band_relax_masked``
 version on CPU tensors. There is no fallback from one to the other. The
 reversed-graph variant of the same Pallas module (the route sweep's
 ``rev_band_relax``) is ``ops/rev_relax.py``.
+
+The masked relax takes its edge mask bit-packed (``pack_edge_mask``):
+int32 words ``[S, ceil(rows * k / 32)]`` per band, the bit of band row
+``j``, slot ``slot`` of batch row ``s`` being bit ``(j * k + slot) & 31``
+of word ``(j * k + slot) >> 5`` of row ``s``; where the JAX package's
+``[S, rows, k]`` bool mask is True, the bit is set.
 """
 
 from __future__ import annotations
@@ -32,6 +38,27 @@ MIN_ROW_THREADS = 32
 MIN_SLOTS = 4
 TARGET_WARPS = 132 * 16
 GRID_Y_MAX = 65535
+
+
+# ell_band_relax_masked's launch (csrc/ell_relax_masked.cu): a narrow band
+# (k < WIDE_K) gives each band row one thread, MASKED_NARROW_ROWS rows a
+# block, its k slots staged in registers (KMAX: k rounded up to 8, 16 or
+# 32) and walked over a run of up to MASKED_NARROW_RUN batch rows, taken
+# `group` at a time (MASKED_GROUP_SLOTS / KMAX, at most MASKED_GROUP_MAX);
+# a wide one gives a row a thread a slot, 32 to WIDE_THREADS of a
+# WIDE_THREADS block, over a run of up to MASKED_WIDE_RUN batch rows. Runs are the
+# longest power of two that leaves MASKED_NARROW_MIN_BLOCKS (one for each
+# of an H100's 132 SMs) or MASKED_WIDE_MIN_BLOCKS (two) blocks, or 1; runs
+# beyond GRID_Y_MAX are walked by the blocks of grid.y in turn. (Chosen
+# among runs of 1 to 32, groups of 1 to 8 and 32 to 256 threads a wide row
+# by their device times on an H100 at the KSP2 chunks' in-bands.)
+MASKED_NARROW_ROWS = 128
+MASKED_NARROW_RUN = 16
+MASKED_WIDE_RUN = 8
+MASKED_GROUP_SLOTS = 64
+MASKED_GROUP_MAX = 4
+MASKED_NARROW_MIN_BLOCKS = 132
+MASKED_WIDE_MIN_BLOCKS = 2 * 132
 
 
 class EllPlan(NamedTuple):
@@ -59,6 +86,80 @@ def launch_plan(s: int, rows: int, k: int) -> EllPlan:
         threads *= 2
     per = WIDE_THREADS // threads
     return EllPlan(True, threads, per, (-(-rows // per), s))
+
+
+class MaskedPlan(NamedTuple):
+    """How one band of ``ell_band_relax_masked`` launches: the ``body``
+    ("narrow" or "wide"), slots a narrow thread stages (``kmax``; 0 for
+    wide), batch rows a narrow thread takes at a time (``group``; 1 for
+    wide), threads a band row (``row_threads``; 1 for narrow), band rows a
+    block, batch rows a block walks (``chunk``), and the grid
+    ``(band-row tiles, runs up to GRID_Y_MAX)``."""
+
+    body: str
+    kmax: int
+    group: int
+    row_threads: int
+    rows_per_block: int
+    chunk: int
+    grid: Tuple[int, int]
+
+
+def masked_plan(s: int, rows: int, k: int) -> MaskedPlan:
+    """The launch of one band of ``rows`` band rows with ``k`` slots over
+    ``s`` batch rows (both >= 1) by the rule above ``EllPlan``."""
+    if s < 1 or rows < 1 or k < 0:
+        raise ValueError(f"ell_band_relax_masked plan: s={s}, rows={rows}, k={k}")
+    if k < WIDE_K:
+        body, kmax, threads, per = "narrow", 8, 1, MASKED_NARROW_ROWS
+        while kmax < k:
+            kmax *= 2
+        group = min(MASKED_GROUP_MAX, MASKED_GROUP_SLOTS // kmax)
+        chunk, least = MASKED_NARROW_RUN, MASKED_NARROW_MIN_BLOCKS
+    else:
+        body, kmax, group, threads = "wide", 0, 1, MIN_ROW_THREADS
+        while threads < WIDE_THREADS and threads < k:
+            threads *= 2
+        per = WIDE_THREADS // threads
+        chunk, least = MASKED_WIDE_RUN, MASKED_WIDE_MIN_BLOCKS
+    tiles = -(-rows // per)
+    while chunk > 1 and tiles * -(-s // chunk) < least:
+        chunk //= 2
+    return MaskedPlan(body, kmax, group, threads, per, chunk,
+                      (tiles, min(-(-s // chunk), GRID_Y_MAX)))
+
+
+def mask_words(rows: int, k: int) -> int:
+    """int32 words a batch row of a band's packed edge mask takes."""
+    return -(-rows * k // 32)
+
+
+def pack_edge_mask(mask: torch.Tensor) -> torch.Tensor:
+    """``[S, rows, k]`` bool -> the packed ``[S, mask_words(rows, k)]``
+    int32 words the masked relax takes (the layout in the module
+    docstring); plain torch ops, on the mask's device."""
+    if mask.dim() != 3 or mask.dtype != torch.bool:
+        raise ValueError(f"pack_edge_mask: [S, rows, k] bool, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    s, rows, k = mask.shape
+    words = mask_words(rows, k)
+    flat = torch.zeros((s, words * 32), dtype=torch.int64, device=mask.device)
+    flat[:, : rows * k] = mask.reshape(s, rows * k)
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    packed = (flat.view(s, words, 32) << shifts).sum(2)  # [0, 2^32)
+    return torch.where(packed >= 1 << 31, packed - (1 << 32), packed).to(torch.int32)
+
+
+def unpack_edge_mask(bits: torch.Tensor, rows: int, k: int) -> torch.Tensor:
+    """The packed ``[S, mask_words(rows, k)]`` int32 words -> the
+    ``[S, rows, k]`` bool mask (``pack_edge_mask``'s inverse)."""
+    if bits.dim() != 2 or bits.shape[1] != mask_words(rows, k):
+        raise ValueError(f"unpack_edge_mask: {tuple(bits.shape)} for "
+                         f"{rows} rows of {k} slots")
+    s, words = bits.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    flat = ((bits.to(torch.int32)[:, :, None] >> shifts) & 1).reshape(s, words * 32)
+    return flat[:, : rows * k].reshape(s, rows, k).bool()
 
 
 def _check(d, src, w, overloaded, pos, out) -> int:
@@ -173,9 +274,11 @@ def ell_band_relax(
 
 
 def _check_mask(d, src, mask) -> None:
-    if mask.dtype != torch.bool:
-        raise TypeError(f"ell_band_relax_masked: mask must be bool, got {mask.dtype}")
-    want = (d.shape[0], *src.shape)
+    if mask.dtype != torch.int32:
+        raise TypeError(
+            f"ell_band_relax_masked: mask must be packed int32 words, got {mask.dtype}"
+        )
+    want = (d.shape[0], mask_words(*src.shape))
     if tuple(mask.shape) != want:
         raise ValueError(
             f"ell_band_relax_masked: mask {tuple(mask.shape)}, want {want}"
@@ -195,14 +298,15 @@ def ell_band_relax_masked_plain(
     pos: int,
 ) -> torch.Tensor:
     """``[S, rows]``: ``ell_band_relax_plain`` with a per-batch-row edge
-    mask: ``mask [S, rows, k]`` bool, True where the edge is excluded for
+    mask: ``mask`` is the packed ``[S, mask_words(rows, k)]`` int32 words
+    of an ``[S, rows, k]`` bool mask, True where the edge is excluded for
     that batch row (its weight becomes INF for that row only)."""
     _check(d, src, w, overloaded, pos, None)
     _check_mask(d, src, mask)
-    rows = src.shape[0]
+    rows, k = src.shape
     idx = src.long()
     w_eff = w.masked_fill(overloaded[idx] != 0, INF)
-    w_rows = w_eff[None].masked_fill(mask, INF)  # [S, rows, k]
+    w_rows = w_eff[None].masked_fill(unpack_edge_mask(mask, rows, k), INF)
     gathered = d[:, idx]  # [S, rows, k]
     relaxed = (gathered + w_rows).clamp_max_(INF).amin(2)
     return torch.minimum(d[:, pos : pos + rows], relaxed)
@@ -218,15 +322,16 @@ def ell_band_relax_masked(
     out: torch.Tensor,
 ) -> torch.Tensor:
     """One band of the per-batch-masked sliced-ELL relax (the KSP2
-    second-path graphs): ``ell_band_relax`` plus ``mask [S, rows, k]``
-    bool, contiguous, True where that edge is excluded for that batch
-    row. The kernel reads the mask as bytes.
+    second-path graphs): ``ell_band_relax`` plus ``mask``, the packed
+    ``[S, mask_words(rows, k)]`` int32 words (``pack_edge_mask``),
+    contiguous, whose bit is set where that edge is excluded for that
+    batch row.
 
     Writes the band's ``[S, rows]`` block into ``out[:, pos:pos + rows]``
     and returns that view, as ``ell_band_relax`` does. CUDA tensors go
-    through the hand-written kernel (current stream, not synchronised);
-    CPU tensors through ``ell_band_relax_masked_plain``. Any other device
-    raises."""
+    through the hand-written kernel (current stream, not synchronised, as
+    ``masked_plan`` says); CPU tensors through
+    ``ell_band_relax_masked_plain``. Any other device raises."""
     rows = _check(d, src, w, overloaded, pos, out)
     _check_mask(d, src, mask)
     view = out[:, pos : pos + rows]
@@ -249,15 +354,15 @@ def ell_band_relax_masked(
     k = src.shape[1]
     if s == 0 or rows == 0:
         return view
-    if s > 65535:
-        raise ValueError(f"ell_band_relax_masked: {s} batch rows exceed the grid")
+    plan = masked_plan(s, rows, k)
     lib = _build.library()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         rc = lib.openr_ell_band_relax_masked(
             d.data_ptr(), s, n_pad, src.data_ptr(), w.data_ptr(),
             mask.data_ptr(), rows, k, overloaded.data_ptr(),
-            int(overloaded.dtype == torch.int32), pos, out.data_ptr(), stream,
+            int(overloaded.dtype == torch.int32), pos, plan.kmax, plan.group,
+            plan.row_threads, plan.chunk, out.data_ptr(), stream,
         )
     _build.check(rc, "ell_band_relax_masked")
     LAUNCHES["ell_band_relax_masked"] += 1

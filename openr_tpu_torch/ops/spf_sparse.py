@@ -14,7 +14,9 @@ calls the fixed point directly (the reference's jitted entry
 band of a relax step goes through ``ops.ell_relax.ell_band_relax`` (or
 ``ell_band_relax_masked``: the hand-written CUDA kernels on the card,
 their plain torch versions on the CPU), writing into its column slice of
-one output instead of concatenating band parts. The JAX
+one output instead of concatenating band parts. The KSP2 edge masks are
+built bit-packed on the host (32 slots an int32 word) where the JAX
+package builds bool cells. The JAX
 ``lax.while_loop`` becomes a Python loop with one host sync per hop. Left out for later slices: the resident
 incremental state (``EllState``, ``ell_patch``, ``_warm_seed``,
 ``_ell_reconverge``) and the solves that ride it
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
-from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked
+from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked, mask_words
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
 
@@ -362,8 +364,9 @@ def ell_source_batch(graph: EllGraph, ls, src_name: str) -> List[int]:
 
 def _ell_relax_masked(d, bands, srcs_t, ws_t, masks_t, overloaded) -> torch.Tensor:
     """One relaxation with a per-batch-row edge mask, [B, n_pad] -> a new
-    [B, n_pad]: ``masks_t[bi]`` is the band's [B, rows, k] bool mask, True
-    where that edge is excluded for that batch row (the KSP2
+    [B, n_pad]: ``masks_t[bi]`` is the band's packed edge mask
+    ([B, ceil(rows * k / 32)] int32 words, ``ell_relax.pack_edge_mask``),
+    its bit set where that edge is excluded for that batch row (the KSP2
     edge-disjoint second-path graphs). Each band writes its column slice
     of the output in place, like ``_ell_relax``."""
     out = torch.empty_like(d)
@@ -402,10 +405,14 @@ def _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n)
 
 
 def build_edge_masks(graph: EllGraph, exclusion_sets, parallel_pairs=None):
-    """Per-band [B, rows, k] bool masks from per-batch-row link sets, and
-    ``ok [B]``. On a per-link-slot graph (``compile_ell`` direction "in")
-    every link, parallel group members included, maps to its own slot
-    through ``graph.slot_of``, so ``ok[b]`` is False only when an
+    """Per-band packed edge masks from per-batch-row link sets, and
+    ``ok [B]``. A band's mask is [B, ceil(rows * k / 32)] int32 words (the
+    layout of ``ell_relax.pack_edge_mask``; ``unpack_edge_mask`` gives
+    the [B, rows, k] bool mask of the JAX package): the bit of (row r,
+    slot) of batch row x is set where that edge is excluded. On a
+    per-link-slot graph (``compile_ell`` direction "in") every link,
+    parallel group members included, maps to its own slot through
+    ``graph.slot_of``, so ``ok[b]`` is False only when an
     exclusion names a node outside the graph (reference semantics:
     LinkState.cpp:763 getKthPaths' linksToIgnore treats each Link as
     first-class, LinkState.h:82). A link that is not in the bands (down
@@ -416,7 +423,13 @@ def build_edge_masks(graph: EllGraph, exclusion_sets, parallel_pairs=None):
     and flag ok=False."""
     b = len(exclusion_sets)
     parallel_pairs = parallel_pairs or set()
-    masks = [np.zeros((b, band.rows, band.k), dtype=bool) for band in graph.bands]
+    # (batch row, bit) of each excluded slot, per band; set in bulk below
+    hits_of = [([], []) for _ in graph.bands]
+
+    def exclude(bi: int, x: int, r: int, slot: int) -> None:
+        hits_of[bi][0].append(x)
+        hits_of[bi][1].append(r * graph.bands[bi].k + slot)
+
     ok = np.ones(b, dtype=bool)
     per_link = graph.slot_of is not None
     for x, links in enumerate(exclusion_sets):
@@ -436,15 +449,22 @@ def build_edge_masks(graph: EllGraph, exclusion_sets, parallel_pairs=None):
                     hit = graph.slot_of.get(hid, _EMPTY_SLOTS).get(key)
                     if hit is not None:
                         bi, r, slot = hit
-                        masks[bi][x, r, slot] = True
+                        exclude(bi, x, r, slot)
                     continue
                 bi, band = _band_of(graph, hid)
                 r = hid - band.start
                 hits = np.flatnonzero(graph.src[bi][r] == tid)
                 if len(hits):
-                    masks[bi][x, r, hits[0]] = True
+                    exclude(bi, x, r, int(hits[0]))
             if not ok[x]:
                 break
+    masks = []
+    for band, (xs, bits) in zip(graph.bands, hits_of):
+        words = np.zeros((b, mask_words(band.rows, band.k)), dtype=np.uint32)
+        bits = np.asarray(bits, dtype=np.int64)
+        np.bitwise_or.at(words, (np.asarray(xs, dtype=np.int64), bits >> 5),
+                         np.left_shift(np.uint32(1), (bits & 31).astype(np.uint32)))
+        masks.append(words.view(np.int32))
     return masks, ok
 
 
@@ -452,9 +472,10 @@ def ell_masked_distances(
     graph: EllGraph, src_id: int, masks, device: DeviceLike = None
 ) -> np.ndarray:
     """The batched masked solve from ``src_id`` on ``device`` (None =
-    CUDA): host [B, n_pad] int32, one row per mask batch row. The bands
-    and the masks are uploaded once per call; the masks are the bulk of
-    it ([B, slots] bytes)."""
+    CUDA): host [B, n_pad] int32, one row per mask batch row. ``masks``
+    are ``build_edge_masks``' packed int32 words, uploaded as they are.
+    The bands and the masks are uploaded once per call; the masks are the
+    bulk of it ([B, slots / 8] bytes)."""
     dev = resolve_device(device)
     d, _ = _ell_masked_fixed_point(
         tuple(torch.from_numpy(s).to(dev) for s in graph.src),

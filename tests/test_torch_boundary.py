@@ -87,7 +87,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
         [np.full((1, 8), INF, np.int32)], np.zeros(128, bool),
     )
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ell_masked_distances(graph, 0, [np.zeros((1, 1, 8), bool)])
+        ell_masked_distances(graph, 0, [np.zeros((1, 1), np.int32)])
 
 
 def test_entry_points_take_the_cpu_when_asked(no_cuda):
@@ -96,7 +96,9 @@ def test_entry_points_take_the_cpu_when_asked(no_cuda):
         ["a"], [(0, 1, 8)], [np.zeros((1, 8), np.int32)],
         [np.full((1, 8), INF, np.int32)], np.zeros(128, bool),
     )
-    rows = ell_masked_distances(graph, 0, [np.zeros((2, 1, 8), bool)], device="cpu")
+    # the band's packed edge mask: 1 row of 8 slots is one int32 word a
+    # batch row
+    rows = ell_masked_distances(graph, 0, [np.zeros((2, 1), np.int32)], device="cpu")
     assert rows.shape == (2, 128) and (rows[:, 0] == 0).all()
     assert SnapshotCache("cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -36,7 +36,22 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,k,n", [(8, 1024, 1024), (5, 77, 300), (33, 129, 65), (1, 1, 1)])
+@pytest.mark.parametrize(
+    "s,k,n",
+    [
+        # the dense route build's batches at 1008 nodes (S = 8 splits K 16
+        # ways over grid.z, 64 takes eight S-tiles and 3 splits)
+        (8, 1024, 1024), (16, 1024, 1024), (32, 1024, 1024), (64, 1024, 1024),
+        # ragged: N % 4 != 0 (scalar b loads), S off the S-tile, K off the
+        # lanes and the unroll, K = 0 (all INF), single elements
+        (5, 77, 300), (33, 129, 65), (1, 1, 1), (8, 1000, 1001), (17, 3, 6),
+        (3, 0, 10),
+        # a thin grid with a long K: many splits of several slices each
+        (1, 50_000, 7), (20, 4000, 40),
+        # all pairs at 1024 nodes; S-tiles past one grid.y sweep
+        (1024, 1024, 1024), (1_100_000, 2, 3),
+    ],
+)
 def test_minplus_kernel_matches_plain(card, s, k, n):
     rng = np.random.default_rng(s + k + n)
     a = _mat(rng, (s, k), 0.3).to(card)
@@ -45,6 +60,27 @@ def test_minplus_kernel_matches_plain(card, s, k, n):
     torch.cuda.synchronize()
     assert LAUNCHES["minplus"] == 1
     assert torch.equal(got, minplus.minplus_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k,n,splits", [(8, 1024, 1024, True), (1, 50_000, 7, True),
+                                          (64, 1024, 1000, True), (1024, 1024, 1024, False)])
+def test_minplus_kernel_split_k(card, s, k, n, splits):
+    """The K split over grid.z (partial mins in a scratch, then the
+    reduce kernel) and the unsplit grid, each against the plain version;
+    the plan splits K exactly when the test says. A b off a 16-byte
+    boundary takes the scalar loads."""
+    plan = minplus.minplus_plan(s, k, n)
+    assert (plan.splits > 1) == splits
+    rng = np.random.default_rng(s * k + n)
+    a = _mat(rng, (s, k), 0.3).to(card)
+    flat = _mat(rng, (k * n + 1,), 0.3).to(card)
+    for b in (flat[:-1].view(k, n), flat[1:].view(k, n)):
+        reset_launches()
+        got = minplus.minplus(a, b)
+        torch.cuda.synchronize()
+        assert LAUNCHES["minplus"] == 1
+        assert torch.equal(got, minplus.minplus_plain(a, b))
 
 
 @pytest.mark.cuda
@@ -99,6 +135,11 @@ def test_ell_band_relax_wide_kernel_matches_plain(card, k, s, rows, mask_dtype):
     assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
 
 
+# run lengths: the plan's own, and (through its least blocks) the
+# shortest and the longest it allows, which take each wide RUN template
+RUNS = {"plan": None, "shortest": 1 << 40, "longest": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "s,n_pad,rows,k,pos",
@@ -108,13 +149,22 @@ def test_ell_band_relax_wide_kernel_matches_plain(card, k, s, rows, mask_dtype):
         (256, 10112, 16, 1024, 9984),
         # the 1008-node chunk (1024 destinations)
         (1024, 1024, 744, 8, 0), (1024, 1024, 248, 16, 744), (1024, 1024, 16, 64, 992),
-        # ragged: S off 8/32/128, rows below a block, k off the vector width
+        # ragged: S off the runs, rows below a block, k off a word (9, 24),
+        # k past the narrow body (33) and past a row's staged piece (3000)
         (37, 300, 50, 9, 17), (3, 256, 5, 8, 100), (129, 700, 33, 64, 600),
-        (13, 256, 200, 24, 56), (2, 1100, 3, 1024, 1000),
+        (13, 256, 200, 24, 56), (2, 1100, 3, 1024, 1000), (5, 500, 7, 33, 400),
+        (9, 3100, 3, 3000, 3000), (70, 200, 40, 1, 100),
     ],
 )
+@pytest.mark.parametrize("runs", sorted(RUNS))
 @pytest.mark.parametrize("mask_dtype", [torch.bool, torch.uint8, torch.int32])
-def test_ell_band_relax_masked_kernel_matches_plain(card, s, n_pad, rows, k, pos, mask_dtype):
+def test_ell_band_relax_masked_kernel_matches_plain(card, monkeypatch, s, n_pad, rows, k,
+                                                    pos, runs, mask_dtype):
+    if RUNS[runs] is not None:
+        for least in ("MASKED_NARROW_MIN_BLOCKS", "MASKED_WIDE_MIN_BLOCKS"):
+            monkeypatch.setattr(ell_relax, least, RUNS[runs])
+    plan = ell_relax.masked_plan(s, rows, k)
+    assert plan.body == ("wide" if k >= 33 else "narrow")
     rng = np.random.default_rng(s + n_pad + rows + k)
     d = _mat(rng, (s, n_pad), 0.2).to(card)
     src_np = rng.integers(0, n_pad, (rows, k)).astype(np.int32)
@@ -124,7 +174,7 @@ def test_ell_band_relax_masked_kernel_matches_plain(card, s, n_pad, rows, k, pos
     w = _mat(rng, (rows, k), 0.2).to(card)
     mask_np = rng.random((s, rows, k)) < 0.05
     mask_np[::7] = True  # batch rows that lose every edge
-    mask = torch.from_numpy(mask_np).to(card)
+    mask = ell_relax.pack_edge_mask(torch.from_numpy(mask_np)).to(card)
     ov = torch.from_numpy(ov_np).to(card).to(mask_dtype)
     want = ell_relax.ell_band_relax_masked_plain(d, src, w, mask, ov, pos)
     out = torch.full_like(d, -1)
@@ -134,11 +184,11 @@ def test_ell_band_relax_masked_kernel_matches_plain(card, s, n_pad, rows, k, pos
     assert torch.equal(view, want)
     assert torch.equal(out[:, pos : pos + rows], want)
     assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
-    # a mask that starts off an 8-byte boundary takes the byte-wise path
-    flat = torch.zeros(mask.numel() + 1, dtype=torch.bool, device=card)
+    # a mask that starts one word past a 16-byte boundary
+    flat = torch.zeros(mask.numel() + 1, dtype=torch.int32, device=card)
     odd = flat[1:].view(mask.shape)
     odd.copy_(mask)
-    assert odd.data_ptr() % 8 != 0
+    assert odd.data_ptr() % 16 != 0
     out.fill_(-1)
     ell_relax.ell_band_relax_masked(d, src, w, odd, ov, pos, out=out)
     torch.cuda.synchronize()
@@ -148,16 +198,17 @@ def test_ell_band_relax_masked_kernel_matches_plain(card, s, n_pad, rows, k, pos
 @pytest.mark.cuda
 def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take(card):
     d = torch.zeros((2, 16), dtype=torch.int32, device=card)
-    src = torch.zeros((4, 8), dtype=torch.int32, device=card)
-    w = torch.zeros((4, 8), dtype=torch.int32, device=card)
-    mask = torch.zeros((2, 4, 8), dtype=torch.bool, device=card)
+    src = torch.zeros((4, 16), dtype=torch.int32, device=card)
+    w = torch.zeros((4, 16), dtype=torch.int32, device=card)
+    bool_mask = torch.zeros((2, 4, 16), dtype=torch.bool, device=card)
+    mask = ell_relax.pack_edge_mask(bool_mask)  # [2, 2] words
     ov = torch.zeros(16, dtype=torch.bool, device=card)
     out = torch.empty_like(d)
-    for bad in (mask.to(torch.uint8), mask.to(torch.int32)):
-        with pytest.raises(TypeError, match="bool"):
+    for bad in (bool_mask, mask.to(torch.uint8), mask.to(torch.int64)):
+        with pytest.raises(TypeError, match="packed int32"):
             ell_relax.ell_band_relax_masked(d, src, w, bad, ov, 0, out)
-    strided = torch.zeros((2, 8, 4), dtype=torch.bool, device=card).transpose(1, 2)
-    assert not strided.is_contiguous()
+    strided = torch.zeros((2, 2), dtype=torch.int32, device=card).t()
+    assert strided.shape == mask.shape and not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         ell_relax.ell_band_relax_masked(d, src, w, strided, ov, 0, out)
     with pytest.raises(ValueError, match="mask"):

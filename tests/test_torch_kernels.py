@@ -251,9 +251,11 @@ def test_ell_band_relax_masked_plain_matches_pallas_interpret(case):
             jnp.asarray(ov), pos, interpret=True,
         )
     )
+    # the port takes the same bool mask bit-packed
+    bits = ell_relax.pack_edge_mask(_t(mask))
     for ovm in (_t(ov), _t(ov).to(torch.uint8), _t(ov).to(torch.int32)):
         out = torch.empty((s, n_pad), dtype=torch.int32)
-        got = ell_relax.ell_band_relax_masked(_t(d), _t(src), _t(w), _t(mask), ovm, pos, out)
+        got = ell_relax.ell_band_relax_masked(_t(d), _t(src), _t(w), bits, ovm, pos, out)
         np.testing.assert_array_equal(got.numpy(), want)
         np.testing.assert_array_equal(out[:, pos : pos + rows].numpy(), want)
     if kind == "all_false":
@@ -291,7 +293,7 @@ def test_full_masked_relax_matches_jax(impl, s):
     port_bands = tuple(port_sparse.EllBand(b.start, b.rows, b.k) for b in bands)
     got = port_sparse._ell_relax_masked(
         _t(d), port_bands, tuple(map(_t, srcs)), tuple(map(_t, ws)),
-        tuple(map(_t, masks)), _t(ov),
+        tuple(ell_relax.pack_edge_mask(_t(m)) for m in masks), _t(ov),
     )
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -299,7 +301,7 @@ def test_full_masked_relax_matches_jax(impl, s):
 def test_ell_band_relax_masked_writes_into_out_slice():
     rng = np.random.default_rng(6)
     d, src, w, ov = _band(rng, 4, 128, 20, 8, 30, 0.3, 0.2)
-    mask = _t(rng.random((4, 20, 8)) < 0.3)
+    mask = ell_relax.pack_edge_mask(_t(rng.random((4, 20, 8)) < 0.3))
     out = torch.full((4, 128), -7, dtype=torch.int32)
     view = ell_relax.ell_band_relax_masked(_t(d), _t(src), _t(w), mask, _t(ov), 30, out=out)
     want = ell_relax.ell_band_relax_masked_plain(_t(d), _t(src), _t(w), mask, _t(ov), 30)
@@ -312,17 +314,19 @@ def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take():
     d = torch.zeros((2, 16), dtype=torch.int32)
     src = torch.zeros((4, 8), dtype=torch.int32)
     w = torch.zeros((4, 8), dtype=torch.int32)
-    mask = torch.zeros((2, 4, 8), dtype=torch.bool)
+    bool_mask = torch.zeros((2, 4, 8), dtype=torch.bool)
+    mask = ell_relax.pack_edge_mask(bool_mask)  # [2, 1] int32 words
     ov = torch.zeros(16, dtype=torch.bool)
     out = torch.empty_like(d)
-    with pytest.raises(TypeError, match="bool"):  # the kernel reads bytes 0/1
-        ell_relax.ell_band_relax_masked(d, src, w, mask.to(torch.int32), ov, 0, out)
-    with pytest.raises(TypeError, match="bool"):
-        ell_relax.ell_band_relax_masked(d, src, w, mask.to(torch.uint8), ov, 0, out)
+    # the kernel reads packed int32 words: the bool mask, or its words in
+    # another type, is refused
+    for bad in (bool_mask, mask.to(torch.uint8), mask.to(torch.int64)):
+        with pytest.raises(TypeError, match="packed int32"):
+            ell_relax.ell_band_relax_masked(d, src, w, bad, ov, 0, out)
     with pytest.raises(ValueError, match="mask"):  # one batch row short
         ell_relax.ell_band_relax_masked(d, src, w, mask[:1], ov, 0, out)
-    with pytest.raises(ValueError, match="mask"):  # slots do not match the band
-        ell_relax.ell_band_relax_masked(d, src, w, mask[:, :, :4], ov, 0, out)
+    with pytest.raises(ValueError, match="mask"):  # words do not match the band
+        ell_relax.ell_band_relax_masked(d, src, w, torch.zeros((2, 2), dtype=torch.int32), ov, 0, out)
     with pytest.raises(ValueError):  # band past the last column
         ell_relax.ell_band_relax_masked(d, src, w, mask, ov, 13, out)
     with pytest.raises(TypeError):
@@ -334,6 +338,40 @@ def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take():
             d.to("meta"), src.to("meta"), w.to("meta"), mask.to("meta"),
             ov.to("meta"), 0, out.to("meta"),
         )
+
+
+@pytest.mark.parametrize(
+    "s,rows,k",
+    [(3, 40, 8), (2, 7, 9), (5, 3, 24), (1, 13, 33), (2, 3, 1024), (4, 1, 1),
+     (3, 5, 5), (2, 16, 64), (1, 1, 31), (3, 0, 8)],
+)
+def test_pack_edge_mask_round_trip(s, rows, k):
+    """pack_edge_mask then unpack_edge_mask gives the bool mask back, with
+    rows * k on and off a multiple of 32 (the last word partly used): the
+    bit of (j, slot) of row x is bit (j * k + slot) & 31 of word
+    (j * k + slot) >> 5, and no other bit is set."""
+    rng = np.random.default_rng(s * 100 + rows * 10 + k)
+    mask = rng.random((s, rows, k)) < 0.4
+    mask[0] = True
+    bits = ell_relax.pack_edge_mask(_t(mask))
+    assert bits.dtype == torch.int32 and bits.shape == (s, -(-rows * k // 32))
+    assert bits.shape[1] == ell_relax.mask_words(rows, k)
+    np.testing.assert_array_equal(ell_relax.unpack_edge_mask(bits, rows, k).numpy(), mask)
+    words = bits.numpy().view(np.uint32)
+    flat = mask.reshape(s, rows * k)
+    want = np.zeros_like(words)
+    for x, i in zip(*np.nonzero(flat)):
+        want[x, i >> 5] |= np.uint32(1 << (i & 31))
+    np.testing.assert_array_equal(words, want)
+
+
+def test_pack_edge_mask_rejects_what_is_not_a_bool_mask():
+    with pytest.raises(ValueError):
+        ell_relax.pack_edge_mask(torch.zeros((2, 3, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ell_relax.pack_edge_mask(torch.zeros((2, 12), dtype=torch.bool))
+    with pytest.raises(ValueError):  # words for another band
+        ell_relax.unpack_edge_mask(torch.zeros((2, 3), dtype=torch.int32), 4, 8)
 
 
 # -- rev_band_relax: the route sweep's reversed-graph band relax ---------------

@@ -18,7 +18,9 @@ to 1 so that small graphs take the device path.
 
 The pieces are held against the reference one by one as well: the masked
 fixed point, ``build_edge_masks`` band by band (per-link slots and the
-collapsed-graph branch) and ``trace_paths_from_row``. Everything is int32
+collapsed-graph branch; the port's masks are bit-packed, and
+``unpack_edge_mask`` of them must equal the reference's bool masks) and
+``trace_paths_from_row``. Everything is int32
 or exact path lists: no tolerance applies.
 """
 
@@ -49,6 +51,7 @@ from openr_tpu_torch.graph.linkstate import LinkState
 from openr_tpu_torch.graph.snapshot import SnapshotCache
 from openr_tpu_torch.kernels import LAUNCHES
 from openr_tpu_torch.ops import spf_sparse as port_sparse
+from openr_tpu_torch.ops.ell_relax import mask_words, pack_edge_mask, unpack_edge_mask
 
 KSP2 = dict(
     forwarding_algorithm=JaxAlgo.KSP2_ED_ECMP,
@@ -284,6 +287,10 @@ def test_ksp2_second_paths_come_from_the_device_batch():
     assert all((root, dst, 2) in ls._kth_path_cache for dst in dsts)
     stats = port_dev.ksp2_stats
     assert stats["dsts"] == len(dsts) and stats["chunks"] == 1
+    # one chunk's packed masks: a bit a slot and destination row
+    graph = port_sparse.compile_ell(ls)
+    rows = port_solver._ksp2_chunk(graph)
+    assert stats["mask_bytes"] == 4 * rows * sum(mask_words(b.rows, b.k) for b in graph.bands)
     for key in ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
                 "second_paths_ms"):
         assert stats[key] >= 0
@@ -409,11 +416,11 @@ def test_build_edge_masks_matches_reference_band_by_band(kind):
     np.testing.assert_array_equal(port_ok, jax_ok)
     assert not port_ok[-1] and port_ok[:-1].all()
     assert len(port_masks) == len(jax_masks)
-    for got, want in zip(port_masks, jax_masks):
-        assert got.dtype == bool
+    unpacked = _unpacked(port_graph, port_masks)
+    for got, want in zip(unpacked, jax_masks):
         np.testing.assert_array_equal(got, want)
     # every link masked both ways, LAG members one by one
-    total = sum(int(m[:-2].sum()) for m in port_masks)
+    total = sum(int(m[:-2].sum()) for m in unpacked)
     assert total == 2 * sum(len(x) for x in port_excl[:-2])
     with pytest.raises(KeyError):
         carry.links_from_keys(port_ls, [[("no", "such", "link")]])
@@ -435,8 +442,21 @@ def test_build_edge_masks_collapsed_graph_matches_reference(kind):
     np.testing.assert_array_equal(port_ok, jax_ok)
     if kind == "lag_unequal":
         assert not port_ok.all()
-    for got, want in zip(port_masks, jax_masks):
+    for got, want in zip(_unpacked(port_graph, port_masks), jax_masks):
         np.testing.assert_array_equal(got, want)
+
+
+def _unpacked(graph, masks):
+    """The port's packed masks as [B, rows, k] bool arrays, after checking
+    each is int32 words [B, ceil(rows * k / 32)] with no bit set past the
+    band's slots (packing the bool mask again gives the same words)."""
+    out = []
+    for m, band in zip(masks, graph.bands):
+        assert m.dtype == np.int32 and m.shape[1] == mask_words(band.rows, band.k)
+        got = unpack_edge_mask(torch.from_numpy(m), band.rows, band.k)
+        np.testing.assert_array_equal(pack_edge_mask(got).numpy(), m)
+        out.append(got.numpy())
+    return out
 
 
 def _masked_inputs(jax_ls, port_ls, jax_graph, port_graph, root):

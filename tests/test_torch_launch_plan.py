@@ -1,17 +1,21 @@
 """The launch plans of the port's redesigned CUDA kernels.
 
-``ell_relax.launch_plan`` (``csrc/ell_relax.cu``), ``rev_relax.launch_plan``
-(``csrc/rev_relax.cu``), ``grouped_minplus.minplus_plan`` and
-``grouped_minplus.minplus_t_plan`` (``csrc/grouped_minplus.cu``,
-``batched_minplus`` and ``batched_minplus_t``) are pure functions of the
-shapes, so their grids are checked here on the CPU, for a sweep of shapes
-that includes the main path's own (the sparse route build's in-bands at
-the 10 000-node fabric; both route sweeps: the 1008-node fabric at a
-256-destination block, the 10 000-node one at 1024): each output element
-is covered by exactly one (block, thread) and each reduction term by
-exactly one split, the grid stays within CUDA's limits, the scratch
-matches the splits, and the main path's shapes fill the card. The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``).
+``ell_relax.launch_plan`` (``csrc/ell_relax.cu``), ``ell_relax.masked_plan``
+(``csrc/ell_relax_masked.cu``), ``rev_relax.launch_plan``
+(``csrc/rev_relax.cu``), ``minplus.minplus_plan`` (``csrc/minplus.cu``),
+``grouped_minplus.minplus_plan`` and ``grouped_minplus.minplus_t_plan``
+(``csrc/grouped_minplus.cu``, ``batched_minplus`` and
+``batched_minplus_t``) are pure functions of the shapes, so their grids
+are checked here on the CPU, for a sweep of shapes that includes the main
+path's own (the dense route build's min-plus product at the 1008-node
+fabric; the sparse route build's in-bands at the 10 000-node fabric; the
+KSP2 masked solve's in-bands and destination chunk at both fabrics; both
+route sweeps: the 1008-node fabric at a 256-destination block, the
+10 000-node one at 1024): each output element is covered by exactly one
+(block, thread) and each reduction term by exactly one split, the grid
+stays within CUDA's limits, the scratch matches the splits, and the main
+path's shapes fill the card. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ import math
 import numpy as np
 import pytest
 
+from openr_tpu_torch.decision.spf_solver import _ksp2_chunk
 from openr_tpu_torch.graph.linkstate import LinkState
+from openr_tpu_torch.graph.snapshot import SnapshotCache
 from openr_tpu_torch.models import topologies
 from openr_tpu_torch.ops import ell_relax as er
 from openr_tpu_torch.ops import grouped_minplus as gm
+from openr_tpu_torch.ops import minplus as mp
 from openr_tpu_torch.ops import rev_relax as rr
-from openr_tpu_torch.ops import route_sweep, spf_grouped, spf_sparse
+from openr_tpu_torch.ops import route_sweep, spf, spf_grouped, spf_sparse
 
 GRID_X_MAX = 2**31 - 1
 GRID_YZ_MAX = 65535
@@ -48,6 +55,31 @@ SWEEP_BLOCK = {1000: 256, 10000: 1024}
 # (S, rows, k) of each in-band of the 10 000-node sparse route build's view
 # solve (the root's batch of itself and its 4 fabric switches, padded)
 SPARSE_ELL = [(8, 7488, 8), (8, 2496, 16), (8, 16, 1024)]
+
+# (S, K, N) of the 1008-node dense route build's min-plus product (the
+# root's batch of itself and its 4 fabric switches, padded; the metric
+# matrix padded to 1024), and the larger batches of high-degree roots
+DENSE_MINPLUS = [(8, 1024, 1024), (16, 1024, 1024), (32, 1024, 1024),
+                 (64, 1024, 1024)]
+# (S, rows, k) of each in-band of the KSP2 masked solve: the 1008-node
+# fabric's destination chunk of 1024, the 10 000-node one's of 256
+KSP2_MASKED = {
+    1000: [(1024, 744, 8), (1024, 248, 16), (1024, 16, 64)],
+    10000: [(256, 7488, 8), (256, 2496, 16), (256, 16, 1024)],
+}
+
+MINPLUS_SHAPES = sorted(
+    set(DENSE_MINPLUS)
+    | {(s, k, n) for s in (1, 5, 8, 15, 16, 33, 64, 1024) for k in (0, 1, 77, 129, 1024, 5000)
+       for n in (1, 3, 65, 300, 1024)}
+    | {(2_000_000, 4, 5), (1, 1 << 20, 1), (3, 100_000, 70)}
+)
+MASKED_SHAPES = sorted(
+    {shape for shapes in KSP2_MASKED.values() for shape in shapes}
+    | {(s, rows, k) for s in (1, 2, 37, 129, 1024) for rows in (1, 3, 16, 17, 129, 744)
+       for k in (0, 1, 8, 9, 16, 24, 32, 33, 64, 255, 256, 1024, 1500)}
+    | {(100_000, 3, 8), (600_000, 17, 40), (2, 100_000, 2048)}
+)
 
 ELL_SHAPES = sorted(
     set(SPARSE_ELL)
@@ -123,6 +155,145 @@ def test_ell_plan_fills_the_card_at_the_sparse_bands():
     spine = er.launch_plan(8, 16, 1024)
     assert spine.wide and spine.row_threads == 256 and spine.grid == (16, 8)
     assert not er.launch_plan(8, 2496, 16).wide
+
+
+def _strided_cover(items: int, tile: int, tiles_in_grid: int) -> np.ndarray:
+    """How often each of ``items`` is covered when block ``y`` of a grid
+    of ``tiles_in_grid`` takes tiles ``y, y + tiles_in_grid, ...`` of
+    ``tile`` items each (the kernels' stride over grid.y)."""
+    tiles = -(-items // tile)
+    assert 1 <= tiles_in_grid <= min(tiles, GRID_YZ_MAX)
+    starts = np.concatenate([np.arange(y, tiles, tiles_in_grid) for y in range(tiles_in_grid)])
+    return _cover(items, starts * tile, starts * tile + tile)
+
+
+@pytest.mark.parametrize("s,k,n", MINPLUS_SHAPES)
+def test_dense_minplus_plan_covers_each_output_once_within_the_grid(s, k, n):
+    plan = mp.minplus_plan(s, k, n)
+    assert plan.k_warps in (1, 2, 4)
+    gx, gy, gz = plan.grid
+    assert 1 <= gx <= GRID_X_MAX and 1 <= gy <= GRID_YZ_MAX and 1 <= gz <= GRID_YZ_MAX
+    assert gz == plan.splits
+    # blockIdx.x -> COL_TILE columns, a thread 4 of them: every column once
+    c0 = np.arange(gx) * mp.COL_TILE
+    assert (_cover(n, c0, c0 + mp.COL_TILE) == 1).all() and c0[-1] < n
+    thread_cols = np.arange(0, mp.COL_TILE, 4)
+    assert np.array_equal(np.sort(np.concatenate([thread_cols + c for c in range(4)])),
+                          np.arange(mp.COL_TILE))
+    # blockIdx.y walks S-tiles of S_TILE rows with a stride of gridDim.y:
+    # every row once
+    assert (_strided_cover(s, mp.S_TILE, gy) == 1).all()
+    # blockIdx.z -> K range; lane kl of the block's 4 * k_warps takes k =
+    # kl, kl + lanes, ...: every k once, no empty split
+    lanes = mp.K_LANES_A_WARP * plan.k_warps
+    k0 = np.arange(gz) * plan.k_chunk
+    assert (_cover(k, k0, k0 + plan.k_chunk) == 1).all()
+    assert plan.splits == 1 or (plan.splits - 1) * plan.k_chunk < k
+    ks = np.concatenate([np.arange(kl, plan.k_chunk, lanes) for kl in range(lanes)])
+    assert np.array_equal(np.sort(ks), np.arange(plan.k_chunk))
+    # warps over K only while each lane keeps MIN_K_LANE of its k
+    assert plan.k_warps == 1 or k >= lanes * mp.MIN_K_LANE
+    assert plan.k_warps == mp.K_WARPS_MAX or k < 2 * lanes * mp.MIN_K_LANE
+    if plan.splits > 1:
+        # a split only where the grid is thin, each lane keeping its k
+        assert gx * gy < mp.MIN_BLOCKS
+        assert plan.k_chunk >= lanes * mp.MIN_K_LANE
+        assert plan.scratch_shape == (plan.splits, s, n)
+    else:
+        assert plan.scratch_shape == () and plan.k_chunk >= k
+
+
+def test_dense_minplus_plan_fills_the_card():
+    """At the dense route build's products the grid holds at least two
+    blocks a SM: [8, 1024] x [1024, 1024] splits K 16 ways into 512 blocks
+    of 4 warps (the first port's kernel launched 32 blocks)."""
+    for shape in DENSE_MINPLUS:
+        plan = mp.minplus_plan(*shape)
+        assert math.prod(plan.grid) >= 2 * SMS, (shape, plan)
+    plan = mp.minplus_plan(8, 1024, 1024)
+    assert plan.k_warps == 4 and plan.splits == 16 and plan.grid == (32, 1, 16)
+    # S = 64: eight S-tiles on grid.y, K split 3 ways
+    assert mp.minplus_plan(64, 1024, 1024).grid == (32, 8, 3)
+    # all pairs at 1024 nodes: a full grid, no split
+    assert mp.minplus_plan(1024, 1024, 1024).splits == 1
+
+
+def test_dense_minplus_shape_is_the_route_builds_own():
+    """DENSE_MINPLUS[0] is what the 1008-node route build's view gives
+    ``minplus``: the root's source batch against the metric matrix."""
+    ls = _link_state(1000)
+    snap = SnapshotCache("cpu").get(ls)
+    _, srcs = spf.source_batch(snap, snap.id_of("rsw-0-0"), "cpu")
+    assert (len(srcs), snap.n_pad, snap.n_pad) == DENSE_MINPLUS[0]
+
+
+@pytest.mark.parametrize("s,rows,k", MASKED_SHAPES)
+def test_masked_plan_covers_each_output_once_within_the_grid(s, rows, k):
+    plan = er.masked_plan(s, rows, k)
+    assert plan.body == ("wide" if k >= er.WIDE_K else "narrow")
+    tiles, gy = plan.grid
+    assert 1 <= tiles <= GRID_X_MAX and 1 <= gy <= GRID_YZ_MAX
+    # blockIdx.x * rows_per_block + (thread >> log2 row_threads) -> band
+    # row j: each once, no empty block
+    row0 = np.arange(tiles) * plan.rows_per_block
+    assert (_cover(rows, row0, row0 + plan.rows_per_block) == 1).all()
+    assert (tiles - 1) * plan.rows_per_block < rows
+    # blockIdx.y walks runs of `chunk` batch rows with a stride of
+    # gridDim.y: every batch row once
+    assert (_strided_cover(s, plan.chunk, gy) == 1).all()
+    wide = plan.body == "wide"
+    run_max = er.MASKED_WIDE_RUN if wide else er.MASKED_NARROW_RUN
+    least = er.MASKED_WIDE_MIN_BLOCKS if wide else er.MASKED_NARROW_MIN_BLOCKS
+    assert plan.chunk in (1, 2, 4, 8, 16) and plan.chunk <= run_max
+    # the longest run that leaves the least blocks, or 1
+    blocks = tiles * -(-s // plan.chunk)
+    assert plan.chunk == 1 or blocks >= least
+    assert plan.chunk == run_max or tiles * -(-s // (2 * plan.chunk)) < least
+    if not wide:
+        # a thread a band row, its slots staged in the fewest registers,
+        # batch rows taken 4 at a time (2 with 32 slots staged)
+        assert (plan.row_threads, plan.rows_per_block) == (1, er.MASKED_NARROW_ROWS)
+        assert plan.kmax in (8, 16, 32) and k <= plan.kmax
+        assert plan.kmax == 8 or k > plan.kmax // 2
+        assert (plan.kmax, plan.group) in ((8, 4), (16, 4), (32, 2))
+        return
+    # a row's threads are whole warps of one block, a thread a slot up to
+    # a whole block; lane l takes slots l, l + row_threads, ...: every
+    # slot once
+    assert plan.kmax == 0 and plan.group == 1 and plan.row_threads in (32, 64, 128, 256)
+    assert plan.row_threads * plan.rows_per_block == er.WIDE_THREADS
+    assert plan.row_threads == max(er.MIN_ROW_THREADS,
+                                   min(er.WIDE_THREADS, 1 << (k - 1).bit_length()))
+    slots = np.concatenate([np.arange(l, k, plan.row_threads) for l in range(plan.row_threads)])
+    assert np.array_equal(np.sort(slots), np.arange(k))
+
+
+@pytest.mark.parametrize("nodes", sorted(KSP2_MASKED))
+def test_masked_plan_fills_the_card_at_the_ksp2_bands(nodes):
+    """At the KSP2 chunks' in-bands every band's grid holds a block a SM
+    (two for a wide band's 8-warp blocks), and each block reuses a band
+    row's slots over a run of batch rows (the first port's kernel read
+    them again for every batch row)."""
+    for shape in KSP2_MASKED[nodes]:
+        plan = er.masked_plan(*shape)
+        least = er.MASKED_WIDE_MIN_BLOCKS if plan.body == "wide" else er.MASKED_NARROW_MIN_BLOCKS
+        assert math.prod(plan.grid) >= least >= SMS, (shape, plan)
+        assert plan.chunk > 1, (shape, plan)
+    # the spine bands: 64 threads a row (a slot each) at 1008 nodes, a
+    # whole block a row (4 slots each) at 10 000
+    assert er.masked_plan(1024, 16, 64)[:4] == ("wide", 0, 1, 64)
+    assert er.masked_plan(256, 16, 1024)[:4] == ("wide", 0, 1, 256)
+    assert er.masked_plan(256, 7488, 8).chunk == er.MASKED_NARROW_RUN
+
+
+@pytest.mark.parametrize("nodes", sorted(KSP2_MASKED))
+def test_ksp2_bands_are_the_masked_solves_own(nodes):
+    """KSP2_MASKED is what the KSP2 masked solve gives
+    ``ell_band_relax_masked``: the in-bands and a destination chunk of
+    ``_ksp2_chunk`` batch rows."""
+    graph = spf_sparse.compile_ell(_link_state(nodes))
+    s = _ksp2_chunk(graph)
+    assert [(s, bd.rows, bd.k) for bd in graph.bands] == KSP2_MASKED[nodes]
 
 
 @pytest.mark.parametrize("b,rows,k", REV_SHAPES)
@@ -309,7 +480,10 @@ def test_sweep_shapes_are_the_sweeps_own(sweep_graphs):
      (gm.minplus_plan, (0, 1, 1, 1)), (gm.minplus_plan, (1, 0, 1, 1)),
      (gm.minplus_plan, (1, 1, -1, 1)), (gm.minplus_plan, (1, 1, 1, 0)),
      (gm.minplus_plan, (0, 1, 1, 40)), (gm.minplus_plan, (1, 0, 1, 40)),
-     (gm.minplus_plan, (1, 1, -1, 40)), (gm.minplus_plan, (1, 600_000, 4, 40))],
+     (gm.minplus_plan, (1, 1, -1, 40)), (gm.minplus_plan, (1, 600_000, 4, 40)),
+     (mp.minplus_plan, (0, 4, 4)), (mp.minplus_plan, (4, -1, 4)),
+     (mp.minplus_plan, (4, 4, 0)), (er.masked_plan, (0, 5, 8)),
+     (er.masked_plan, (3, 0, 8)), (er.masked_plan, (3, 5, -1))],
 )
 def test_plans_reject_empty_launches(fn, args):
     with pytest.raises(ValueError):
