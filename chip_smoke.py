@@ -25,11 +25,18 @@ Phases, one JSON line each (``"phase": ...``):
    launch plan they took.
 4. ``dense``: ``SpfSolver(backend="device").build_route_db`` from
    ``rsw-0-0`` on the 1008-node fabric (dense regime), then churn events
-   that bump one adjacency metric of ``fsw-0-0``; after every build the
+   that bump one adjacency metric of ``fsw-0-0`` (``bench.py``'s event, a
+   neighbour of the root), then 3 remote events that bump the first
+   adjacency of the last pod's first rack switch; after every build the
    route database must equal the host Dijkstra solver's. ``view_ms`` is
    the part spent in the build's one SPF view (graph compile or patch,
-   device solve, readback). One more profiled build gives the card's
-   busy time, idle share, heaviest device ops and each launched kernel's
+   device solve, readback), ``assembly_ms`` the rest; each build reports
+   the prefixes and node-label routes it re-derived and its
+   ``decision.sp_route_reuses`` (together they must cover every prefix);
+   ``remote_event_ms`` and ``remote_routes_rebuilt`` are the remote
+   events'. One more profiled build gives the card's
+   busy time, idle share, heaviest device ops, host-to-device copy time
+   by kind (``h2d_copy_ms``) and each launched kernel's
    device time (``kernel_device_ms``, with its ``kernel_records`` beside
    the build's launches); a session that holds less device time of a
    kernel the build launched than its launches times its least time a
@@ -37,8 +44,16 @@ Phases, one JSON line each (``"phase": ...``):
    profiled again on a fresh churn event (three times, then the script
    fails). Launch counts and
    the solver's host-SPF fallback count are zeroed before the phase and
-   read after it; the fallback count must stay at 0.
-5. ``sparse``: the same on the 10 000-node fabric (sliced-ELL regime).
+   read after it; the fallback count must stay at 0. The LFA build must
+   re-derive every route.
+5. ``sparse``: the same on the 10 000-node fabric (sliced-ELL regime,
+   resident bands). Each build also reports its deltas of
+   ``decision.ell_full_compiles``, ``ell_patches``, ``ell_warm_solves``
+   and ``ell_cold_solves``, the host-to-device bytes the solver staged
+   (``h2d_bytes``, by kind) and its warm solve's hops; every build after
+   the first must take the patch path (no full compile) and a warm
+   solve, and every view must equal a cold ``ell_view_batch_packed``
+   over the same bands on the card (launches of that check not counted).
 6. ``sweep-1008``: the all-sources route sweep of the 1008-node fabric
    (block 256), on three backends: the out-edge ELL sweep
    (``rev_band_relax``) and the grouped sweep under each contraction
@@ -70,8 +85,10 @@ Phases, one JSON line each (``"phase": ...``):
    device relax hops, readback; ``hops`` from its launch count), the
    second-path traces and route assembly (the rest), with the bytes of
    bit-packed edge masks the build uploaded (``mask_bytes``) beside the
-   bytes the same masks took as bool cells. One more build is profiled,
-   as in ``dense``. The KSP2 device batches must be > 0, its host
+   bytes the same masks took as bool cells. The masked solves run over
+   the solver's resident bands: a churn build uploads no band
+   (``band_bytes_per_build``; patch rows and masks only). One more build
+   is profiled, as in ``dense``. The KSP2 device batches must be > 0, its host
    fallbacks and the views' host-SPF fallbacks 0, and
    ``ell_band_relax_masked`` must launch.
 9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
@@ -95,9 +112,9 @@ launches of every kernel) and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
 exits nonzero before doing anything. The sizes are fixed: the 1008-node
-fabric of the repo's ``bench.py`` (10 churn events, 5 with KSP2) and a
-10 000-node one (3 events, 2 with KSP2); only the seed of the random
-kernel inputs can be set.
+fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones, 5
+with KSP2) and a 10 000-node one (3 events and 3 remote ones, 2 with
+KSP2); only the seed of the random kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -125,6 +142,11 @@ DENSE_NODES = 1000
 SPARSE_NODES = 10000
 DENSE_EVENTS = 10
 SPARSE_EVENTS = 3
+# remote events after the churn events of each route-build phase: a bump of
+# the first adjacency of the last pod's first rack switch, far from the root
+REMOTE_EVENTS = 3
+# the resident bands' counters the sparse phase reports per build
+ELL_KEYS = ("ell_full_compiles", "ell_patches", "ell_warm_solves", "ell_cold_solves")
 REPS = 30
 # route sweep: destinations per block on each network (the reference
 # scale bench's 1008-node and 10 000-node settings)
@@ -226,6 +248,34 @@ def top_device_ms(stats, n: int = 6):
                  reverse=True)[:n]
     return [[evt.key[:60], (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
              evt.count] for evt in top]
+
+
+def copy_ms(stats) -> dict:
+    """Device ms of the host-to-device copies in ``stats``, by the
+    profiler's copy kind (pageable or pinned host memory), with their
+    counts: ``{kind: [ms, count]}``."""
+    out = {}
+    for evt in stats:
+        if "Memcpy HtoD" in evt.key:
+            kind = "pinned" if "Pinned" in evt.key else "pageable"
+            ms, n = out.get(kind, [0.0, 0])
+            out[kind] = [ms + (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
+                         n + evt.count]
+    return out
+
+
+def count_calls(obj, name: str) -> list:
+    """Wrap ``obj.name`` so that each call adds one to the returned
+    one-element list."""
+    calls = [0]
+    real = getattr(obj, name)
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(obj, name, counted)
+    return calls
 
 
 def kernel_records(stats, name) -> int:
@@ -410,6 +460,7 @@ def main(argv=None) -> int:
         SPF_COUNTERS,
         SpfSolver,
         _ksp2_chunk,
+        get_spf_counters,
     )
     from openr_tpu_torch.graph.linkstate import LinkState
     from openr_tpu_torch.graph.snapshot import SnapshotCache
@@ -983,19 +1034,36 @@ def main(argv=None) -> int:
 
     # -- 4./5. the main path: route builds through the kernels ---------------
     def drive(phase, ls, ps, events, nodes):
-        """Initial build + ``events`` churn builds from ``root``, then one
-        more churn build under the profiler for the card's busy share;
-        then one build with LFA on, whose loop-free alternates read the
-        neighbours' distance rows of the device view. Each route database
-        is held against the host Dijkstra solver's. The launch counts and
-        the device views' host-SPF fallbacks are zeroed just before and
-        read just after; the host solver launches nothing, and the device
-        solver must take no SPF to the host."""
+        """Initial build + ``events`` churn builds from ``root`` (bench.py's
+        event, a bump of ``fsw-0-0``, a neighbour of the root), then
+        REMOTE_EVENTS remote events (a bump of the first adjacency of the
+        last pod's first rack switch), then one more churn build under the
+        profiler for the card's busy share; then one build with LFA on,
+        whose loop-free alternates read the neighbours' distance rows of
+        the device view and which must re-derive every route. Each route
+        database is held against the host Dijkstra solver's. Each build
+        reports the prefixes and node-label routes it re-derived, its
+        ``decision.sp_route_reuses`` and its assembly ms (the build minus
+        its view); in the sliced-ELL regime also its resident-band counter
+        deltas and host-to-device bytes, every churn build must take the
+        patch path and a warm solve, and each warm view must equal a cold
+        ``ell_view_batch_packed`` over the same bands on the card (its
+        launches are not counted). The launch counts and the device views'
+        host-SPF fallbacks are zeroed just before and read just after; the
+        host solver launches nothing, and the device solver must take no
+        SPF to the host."""
         device_solver = SpfSolver(root, backend="device", device=dev)
         host_solver = SpfSolver(root, backend="host", device=dev)
         areas = {ls.area: ls}
-        ms, view_ms = [], []
-        per_build = []
+        resident = nodes > SPARSE_NODE_THRESHOLD
+        n_prefixes = len(ps.prefixes())
+        rederived = count_calls(device_solver, "create_route_for_prefix")
+        relabeled = count_calls(device_solver, "_derive_label_entry")
+        stager = device_solver._resident.stager
+        remote = "rsw-%d-0" % max(
+            int(name.split("-")[1]) for name in ls.get_adjacency_databases()
+            if name.startswith("rsw-")
+        )
 
         def check(got, step, host=host_solver):
             want = host.build_route_db(root, areas, ps)
@@ -1012,12 +1080,24 @@ def main(argv=None) -> int:
                     f"{len(got.mpls_routes)} MPLS routes for {nodes} nodes"
                 )
 
-        reset_launches()
-        SPF_COUNTERS["decision.spf_host_fallback"] = 0
-        for step in range(events + 1):
-            if step:
-                bump_metric(ls, "fsw-0-0", 2 + (step - 1) % 5)
+        def warm_equals_cold(step):
+            view = device_solver._view(ls.area, ls, root)
+            state = device_solver._resident._cache[ls][1]
+            saved = dict(LAUNCHES)
+            cold = spf_sparse.ell_view_batch_packed(
+                state.graph, view._batch_srcs, dev).cpu().numpy()
+            LAUNCHES.update(saved)
+            warm = np.concatenate([view._d, view._fh_batch.astype(np.int32)])
+            if not np.array_equal(warm, cold):
+                raise AssertionError(f"{phase}: the warm view of event {step} differs "
+                                     "from a cold solve on the card")
+
+        def one_build(step, event):
+            if event is not None:
+                event()
             before = dict(LAUNCHES)
+            c0, b0 = get_spf_counters(), dict(stager.bytes)
+            r0, l0 = rederived[0], relabeled[0]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             # the build's one SPF view (graph compile/patch, device solve,
@@ -1027,23 +1107,61 @@ def main(argv=None) -> int:
             t1 = time.perf_counter()
             got = device_solver.build_route_db(root, areas, ps)
             torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            view_ms.append((t1 - t0) * 1e3)
-            per_build.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            t2 = time.perf_counter()
+            c1 = get_spf_counters()
+            rec = {
+                "ms": (t2 - t0) * 1e3, "view_ms": (t1 - t0) * 1e3,
+                "assembly_ms": (t2 - t1) * 1e3,
+                "prefixes_rederived": rederived[0] - r0,
+                "label_routes_rederived": relabeled[0] - l0,
+                "sp_route_reuses": c1["decision.sp_route_reuses"]
+                - c0["decision.sp_route_reuses"],
+                "launches": {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] > before[k]},
+            }
+            if rec["prefixes_rederived"] + rec["sp_route_reuses"] != n_prefixes:
+                raise AssertionError(f"{phase}: {rec} does not cover {n_prefixes} prefixes")
+            if resident:
+                rec["ell"] = {k: c1[f"decision.{k}"] - c0[f"decision.{k}"] for k in ELL_KEYS}
+                rec["h2d_bytes"] = {k: v - b0.get(k, 0) for k, v in stager.bytes.items()
+                                    if v > b0.get(k, 0)}
+                state = device_solver._resident._cache[ls][1]
+                rec["reconverge_ms"] = state.reconverge_ms
+                rec["hops"] = state.last_hops
+                if step != 0 and (rec["ell"]["ell_full_compiles"] or not rec["ell"]["ell_patches"]
+                                  or not rec["ell"]["ell_warm_solves"]):
+                    raise AssertionError(f"{phase}: event {step} left the patch path or "
+                                         f"solved cold: {rec['ell']}")
+                warm_equals_cold(step)
             check(got, step)
+            return rec
+
+        reset_launches()
+        SPF_COUNTERS["decision.spf_host_fallback"] = 0
+        builds = [
+            one_build(step, None if step == 0 else (
+                lambda step=step: bump_metric(ls, "fsw-0-0", 2 + (step - 1) % 5)))
+            for step in range(events + 1)
+        ]
+        remotes = [
+            one_build(f"remote {i}", lambda i=i: bump_metric(ls, remote, 3 + i))
+            for i in range(REMOTE_EVENTS)
+        ]
         stats, (got, launched, wall_ms), _ = profiled(
             torch, churn_build(torch, device_solver, areas, ps, root, LAUNCHES),
             lambda st, res: build_lacking(st, res[1], least_launch_ms),
             prepare=lambda attempt: bump_metric(ls, "fsw-0-0", 9 + attempt))
         check(got, events + 1)
+        lfa_solver = SpfSolver(root, backend="device", device=dev, compute_lfa_paths=True)
+        lfa_rederived = count_calls(lfa_solver, "create_route_for_prefix")
+        r0 = SPF_COUNTERS["decision.sp_route_reuses"]
         t0 = time.perf_counter()
-        lfa_got = SpfSolver(
-            root, backend="device", device=dev, compute_lfa_paths=True
-        ).build_route_db(root, areas, ps)
+        lfa_got = lfa_solver.build_route_db(root, areas, ps)
         lfa_ms = (time.perf_counter() - t0) * 1e3
         check(lfa_got, "LFA build", SpfSolver(
             root, backend="host", device=dev, compute_lfa_paths=True
         ))
+        if SPF_COUNTERS["decision.sp_route_reuses"] != r0 or lfa_rederived[0] != n_prefixes:
+            raise AssertionError(f"{phase}: the LFA build reused routes")
         fallbacks = SPF_COUNTERS["decision.spf_host_fallback"]
         if fallbacks:
             raise AssertionError(
@@ -1052,23 +1170,36 @@ def main(argv=None) -> int:
             )
         busy_ms = device_us(stats, "a call") / 1e3
         launches = dict(LAUNCHES)
+        events_only = builds[1:]
         emit({
             "phase": phase, "nodes": nodes, "root": root, "events": events,
-            "parity_with_host_oracle": True,
-            "first_build_ms": ms[0], "event_ms": ms[1:],
-            "median_event_ms": statistics.median(ms[1:]) if events else None,
-            "first_view_ms": view_ms[0], "event_view_ms": view_ms[1:],
-            "median_event_view_ms": (
-                statistics.median(view_ms[1:]) if events else None
-            ),
+            "parity_with_host_oracle": True, "prefixes": n_prefixes,
+            "first_build_ms": builds[0]["ms"], "event_ms": [b["ms"] for b in events_only],
+            "median_event_ms": statistics.median(b["ms"] for b in events_only),
+            "first_view_ms": builds[0]["view_ms"],
+            "event_view_ms": [b["view_ms"] for b in events_only],
+            "median_event_view_ms": statistics.median(b["view_ms"] for b in events_only),
+            "median_event_assembly_ms": statistics.median(
+                b["assembly_ms"] for b in events_only),
+            "remote_node": remote,
+            "remote_event_ms": [b["ms"] for b in remotes],
+            "remote_view_ms": [b["view_ms"] for b in remotes],
+            "remote_assembly_ms": [b["assembly_ms"] for b in remotes],
+            "remote_routes_rebuilt": [
+                {"prefixes": b["prefixes_rederived"], "labels": b["label_routes_rederived"]}
+                for b in remotes
+            ],
+            "first_build": builds[0], "event_builds": events_only, "remote_builds": remotes,
             "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
             "kernel_device_ms": {k: device_us(stats, KERNEL_KEYS[k]) / 1e3
                                  for k in launched},
             "profiled_launches": launched,
             "kernel_records": {k: kernel_records(stats, KERNEL_KEYS[k]) for k in launched},
+            "h2d_copy_ms": copy_ms(stats),
             "top_device_ms": top_device_ms(stats),
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-            "launches": launches, "launches_per_build": per_build,
+            "launches": launches,
+            "launches_per_build": [b["launches"] for b in builds + remotes],
             "lfa_build_ms": lfa_ms, "spf_host_fallbacks": fallbacks,
             "unicast_routes": len(got.unicast_routes),
             "mpls_routes": len(got.mpls_routes),
@@ -1215,13 +1346,16 @@ def main(argv=None) -> int:
         """Initial build + ``events`` churn builds of a KSP2 network from
         ``root``, each held against the host Dijkstra solver on its own
         copy of the databases, then one more churn build under the
-        profiler. The launch counts and the solver counters are zeroed
-        just before and read just after."""
+        profiler. The masked solves run over the solver's resident bands:
+        a churn build must upload no band, and its staged mask bytes must
+        be the masks'. The launch counts and the solver counters are
+        zeroed just before and read just after."""
         (ls, ps), (host_ls, host_ps) = worlds
         nodes = len(ls.get_adjacency_databases())
         areas, host_areas = {ls.area: ls}, {host_ls.area: host_ls}
         device_solver = SpfSolver(root, backend="device", device=dev)
         host_solver = SpfSolver(root, backend="host", device=dev)
+        stager = device_solver._resident.stager
         ksp2_graph = spf_sparse.compile_ell(ls)
         n_bands = len(ksp2_graph.bands)
         # a chunk's masks: packed words, and the bytes of bool cells
@@ -1259,6 +1393,7 @@ def main(argv=None) -> int:
                 for l in (ls, host_ls):
                     bump_metric(l, "fsw-0-0", 2 + (step - 1) % 5)
             before = dict(LAUNCHES)
+            b0 = dict(stager.bytes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             device_solver._view(ls.area, ls, root)
@@ -1266,6 +1401,7 @@ def main(argv=None) -> int:
             got = device_solver.build_route_db(root, areas, ps)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            h2d = {k: v - b0.get(k, 0) for k, v in stager.bytes.items() if v > b0.get(k, 0)}
             stats = device_solver.ksp2_stats
             if stats.get("dsts") != want_dsts:
                 raise AssertionError(f"{phase}: the device solved {stats.get('dsts')} "
@@ -1282,6 +1418,16 @@ def main(argv=None) -> int:
             if build["mask_bytes"] != 4 * stats["chunks"] * chunk_words:
                 raise AssertionError(f"{phase}: {build['mask_bytes']} mask bytes uploaded "
                                      f"for {stats['chunks']} chunks")
+            # the resident bands: uploaded whole by the first build only;
+            # a metric churn build uploads patch rows and masks
+            build["h2d_bytes"] = h2d
+            build["band_bytes"] = h2d.get("bands", 0)
+            if step and build["band_bytes"]:
+                raise AssertionError(f"{phase}: event {step} uploaded "
+                                     f"{build['band_bytes']} band bytes")
+            if h2d.get("masks", 0) != build["mask_bytes"]:
+                raise AssertionError(f"{phase}: {h2d} staged for {build['mask_bytes']} "
+                                     "mask bytes")
             build["launches"] = {k: v for k, v in launches.items() if v}
             builds.append(build)
             check(got, step)
@@ -1315,6 +1461,8 @@ def main(argv=None) -> int:
             },
             "event_builds": events_only,
             "mask_bytes_per_build": builds[-1]["mask_bytes"],
+            "band_bytes_per_build": [b["band_bytes"] for b in builds],
+            "h2d_copy_ms": copy_ms(stats),
             "bool_mask_bytes_per_build": builds[-1]["bool_mask_bytes"],
             "profiled_build_ms": wall_ms, "device_busy_ms": busy_ms,
             "kernel_device_ms": {k: device_us(stats, KERNEL_KEYS[k]) / 1e3

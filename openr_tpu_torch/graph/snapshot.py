@@ -32,7 +32,7 @@ import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.graph.linkstate import Link, LinkState
-from openr_tpu_torch.ops import spf_sparse
+from openr_tpu_torch.ops.staging import UploadStager
 
 # Distance/metric infinity sentinel: INF + INF == 2**31 - 2 still fits
 # in int32, so relaxation adds never wrap.
@@ -98,36 +98,39 @@ class GraphSnapshot:
         self._parent = None
         return rows, self.metric[rows, :]
 
-    def device_arrays(self, device: torch.device) -> DeviceArrays:
+    def device_arrays(self, device: torch.device,
+                      stager: Optional[UploadStager] = None) -> DeviceArrays:
         """The snapshot's tensors on ``device``. A patched snapshot whose
         parent holds tensors there takes them over and scatters the
         changed rows in place (``index_copy_``): O(changed rows) upload
-        instead of O(N^2). The parent's device copy is released."""
-        device = torch.device(device)
+        instead of O(N^2). The parent's device copy is released. The
+        uploads cross in one copy through ``stager`` (a new one when
+        None)."""
+        device = resolve_device(device)
         if self._dev is not None and self._dev.metric.device == device:
             return self._dev
         parent = self._parent
         rows = self._changed_rows
-        overloaded = torch.from_numpy(self.overloaded).to(device)
-        if (
+        patching = (
             parent is not None
             and parent._dev is not None
             and parent._dev.metric.device == device
             and rows is not None
-        ):
+        )
+        items = [("overloaded", self.overloaded)]
+        if not patching:
+            items.append(("matrix", self.metric))
+        elif len(rows):
+            items += [("patch", rows), ("patch", self.metric[rows, :])]
+        staged = (stager if stager is not None else UploadStager(device)).upload(items)
+        overloaded = staged[0].ne(0)
+        if patching:
             metric = parent._dev.metric
             parent._dev = None
             if len(rows):
-                ids = torch.from_numpy(rows.astype(np.int64)).to(device)
-                vals = torch.from_numpy(self.metric[rows, :]).to(device)
-                metric.index_copy_(0, ids, vals)
+                metric.index_copy_(0, staged[1].long(), staged[2])
         else:
-            metric = torch.from_numpy(self.metric).to(device)
-            if metric.data_ptr() == self.metric.ctypes.data:
-                # a CPU "upload" aliases the host matrix: copy, so the
-                # in-place patches of a later snapshot never write into
-                # this snapshot's host array
-                metric = metric.clone()
+            metric = staged[1]  # a staged copy never aliases the host matrix
         self._dev = DeviceArrays(metric, overloaded)
         # release the parent chain: resident arrays now belong to us
         self._parent = None
@@ -227,30 +230,15 @@ class SnapshotCache:
     """Versioned snapshot cache keyed by LinkState *identity* (weakly
     held); patches incrementally when the change journal covers the gap
     and the node set is unchanged. ``device`` (None = CUDA) is where the
-    snapshots' tensors live. It also holds each LinkState's compiled
-    in-edge ``EllGraph`` (``ell``), shared by the sparse SPF view and the
-    KSP2 masked solve."""
+    snapshots' tensors live; their uploads cross through one pinned
+    buffer (``stager``)."""
 
     def __init__(self, device: DeviceLike = None) -> None:
         self.device = resolve_device(device)
+        self.stager = UploadStager(self.device)
         self._cache: "weakref.WeakKeyDictionary[LinkState, GraphSnapshot]" = (
             weakref.WeakKeyDictionary()
         )
-        self._ell: "weakref.WeakKeyDictionary[LinkState, tuple]" = (
-            weakref.WeakKeyDictionary()
-        )
-
-    def ell(self, ls: LinkState) -> spf_sparse.EllGraph:
-        """The in-edge ``EllGraph`` of ``ls`` at its current topology
-        version, compiled on the host once per version. Every change the
-        bands read (links up or down, metrics, node overload) bumps the
-        version."""
-        hit = self._ell.get(ls)
-        if hit is not None and hit[0] == ls.topology_version:
-            return hit[1]
-        graph = spf_sparse.compile_ell(ls)
-        self._ell[ls] = (ls.topology_version, graph)
-        return graph
 
     def get(self, ls: LinkState) -> GraphSnapshot:
         snap = self._cache.get(ls)
@@ -278,4 +266,3 @@ class SnapshotCache:
 
     def invalidate(self) -> None:
         self._cache.clear()
-        self._ell.clear()

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.ops.minplus import INF, minplus
+from openr_tpu_torch.ops.staging import UploadStager
 
 
 def _mask_transit_rows(d: torch.Tensor, overloaded: torch.Tensor) -> torch.Tensor:
@@ -88,15 +89,17 @@ def distances_from_sources(
     return _relax_to_fixed_point(_initial_rows(w, src_ids), t, w.shape[0])
 
 
-def source_batch(snap, sid: int, device: torch.device) -> Tuple[List[int], torch.Tensor]:
+def source_batch(snap, sid: int, device: torch.device,
+                 stager=None) -> Tuple[List[int], torch.Tensor]:
     """The hot-path source batch for ``spf_view_batch``: the source
     followed by its sorted unique neighbour ids, padded by repeating the
     source up to a power-of-two bucket (>= 8, capped at the snapshot's
     padded dimension). Padding rows are inert: the source is never its
     own neighbour, so their first-hop rows are all False.
 
-    Returns (real_srcs, padded ids as an int32 tensor on ``device``);
-    row i of the view corresponds to real_srcs[i] for i < len(real_srcs).
+    Returns (real_srcs, padded ids as an int32 tensor on ``device``,
+    uploaded through ``stager``, a new one when None); row i of the view
+    corresponds to real_srcs[i] for i < len(real_srcs).
     """
     nbrs = sorted({dl.dst_id for dl in snap.links_from[sid]})
     srcs = [sid] + nbrs
@@ -104,8 +107,11 @@ def source_batch(snap, sid: int, device: torch.device) -> Tuple[List[int], torch
     while bucket < len(srcs):
         bucket *= 2
     bucket = min(bucket, snap.n_pad)
-    padded = srcs + [sid] * (bucket - len(srcs))
-    return srcs, torch.from_numpy(np.asarray(padded, dtype=np.int32)).to(device)
+    padded = np.asarray(srcs + [sid] * (bucket - len(srcs)), dtype=np.int32)
+    (ids,) = (stager if stager is not None else UploadStager(device)).upload(
+        [("view", padded)]
+    )
+    return srcs, ids
 
 
 def _first_hops_from_rows(

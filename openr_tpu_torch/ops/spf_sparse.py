@@ -1,26 +1,33 @@
 """Sliced-ELL shortest paths for large topologies (no dense matrix).
 
-Port note: mirrors the cold view-solve subset of
+Port note: mirrors the view-solve subset of
 ``openr_tpu/ops/spf_sparse.py``: ``EllBand``/``EllGraph``, the per-link
 in-edge slots, ``compile_ell`` (both directions: per-link in-edge bands
 for the SPF views, per-neighbour out-edge bands for the route sweep of
 ``ops.route_sweep``), ``_as_device_ids``, ``direct_metrics``,
 ``_ell_relax``, ``_ell_view_batch``, ``_first_hops_from_rows``,
-``ell_view_batch_packed`` and ``ell_source_batch``; and the KSP2
-second-path solve: ``_ell_relax_masked``, ``_ell_masked_fixed_point``,
-``build_edge_masks`` and the non-resident ``ell_masked_distances``, which
-calls the fixed point directly (the reference's jitted entry
-``_ell_masked_source_batch`` has no counterpart in eager PyTorch). Each
-band of a relax step goes through ``ops.ell_relax.ell_band_relax`` (or
-``ell_band_relax_masked``: the hand-written CUDA kernels on the card,
-their plain torch versions on the CPU), writing into its column slice of
-one output instead of concatenating band parts. The KSP2 edge masks are
-built bit-packed on the host (32 slots an int32 word) where the JAX
-package builds bool cells. The JAX
-``lax.while_loop`` becomes a Python loop with one host sync per hop. Left out for later slices: the resident
-incremental state (``EllState``, ``ell_patch``, ``_warm_seed``,
-``_ell_reconverge``) and the solves that ride it
-(``ell_masked_distances_resident``, ``ell_all_view_rows(_masked)``), the
+``ell_view_batch_packed`` and ``ell_source_batch``; the resident
+incremental state of the churn path: ``ell_patch`` (with ``widen``),
+``band_row_edge_changes``/``_delta``, ``pad_increase_edges``,
+``_warm_seed``, ``_device_direct_metrics``, the fused churn step
+``_ell_reconverge``, ``band_patch_inputs``, ``EllState`` with
+``ELL_COUNTERS`` and ``ell_reconverge_step``; and the KSP2 second-path
+solve: ``_ell_relax_masked``, ``_ell_masked_fixed_point``,
+``build_edge_masks``, ``ell_masked_distances`` (host bands) and
+``ell_masked_distances_resident`` (an ``EllState``'s resident bands).
+The reference's jitted entries have no counterpart in eager PyTorch:
+the fixed points are called directly. Each band of a relax step goes
+through ``ops.ell_relax.ell_band_relax`` (or ``ell_band_relax_masked``:
+the hand-written CUDA kernels on the card, their plain torch versions on
+the CPU), writing into its column slice of one output instead of
+concatenating band parts. The KSP2 edge masks are built bit-packed on
+the host (32 slots an int32 word) where the JAX package builds bool
+cells. The JAX ``lax.while_loop`` becomes a Python loop with one host
+sync per hop. Where the reference donates its resident buffers, the port
+scatters the patched rows into them in place (``index_copy_``); its
+host-to-device copies go through one pinned buffer
+(``ops.staging.UploadStager``).
+Left out for later slices: ``ell_all_view_rows(_masked)``, the
 all-sources solve, the flat edge-list graph, sharding and the
 tenant-plane dispatch.
 
@@ -35,9 +42,10 @@ ordered by (degree class, name), so every lookup goes through
 
 from __future__ import annotations
 
+import time
 import weakref
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +54,24 @@ from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked, mask_words
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
+from openr_tpu_torch.ops.staging import UploadStager
 
 _NODE_PAD = 128
 _ELL_SLOT_PAD = 8
+
+# Churn-path health counters of the resident bands, by the JAX package's
+# names; ``decision.spf_solver.get_spf_counters`` reports them with a
+# "decision." prefix. A change that knocks the churn path back to full
+# recompiles shows as ell_incremental_syncs staying flat while
+# ell_cold_solves climbs.
+ELL_COUNTERS: Dict[str, int] = {
+    "ell_incremental_syncs": 0,  # patches scattered into resident bands
+    "ell_warm_solves": 0,  # solves seeded from the previous distances
+    "ell_cold_solves": 0,  # solves from the unit init
+    "ell_widen_events": 0,  # bands re-uploaded whole after a widen
+    "ell_patch_merges": 0,  # stacked patches coalesced warm
+    "ell_structural_warm_solves": 0,  # overload/link flips kept warm
+}
 
 
 def _pad_up(n: int, align: int) -> int:
@@ -74,6 +97,13 @@ class EllGraph:
     src: Tuple[np.ndarray, ...]  # per band [rows, k] int32 (self-loop pad)
     w: Tuple[np.ndarray, ...]  # per band [rows, k] int32 (INF pad)
     overloaded: np.ndarray  # [n_pad] bool
+    # band index -> band-local changed row ids, set by ell_patch so a
+    # resident consumer scatters only those rows; None == full graph
+    changed: Optional[Dict[int, np.ndarray]] = None
+    # band indices whose k ell_patch(widen=True) grew (a row outgrew its
+    # slot class): node ids are unchanged, but the band's arrays have a
+    # new shape, so a resident consumer re-uploads those bands whole
+    widened: Optional[frozenset] = None
     # "in": row j holds the edges INTO j (the forward relax layout);
     # "out": row j holds the edges OUT of j (the reversed-graph layout
     # the destination-major route sweep relaxes over)
@@ -267,6 +297,162 @@ def compile_ell(ls, align: int = _NODE_PAD, direction: str = "in") -> EllGraph:
         overloaded=overloaded, direction=direction,
         slot_of=slot_of if per_link else None,
     )
+
+
+def ell_patch(graph: EllGraph, ls, affected, widen: bool = False) -> Optional[EllGraph]:
+    """A new EllGraph with only the affected nodes' band rows
+    re-derived; ``changed`` maps band index -> band-local row ids. None
+    when the node set changed, or (unless ``widen``) when a row outgrew
+    its slot class: the caller then compiles in full, which may
+    renumber.
+
+    ``widen=True`` grows an overflowing band's k to the next power of
+    two instead, with self-loop/INF padding: node ids stay the same, so
+    resident per-node state stays valid, and the band's index goes into
+    ``widened`` (its arrays changed shape). ``node_names`` and
+    ``node_index`` are passed through as they are: their identity
+    survives churn."""
+    # node-set check without sorting every name: a removal changes the
+    # count; an added (or renamed) node is in ``affected`` and fails the
+    # node_index lookup below
+    if len(ls.get_adjacency_databases()) != graph.n:
+        return None
+    per_link = graph.slot_of is not None
+    src = list(graph.src)
+    w = list(graph.w)
+    bands = list(graph.bands)
+    overloaded = graph.overloaded.copy()
+    slot_of = dict(graph.slot_of) if per_link else None
+    changed: Dict[int, List[int]] = {}
+    widened: set = set()
+    copied: set = set()
+    for name in affected:
+        i = graph.node_index.get(name)
+        if i is None:
+            return None
+        if per_link:
+            slots = _in_edge_slots(ls, name, graph.node_index)
+        elif graph.direction == "in":
+            edges = _in_edges(ls, name, graph.node_index)
+        else:
+            edges = _out_edges(ls, name, graph.node_index)
+        bi, _ = _band_of(graph, i)
+        band = bands[bi]  # may have been widened already this event
+        n_entries = len(slots) if per_link else len(edges)
+        if n_entries > band.k:
+            if not widen:
+                return None
+            new_k = band.k
+            while new_k < n_entries:
+                new_k *= 2
+            grow = new_k - band.k
+            # self-loop src + INF w padding: inert in every relax
+            pad_src = np.tile(
+                np.arange(band.start, band.start + band.rows, dtype=np.int32)[:, None],
+                (1, grow),
+            )
+            src[bi] = np.concatenate([src[bi], pad_src], axis=1)
+            w[bi] = np.concatenate(
+                [w[bi], np.full((band.rows, grow), INF, np.int32)], axis=1
+            )
+            bands[bi] = EllBand(start=band.start, rows=band.rows, k=new_k)
+            band = bands[bi]
+            widened.add(bi)
+            copied.add(bi)  # concatenate made fresh arrays
+        if bi not in copied:
+            src[bi] = src[bi].copy()
+            w[bi] = w[bi].copy()
+            copied.add(bi)
+        r = i - band.start
+        src[bi][r] = i
+        w[bi][r] = INF
+        if per_link:
+            # a fresh inner dict for this node: the outer copy above was
+            # shallow, so the old graph keeps its own
+            nd: Dict[Tuple, Tuple[int, int, int]] = {}
+            for slot, (sid, m, key) in enumerate(slots):
+                src[bi][r, slot] = sid
+                w[bi][r, slot] = m
+                nd[key] = (bi, r, slot)
+            slot_of[i] = nd
+        else:
+            _fill_row(src[bi][r], w[bi][r], edges)
+        overloaded[i] = ls.is_node_overloaded(name)
+        changed.setdefault(bi, []).append(r)
+    return EllGraph(
+        node_names=graph.node_names, node_index=graph.node_index,
+        n=graph.n, n_pad=graph.n_pad, bands=tuple(bands),
+        src=tuple(src), w=tuple(w), overloaded=overloaded,
+        changed={bi: np.asarray(sorted(rs), dtype=np.int32) for bi, rs in changed.items()},
+        widened=frozenset(widened) if widened else None,
+        direction=graph.direction, slot_of=slot_of,
+    )
+
+
+def _collapsed_row(src_row, w_row, head: int) -> Dict[int, int]:
+    """tail id -> min weight over the row's slots, padding left out."""
+    out: Dict[int, int] = {}
+    for s, wv in zip(src_row.tolist(), w_row.tolist()):
+        if s == head or wv >= INF:
+            continue  # self-loop / INF padding slots
+        if wv < out.get(s, INF):
+            out[s] = wv
+    return out
+
+
+def band_row_edge_changes(old: EllGraph, patched: EllGraph) -> List[Tuple[int, int, int, int]]:
+    """Every directed-edge weight change a patch's changed rows imply:
+    ``[(tail id, head id, old weight, new weight)]`` for each (tail,
+    head) whose min-over-parallel-slots weight moved (a removal reads as
+    old -> INF, an addition as INF -> new). O(changed rows x k) host
+    work. The (old, new) pair is what lets the warm-start journal merge
+    stacked patches."""
+    out: List[Tuple[int, int, int, int]] = []
+    for bi, rows in (patched.changed or {}).items():
+        band = patched.bands[bi]
+        for r in np.asarray(rows).tolist():
+            head = band.start + r
+            old_w = _collapsed_row(old.src[bi][r], old.w[bi][r], head)
+            new_w = _collapsed_row(patched.src[bi][r], patched.w[bi][r], head)
+            for s, wo in old_w.items():
+                wn = new_w.get(s, INF)
+                if wn != wo:
+                    out.append((s, head, wo, wn))
+            for s, wn in new_w.items():
+                if s not in old_w:
+                    out.append((s, head, INF, wn))
+    return out
+
+
+def band_row_edge_delta(old: EllGraph, patched: EllGraph) -> List[Tuple[int, int, int]]:
+    """The directed-edge weight increases of a patch: ``[(tail id, head
+    id, old weight)]`` for each edge whose collapsed weight went up (a
+    removal reads as old -> INF). Decreases are left out: a warm start
+    only needs the increase-affected cone."""
+    return [(s, h, wo) for s, h, wo, wn in band_row_edge_changes(old, patched) if wn > wo]
+
+
+# an "increase" edge that flags every row's seed for reset (the tight
+# test d[0] + 0 == d[0] always holds): a cold restart written as a
+# one-edge delta, so warm and cold solves run the same code
+_FORCE_RESET_EDGE = (0, 0, 0)
+
+
+def pad_increase_edges(inc) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """An increase-edge delta as (tails, heads, old weights) int32
+    arrays, padded to a power-of-two length (at least 4) with w = INF
+    entries, which the tight test masks out."""
+    bucket = 4
+    while bucket < len(inc):
+        bucket *= 2
+    tails = np.zeros(bucket, dtype=np.int32)
+    heads = np.zeros(bucket, dtype=np.int32)
+    ws = np.full(bucket, INF, dtype=np.int32)
+    for x, (t, h, wv) in enumerate(inc):
+        tails[x] = t
+        heads[x] = h
+        ws[x] = wv
+    return tails, heads, ws
 
 
 def direct_metrics(graph: EllGraph, src_id: int, node_ids) -> np.ndarray:
@@ -483,5 +669,331 @@ def ell_masked_distances(
         tuple(torch.from_numpy(m).to(dev) for m in masks),
         torch.from_numpy(graph.overloaded).to(dev),
         src_id, graph.bands, graph.n_pad,
+    )
+    return d.cpu().numpy()
+
+
+# -- resident incremental state ----------------------------------------------
+
+
+def _warm_seed(d_prev, inc_tail, inc_head, inc_w, d0) -> torch.Tensor:
+    """Seed the fixed point from the previous distance rows, resetting
+    only the rows in the increase-affected cone.
+
+    The masked min-relax closure of any seed S with d* <= S <= d0 is d*.
+    A previous row d_prev[s] is >= the new d*[s] unless an increased
+    edge lay on an old shortest path from s, which is exactly when it
+    was tight under the old distances: d_prev[s, head] == d_prev[s,
+    tail] + w_old. Tight rows restart from the cold init d0; the others
+    seed min(d_prev, d0). int32 min-relaxation has a unique fixed point,
+    so the warm solve equals a cold one bit for bit."""
+    tight = (
+        torch.clamp_max(d_prev[:, inc_tail.long()] + inc_w[None, :], INF)
+        == d_prev[:, inc_head.long()]
+    ) & (inc_w[None, :] < INF)
+    reset = tight.any(dim=1)
+    return torch.where(reset[:, None], d0, torch.minimum(d_prev, d0))
+
+
+def _device_direct_metrics(srcs_t, ws_t, srcs, bands) -> torch.Tensor:
+    """On-device direct min-metric srcs[0] -> each batch node (INF when
+    not adjacent, and for the source itself): the resident-band mirror
+    of the host ``direct_metrics`` + ``_batch_args``."""
+    src_id = srcs[0]
+    cols = [
+        torch.where(s_b == src_id, w_b, INF).amin(dim=1)
+        for _, s_b, w_b in zip(bands, srcs_t, ws_t)
+    ]
+    w_sv = torch.cat(cols)[srcs.long()]
+    return torch.where(srcs == src_id, INF, w_sv).to(torch.int32)
+
+
+def _scatter_rows(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t) -> None:
+    """Write the patched band rows into the band tensors in place."""
+    for s, w, ids, ps, pw in zip(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t):
+        if ids is not None:
+            idx = ids.long()
+            s.index_copy_(0, idx, ps)
+            w.index_copy_(0, idx, pw)
+
+
+def _ell_reconverge(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t,
+                    inc_tail, inc_head, inc_w, overloaded, d_prev, srcs, bands, n):
+    """The fused churn step: scatter the patched rows into the resident
+    bands, derive the direct metrics on the device, warm-seed the fixed
+    point from ``d_prev`` (resetting only the increase cone), relax
+    through ``ell_band_relax`` until a hop changes nothing (one host
+    sync a hop), and pack distances + first hops. Returns ``(packed
+    [2B, n], d [B, n], hops)``."""
+    _scatter_rows(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t)
+    w_sv = _device_direct_metrics(srcs_t, ws_t, srcs, bands)
+    b = srcs.shape[0]
+    unit = torch.full((b, n), INF, dtype=torch.int32, device=overloaded.device)
+    unit[torch.arange(b, device=overloaded.device), srcs.long()] = 0
+    # init rows: one UNMASKED relax (overloaded sources still originate)
+    d0 = _ell_relax(unit, bands, srcs_t, ws_t, torch.zeros_like(overloaded))
+    d = _warm_seed(d_prev, inc_tail, inc_head, inc_w, d0)
+    hops = 0
+    while hops < n:
+        nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
+        hops += 1
+        changed = bool((nxt < d).any())
+        d = nxt
+        if not changed:
+            break
+    fh = _first_hops_from_rows(d, srcs, w_sv, overloaded)
+    return torch.cat([d, fh.to(torch.int32)], dim=0), d, hops
+
+
+def band_patch_inputs(resident_src, resident_w, patched: EllGraph, stager: UploadStager,
+                      extra: Sequence[Tuple[str, np.ndarray]] = ()):
+    """The band patch discipline of every resident-band consumer
+    (``EllState.apply_patch`` and ``.reconverge``): per band, the changed
+    rows to scatter or, for a WIDENED band (its shape changed), the
+    whole band re-uploaded with nothing to scatter. Everything, and the
+    ``extra`` host arrays, crosses in one staged copy. Returns ``(in_src,
+    in_w, patch_ids, patch_src, patch_w, extra_t)``: the bands to solve
+    over (resident tensors, or the re-uploaded ones), the scatter
+    triples (None for a band with nothing to scatter) and the extra
+    arrays on the device."""
+    changed: Dict[int, np.ndarray] = patched.changed or {}
+    widened = patched.widened or frozenset()
+    items: List[Tuple[str, np.ndarray]] = []
+    spots: List[Tuple[bool, int]] = []  # (whole band?, band index)
+    for bi in range(len(patched.bands)):
+        rows = changed.get(bi)
+        if bi in widened:
+            spots.append((True, bi))
+            items += [("bands", patched.src[bi]), ("bands", patched.w[bi])]
+        elif rows is not None and len(rows):
+            rows = np.asarray(rows, dtype=np.int32)
+            spots.append((False, bi))
+            items += [("patch", rows), ("patch", patched.src[bi][rows]),
+                      ("patch", patched.w[bi][rows])]
+    tensors = iter(stager.upload(items + list(extra)))
+    in_src, in_w = list(resident_src), list(resident_w)
+    nb = len(patched.bands)
+    ids, p_src, p_w = [None] * nb, [None] * nb, [None] * nb
+    for whole, bi in spots:
+        if whole:
+            in_src[bi], in_w[bi] = next(tensors), next(tensors)
+        else:
+            ids[bi], p_src[bi], p_w[bi] = next(tensors), next(tensors), next(tensors)
+    return tuple(in_src), tuple(in_w), tuple(ids), tuple(p_src), tuple(p_w), list(tensors)
+
+
+class EllState:
+    """Resident band tensors of one graph for the churn loop.
+
+    The bands and the overload mask live on ``device`` (None = CUDA);
+    the overload mask is re-uploaded only when it changes. Host-to-device
+    copies go through ``stager`` (one pinned buffer, shared with the
+    other states of one solver).
+
+    Warm start: the previous solve's distance rows, the source batch
+    they belong to, and a MERGEABLE journal of every un-solved patch's
+    edge changes, ``(tail, head) -> (w_snapshot, w_current)``: the
+    snapshot is the collapsed weight the resident distances were solved
+    under (first touch wins), the current side tracks the latest patch.
+    The increase delta is emitted against the snapshots at solve time,
+    so stacked patches coalesce into one warm solve. Overload flips stay
+    warm too: a flipped node's out-edges are journaled at their raw
+    weights and the emission compares effective weights (INF where the
+    tail was or is masked), so a drain reads as an increase and an
+    undrain as a decrease.
+
+    The patched rows are scattered into the resident tensors in place,
+    and ``graph`` moves to the patched graph only after the solve
+    returns. A solve or scatter that raises leaves the state ``torn``:
+    its tensors may be ahead of ``graph``, and every later call raises.
+    ``reconverge_ms`` and ``host_overhead_ms`` split the last
+    ``reconverge`` by the host clock (the whole call, and the part
+    before the relax loop); ``last_hops`` and ``last_warm`` describe its
+    solve."""
+
+    def __init__(self, graph: EllGraph, device: DeviceLike = None,
+                 stager: Optional[UploadStager] = None):
+        self.device = resolve_device(device)
+        self.stager = stager if stager is not None else UploadStager(self.device)
+        self.graph = graph
+        nb = len(graph.bands)
+        tensors = self.stager.upload(
+            [("bands", a) for a in graph.src] + [("bands", a) for a in graph.w]
+            + [("overloaded", graph.overloaded)]
+        )
+        self.src = tuple(tensors[:nb])
+        self.w = tuple(tensors[nb : 2 * nb])
+        self.overloaded = tensors[-1].ne(0)
+        self._d_dev: Optional[torch.Tensor] = None
+        self._warm_key: Optional[Tuple[int, ...]] = None
+        self._pending_edges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self._ov_solved = np.array(graph.overloaded, copy=True)
+        self._pending_structural = False
+        self.torn = False
+        self.reconverge_ms = 0.0
+        self.host_overhead_ms = 0.0
+        self.last_hops = 0
+        self.last_warm: Optional[bool] = None
+
+    def _check_whole(self) -> None:
+        if self.torn:
+            raise RuntimeError("EllState: a previous scatter or solve failed; "
+                               "the resident bands are torn")
+
+    def _note_patch(self, patched: EllGraph, ov_changed: bool) -> None:
+        """Fold one patch's delta into the warm-start journal. An edge
+        already journaled keeps its snapshot and only advances its
+        current side. Overload flips journal every out-edge of a flipped
+        node, read from the pre-patch graph, at its raw weight; link
+        up/down reads as a w <-> INF change through
+        ``band_row_edge_changes``."""
+        if patched.changed:
+            ELL_COUNTERS["ell_incremental_syncs"] += 1
+        if patched.widened:
+            ELL_COUNTERS["ell_widen_events"] += len(patched.widened)
+        if self._d_dev is None:
+            return
+        if ov_changed:
+            self._pending_structural = True
+            flipped = np.nonzero(self.graph.overloaded != patched.overloaded)[0]
+            collapsed: Dict[Tuple[int, int], int] = {}
+            pos = 0
+            for src_h, w_h in zip(self.graph.src, self.graph.w):
+                hit = np.isin(src_h, flipped) & (w_h < INF)
+                for r, sl in zip(*np.nonzero(hit)):
+                    key = (int(src_h[r, sl]), pos + int(r))
+                    wv = int(w_h[r, sl])
+                    if wv < collapsed.get(key, INF):
+                        collapsed[key] = wv
+                pos += src_h.shape[0]
+            for key, wv in collapsed.items():
+                self._pending_edges.setdefault(key, (wv, wv))
+        if not patched.changed:
+            return  # mask-only or no-op sync: the raw journal stands
+        if self._pending_edges:
+            ELL_COUNTERS["ell_patch_merges"] += 1
+        structural = False
+        for s, h, wo, wn in band_row_edge_changes(self.graph, patched):
+            snap, _cur = self._pending_edges.get((s, h), (wo, wo))
+            self._pending_edges[(s, h)] = (snap, wn)
+            structural = structural or wo >= INF or wn >= INF
+        if structural:
+            self._pending_structural = True
+
+    def _emit_increases(self, ov_now: np.ndarray) -> List[Tuple[int, int, int]]:
+        """The journal's increase delta, effective-weight aware: an entry
+        is emitted when its raw weight rose (the origination row: an
+        overloaded source still uses its own out-edges) or its masked
+        weight rose (transit rows across a drain). The emitted weight is
+        the raw snapshot, which every tight step of d_prev used."""
+        inc = []
+        for (s, h), (snap, cur) in self._pending_edges.items():
+            if snap >= INF:
+                continue  # unusable at solve time: cannot be tight
+            snap_eff = INF if self._ov_solved[s] else snap
+            cur_eff = INF if ov_now[s] else cur
+            if cur > snap or cur_eff > snap_eff:
+                inc.append((s, h, snap))
+        return inc
+
+    def apply_patch(self, patched: EllGraph) -> None:
+        """Scatter a patched graph's changed rows into the resident bands
+        without solving (for consumers that need synced bands only: the
+        KSP2 masked batches). A widened band is re-uploaded whole. The
+        delta is journaled, so a later ``reconverge`` stays warm."""
+        self._check_whole()
+        ov_changed = not np.array_equal(self.graph.overloaded, patched.overloaded)
+        self._note_patch(patched, ov_changed)
+        extra = [("overloaded", patched.overloaded)] if ov_changed else []
+        self.torn = True
+        in_src, in_w, ids, p_src, p_w, ext = band_patch_inputs(
+            self.src, self.w, patched, self.stager, extra
+        )
+        _scatter_rows(in_src, in_w, ids, p_src, p_w)
+        self.src, self.w = in_src, in_w
+        if ov_changed:
+            self.overloaded = ext[0].ne(0)
+        self.graph = replace(patched, changed=None)
+        self.torn = False
+
+    def reconverge(self, patched: EllGraph, srcs) -> torch.Tensor:
+        """The fused churn step: scatter the patched rows into the
+        resident bands and solve the batched view warm-started from the
+        previous solve's distances (bit-identical to cold; see
+        ``_warm_seed``). Patch rows, increase edges and the source batch
+        cross in one staged copy. Returns the packed ``[2B, n_pad]``
+        distances + first hops on the device."""
+        self._check_whole()
+        t0 = time.perf_counter()
+        ov_changed = not np.array_equal(self.graph.overloaded, patched.overloaded)
+        self._note_patch(patched, ov_changed)
+        srcs_key = tuple(int(s) for s in srcs)
+        b = len(srcs_key)
+        warm = self._d_dev is not None and self._warm_key == srcs_key
+        if warm:
+            # increases against the snapshot weights the resident
+            # distances were solved under; effective-weight aware, so
+            # drains and link removals ride the same warm seed
+            inc = self._emit_increases(patched.overloaded)
+            d_prev = self._d_dev
+            ELL_COUNTERS["ell_warm_solves"] += 1
+            if self._pending_structural:
+                ELL_COUNTERS["ell_structural_warm_solves"] += 1
+        else:
+            inc = [_FORCE_RESET_EDGE]
+            d_prev = (
+                self._d_dev
+                if self._d_dev is not None and tuple(self._d_dev.shape) == (b, patched.n_pad)
+                else None
+            )
+            ELL_COUNTERS["ell_cold_solves"] += 1
+        inc_t, inc_h, inc_w = pad_increase_edges(inc)
+        extra = [("view", inc_t), ("view", inc_h), ("view", inc_w),
+                 ("view", np.asarray(srcs, dtype=np.int32))]
+        if ov_changed:
+            extra.append(("overloaded", patched.overloaded))
+        self.torn = True
+        in_src, in_w, ids, p_src, p_w, ext = band_patch_inputs(
+            self.src, self.w, patched, self.stager, extra
+        )
+        overloaded = ext[4].ne(0) if ov_changed else self.overloaded
+        if d_prev is None:
+            d_prev = torch.zeros((b, patched.n_pad), dtype=torch.int32, device=self.device)
+        t_solve = time.perf_counter()
+        packed, d, hops = _ell_reconverge(
+            in_src, in_w, ids, p_src, p_w, ext[0], ext[1], ext[2], overloaded,
+            d_prev, ext[3], patched.bands, patched.n_pad,
+        )
+        t_end = time.perf_counter()
+        self.src, self.w, self.overloaded = in_src, in_w, overloaded
+        self._d_dev = d
+        self._warm_key = srcs_key
+        self._pending_edges = {}
+        self._ov_solved = np.array(patched.overloaded, copy=True)
+        self._pending_structural = False
+        self.graph = replace(patched, changed=None)
+        self.torn = False
+        self.reconverge_ms = (t_end - t0) * 1e3
+        self.host_overhead_ms = (t_solve - t0) * 1e3
+        self.last_hops = hops
+        self.last_warm = warm
+        return packed
+
+
+def ell_reconverge_step(state: EllState, patched: EllGraph, srcs) -> torch.Tensor:
+    """``state.reconverge(patched, srcs)``."""
+    return state.reconverge(patched, srcs)
+
+
+def ell_masked_distances_resident(state: EllState, src_id: int, masks) -> np.ndarray:
+    """The batched masked solve from ``src_id`` over an ``EllState``'s
+    resident bands and overload mask: host [B, n_pad] int32. Only the
+    packed masks (``build_edge_masks``) cross to the device, through the
+    state's stager."""
+    state._check_whole()
+    masks_t = state.stager.upload([("masks", m) for m in masks])
+    d, _ = _ell_masked_fixed_point(
+        state.src, state.w, tuple(masks_t), state.overloaded, src_id,
+        state.graph.bands, state.graph.n_pad,
     )
     return d.cpu().numpy()

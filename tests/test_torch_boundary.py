@@ -13,11 +13,11 @@ import pytest
 import torch
 
 from openr_tpu_torch import carry
-from openr_tpu_torch.decision.spf_solver import SpfSolver
+from openr_tpu_torch.decision.spf_solver import SpfSolver, _EllResidentCache
 from openr_tpu_torch.device import resolve_device
 from openr_tpu_torch.graph.snapshot import SnapshotCache
 from openr_tpu_torch.ops.minplus import INF
-from openr_tpu_torch.ops.spf_sparse import ell_masked_distances
+from openr_tpu_torch.ops.spf_sparse import EllState, ell_masked_distances
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -88,6 +88,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
     )
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ell_masked_distances(graph, 0, [np.zeros((1, 1), np.int32)])
+    # the resident bands and the cache that holds them
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EllState(graph)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _EllResidentCache()
 
 
 def test_entry_points_take_the_cpu_when_asked(no_cuda):
@@ -101,4 +106,20 @@ def test_entry_points_take_the_cpu_when_asked(no_cuda):
     rows = ell_masked_distances(graph, 0, [np.zeros((2, 1), np.int32)], device="cpu")
     assert rows.shape == (2, 128) and (rows[:, 0] == 0).all()
     assert SnapshotCache("cpu").device == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
+    state = EllState(graph, "cpu")
+    assert state.src[0].device == torch.device("cpu")
+    assert _EllResidentCache("cpu").stager.device == torch.device("cpu")
+
+
+def test_the_card_is_named_with_its_index(monkeypatch):
+    # a tensor on the card reports "cuda:N", and torch.device("cuda") !=
+    # torch.device("cuda:0"): an unindexed device made every resident
+    # tensor look foreign, so the dense snapshot re-uploaded its whole
+    # metric matrix on every topology version instead of patching rows
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None) == torch.device("cuda:0")
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")

@@ -196,6 +196,139 @@ def test_ell_band_relax_masked_kernel_matches_plain(card, monkeypatch, s, n_pad,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,n_pad,rows,k,pos",
+    [
+        # the 10 000-node spine band widened once and twice (1024 -> 2048,
+        # 4096 slots) at the view's batch and the KSP2 chunk; an 8-slot
+        # rack band widened to 16
+        (8, 10112, 16, 2048, 9984), (256, 10112, 16, 4096, 9984),
+        (8, 10112, 7488, 16, 0), (256, 10112, 7488, 16, 0),
+    ],
+)
+def test_ell_relax_kernels_at_a_widened_k(card, s, n_pad, rows, k, pos):
+    """ell_patch(widen=True) doubles a band's k in place; both relax
+    kernels take the new shape, as their launch plans say."""
+    rng = np.random.default_rng(s + k)
+    d = _mat(rng, (s, n_pad), 0.2).to(card)
+    src_np = rng.integers(0, n_pad, (rows, k)).astype(np.int32)
+    src_np[:, k // 2 :] = (pos + np.arange(rows))[:, None]  # self-loop padding
+    w_np = _mat(rng, (rows, k), 0.2).numpy()
+    w_np[:, k // 2 :] = INF
+    src, w = torch.from_numpy(src_np).to(card), torch.from_numpy(w_np).to(card)
+    ov = torch.from_numpy(rng.random(n_pad) < 0.1).to(card)
+    out = torch.full_like(d, -1)
+    ell_relax.ell_band_relax(d, src, w, ov, pos, out=out)
+    mask = ell_relax.pack_edge_mask(torch.from_numpy(rng.random((s, rows, k)) < 0.05)).to(card)
+    out_m = torch.full_like(d, -1)
+    ell_relax.ell_band_relax_masked(d, src, w, mask, ov, pos, out=out_m)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax"] == 1 and LAUNCHES["ell_band_relax_masked"] == 1
+    assert torch.equal(out[:, pos : pos + rows], ell_relax.ell_band_relax_plain(d, src, w, ov, pos))
+    assert torch.equal(out_m[:, pos : pos + rows],
+                       ell_relax.ell_band_relax_masked_plain(d, src, w, mask, ov, pos))
+
+
+@pytest.mark.cuda
+def test_dense_snapshot_patches_its_resident_matrix_on_the_card(card):
+    """A topology version patched on the host scatters its changed rows
+    into the previous version's metric tensor on the card (one staged
+    copy of the rows), not a new upload of the whole matrix."""
+    from dataclasses import replace
+
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.graph.snapshot import SnapshotCache
+    from openr_tpu_torch.models import topologies
+
+    topo = topologies.grid(6)
+    ls = LinkState(area=topo.area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    cache = SnapshotCache()
+    first = cache.get(ls).device_arrays(cache.device, cache.stager)
+    db = ls.get_adjacency_databases()["node-7"]
+    ls.update_adjacency_database(replace(db, adjacencies=(
+        replace(db.adjacencies[0], metric=9),) + db.adjacencies[1:]))
+    snap = cache.get(ls)
+    second = snap.device_arrays(cache.device, cache.stager)
+    assert second.metric.data_ptr() == first.metric.data_ptr()
+    assert torch.equal(second.metric.cpu(), torch.from_numpy(snap.metric))
+    assert cache.stager.bytes["matrix"] == snap.metric.nbytes
+    assert 0 < cache.stager.bytes["patch"] < snap.metric.nbytes
+
+
+@pytest.mark.cuda
+def test_reconverge_warm_matches_cold_on_the_card(card):
+    """EllState.reconverge on the card through churn (metric up and
+    down, link down and up, drain and undrain, two stacked patches): every
+    warm view equals a cold solve over the same bands on the card and the
+    same warm solve on the CPU, and the warm solves went through the
+    ell_band_relax kernel."""
+    from dataclasses import replace
+
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops import spf_sparse
+
+    topo = topologies.fat_tree(4, ssw_per_plane=2, fsw_per_pod=2, rsw_per_pod=6)
+    ls = LinkState(area=topo.area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    root = "rsw-0-0"
+    graph = spf_sparse.compile_ell(ls)
+    states = {dev: spf_sparse.EllState(graph, dev) for dev in (card, torch.device("cpu"))}
+    version = ls.topology_version
+
+    def edit(node, **changes):
+        db = ls.get_adjacency_databases()[node]
+        ls.update_adjacency_database(replace(db, **changes))
+
+    def metric(node, m):
+        adjs = list(ls.get_adjacency_databases()[node].adjacencies)
+        adjs[0] = replace(adjs[0], metric=m)
+        edit(node, adjacencies=tuple(adjs))
+
+    def solve(apply_only=False):
+        nonlocal version
+        affected = sorted(ls.affected_since(version))
+        version = ls.topology_version
+        views = {}
+        for dev, state in states.items():
+            patched = spf_sparse.ell_patch(state.graph, ls, affected, widen=True)
+            if apply_only:
+                state.apply_patch(patched)
+                continue
+            srcs = spf_sparse.ell_source_batch(patched, ls, root)
+            views[dev] = state.reconverge(patched, srcs)
+        if apply_only:
+            return
+        warm = views[card]
+        cold = spf_sparse.ell_view_batch_packed(states[card].graph, srcs, card)
+        torch.cuda.synchronize()
+        assert torch.equal(warm, cold)
+        assert torch.equal(warm.cpu(), views[torch.device("cpu")])
+
+    solve()
+    fsw = "fsw-1-0"
+    dropped = ls.get_adjacency_databases()["fsw-2-1"]
+    reset_launches()
+    for step in (lambda: metric(fsw, 9), lambda: metric(fsw, 1),
+                 lambda: edit("fsw-2-1", adjacencies=dropped.adjacencies[1:]),
+                 lambda: ls.update_adjacency_database(dropped),
+                 lambda: edit("ssw-0-0", is_overloaded=True),
+                 lambda: edit("ssw-0-0", is_overloaded=False)):
+        step()
+        solve()
+        assert states[card].last_warm
+    metric(fsw, 4)
+    solve(apply_only=True)
+    metric(fsw, 20)
+    solve()
+    assert states[card].last_warm
+    assert LAUNCHES["ell_band_relax"] > 0
+
+
+@pytest.mark.cuda
 def test_ell_band_relax_masked_rejects_what_the_kernel_does_not_take(card):
     d = torch.zeros((2, 16), dtype=torch.int32, device=card)
     src = torch.zeros((4, 16), dtype=torch.int32, device=card)

@@ -48,7 +48,6 @@ from openr_tpu_torch.decision import ksp2_engine as port_ksp2
 from openr_tpu_torch.decision import spf_solver as port_solver
 from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.graph.linkstate import LinkState
-from openr_tpu_torch.graph.snapshot import SnapshotCache
 from openr_tpu_torch.kernels import LAUNCHES
 from openr_tpu_torch.ops import spf_sparse as port_sparse
 from openr_tpu_torch.ops.ell_relax import mask_words, pack_edge_mask, unpack_edge_mask
@@ -545,8 +544,9 @@ def test_ksp2_chunk_matches_reference(budget, monkeypatch):
 
 
 def test_sparse_view_and_ksp2_share_one_compiled_graph(monkeypatch):
-    # one compile per topology version, shared by the sparse view and the
-    # masked solve; an overload flip is a new version with its own bands
+    # one compile, shared by the sparse view and the masked solve through
+    # the solver's resident bands; an overload flip is a new version,
+    # patched into the same resident state without a second compile
     monkeypatch.setattr(port_solver, "SPARSE_NODE_THRESHOLD", 3)
     twin = Twin("grid")
     compiles = []
@@ -556,28 +556,17 @@ def test_sparse_view_and_ksp2_share_one_compiled_graph(monkeypatch):
     (ls,) = twin.dev.areas.values()
     solver.build_route_db(twin.root, twin.dev.areas, twin.dev.ps)
     assert len(compiles) == 1
-    first = solver._snapshots.ell(ls)
+    first = solver._resident.state_for(ls).graph
     solver.build_route_db(twin.root, twin.dev.areas, twin.dev.ps)
     assert len(compiles) == 1
     version = ls.topology_version
     twin.set_adj(replace(twin.adj("0", "node-6"), is_overloaded=True))
     assert ls.topology_version != version
     solver.build_route_db(twin.root, twin.dev.areas, twin.dev.ps)
-    assert len(compiles) == 2
-    second = solver._snapshots.ell(ls)
+    assert len(compiles) == 1
+    second = solver._resident.state_for(ls).graph
     assert second is not first
+    assert second.node_names is first.node_names
     assert second.overloaded[second.node_index["node-6"]]
     assert not first.overloaded[first.node_index["node-6"]]
     assert isinstance(solver._view("0", ls, twin.root)._snap, port_solver._SparseIndexAdapter)
-
-
-def test_snapshot_cache_ell_is_per_version():
-    twin = Twin("grid")
-    (ls,) = twin.dev.areas.values()
-    cache = SnapshotCache("cpu")
-    graph = cache.ell(ls)
-    assert cache.ell(ls) is graph
-    _set_metric(twin, "0", "node-1", 0, 7)
-    assert cache.ell(ls) is not graph
-    cache.invalidate()
-    assert cache.ell(ls) is not graph

@@ -497,3 +497,56 @@ def test_sparse_bands_are_the_route_builds_own():
     graph = spf_sparse.compile_ell(ls)
     s = len(spf_sparse.ell_source_batch(graph, ls, "rsw-0-0"))
     assert [(s, bd.rows, bd.k) for bd in graph.bands] == SPARSE_ELL
+
+
+# (S, rows, k) of bands that ell_patch(widen=True) can make from the main
+# path's: each k doubled once or twice (an 8-slot rack band to 16 or 32,
+# the 10 000-node fabric's 16 x 1024 spine band to 2048 or 4096, the
+# 1008-node one's 16 x 64 to 128), at the sparse view's batch of 8 and the
+# KSP2 chunks of 256 and 1024
+WIDENED = sorted(
+    {(s, rows, k) for s in (8, 256, 1024) for rows, ks in (
+        (7488, (16, 32)), (2496, (32, 64)), (744, (16, 32)), (248, (32, 64)),
+        (16, (128, 256, 2048, 4096)))
+     for k in ks}
+)
+
+
+@pytest.mark.parametrize("s,rows,k", WIDENED)
+def test_plans_take_every_widened_band(s, rows, k):
+    test_ell_plan_covers_each_output_once_within_the_grid(s, rows, k)
+    test_masked_plan_covers_each_output_once_within_the_grid(s, rows, k)
+
+
+def test_widened_bands_of_ell_patch_take_the_plans():
+    """A node whose in-degree outgrows its slot class widens its band in
+    place (k doubles, node ids stay); the plans take the new shape."""
+    from dataclasses import replace
+
+    ls = LinkState(area="0")
+    topo = topologies.grid(4)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    graph = spf_sparse.compile_ell(ls)
+    version = ls.topology_version
+    target = "node-5"
+    base = topo.adj_dbs[target].adjacencies[0]
+    peers = ["node-0", "node-3", "node-10", "node-12", "node-14", "node-15"]
+    for peer in peers:
+        db = ls.get_adjacency_databases()[peer]
+        ls.update_adjacency_database(replace(db, adjacencies=db.adjacencies + (replace(
+            db.adjacencies[0], other_node_name=target, if_name=f"if_{peer}_{target}",
+            other_if_name=f"if_{target}_{peer}"),)))
+    db = ls.get_adjacency_databases()[target]
+    ls.update_adjacency_database(replace(db, adjacencies=db.adjacencies + tuple(
+        replace(base, other_node_name=p, if_name=f"if_{target}_{p}",
+                other_if_name=f"if_{p}_{target}") for p in peers)))
+    patched = spf_sparse.ell_patch(graph, ls, sorted(ls.affected_since(version)), widen=True)
+    assert patched.widened and patched.node_names is graph.node_names
+    for bi in patched.widened:
+        old, new = graph.bands[bi], patched.bands[bi]
+        assert (new.start, new.rows) == (old.start, old.rows) and new.k == 2 * old.k
+    for band in patched.bands:
+        for s in (8, 256):
+            test_ell_plan_covers_each_output_once_within_the_grid(s, band.rows, band.k)
+            test_masked_plan_covers_each_output_once_within_the_grid(s, band.rows, band.k)
