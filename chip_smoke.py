@@ -75,28 +75,48 @@ Phases, one JSON line each (``"phase": ...``):
    ``structure_report``.
 8. ``ksp2-1008``: KSP2_ED_ECMP route builds from ``rsw-0-0`` on the
    1008-node fabric with every prefix KSP2 over SR-MPLS (1007
-   destinations, one masked chunk of 1024): an initial build and churn
-   events that bump ``fsw-0-0``'s first adjacency metric. Every route
-   database must equal the host Dijkstra solver's, which runs on its own
-   copy of the link-state and prefix databases (the kth-path cache lives
-   on the ``LinkState``: a shared one would hand it the device's second
-   paths). Each build is split into the view, the hop gate's unit-metric
-   SPF, the KSP2 graph compile, the host first-path traces, the mask build, the masked solve (upload,
+   destinations), through the incremental KSP2 engine
+   (``decision/ksp2_engine.py``, with its fast path: every
+   destination's edge mask resident and re-solved in each event's fused
+   dispatch): an initial build, churn events that bump ``fsw-0-0``'s
+   first adjacency metric, then 3 remote events that bump the last pod's
+   first rack switch. Every route database must equal the host Dijkstra
+   solver's, which runs on its own copy of the link-state and prefix
+   databases (the kth-path cache lives on the ``LinkState``: a shared
+   one would hand it the device's second paths), and after each event
+   the engine's resident all-sources matrix must equal a cold
+   ``ell_distances_from_sources`` on the card. Each build reports cold
+   build or incremental sync, the affected destinations, the KSP2
+   route reuses and counter deltas, the all-sources hops, fast path on
+   or off, the speculative rows changed, the engine's host-clock parts
+   (``SpfSolver.ksp2_stats``), the ms the host spent in Python's
+   garbage collector (``gc_ms``) and the rest (``assembly_ms``). One
+   more bench and one more remote build are profiled, as in ``dense``.
+   The KSP2 device batches must be > 0, its host fallbacks and the
+   views' host-SPF fallbacks 0, a remote event must sync incrementally
+   and reuse KSP2 routes, and ``ell_band_relax`` and
+   ``ell_band_relax_masked`` must launch.
+9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
+   sampled KSP2 prefixes (the stride of ``benchmarks/bench_scale.py``'s
+   ``ksp2_churn_bench``), the rest SP_ECMP: the engine without its fast
+   path (255 resident masks would pass the mask budget), the
+   all-sources relax at S = 10112.
+10. ``ksp2-1008-chunked``: the per-build chunked masked dispatch, the
+   path above the engine's node bound, with the engine turned off
+   (``ENGINE_MAX_NODES = 0``), for 2 events on a fresh copy of the
+   1008-node KSP2 network (one masked chunk of 1024). Each build is split
+   into the view, the hop gate's unit-metric SPF, the KSP2 graph sync,
+   the host first-path traces, the mask build, the masked solve (upload,
    device relax hops, readback; ``hops`` from its launch count), the
    second-path traces and route assembly (the rest), with the bytes of
    bit-packed edge masks the build uploaded (``mask_bytes``) beside the
    bytes the same masks took as bool cells. The masked solves run over
    the solver's resident bands: a churn build uploads no band
-   (``band_bytes_per_build``; patch rows and masks only). One more build
-   is profiled, as in ``dense``. The KSP2 device batches must be > 0, its host
-   fallbacks and the views' host-SPF fallbacks 0, and
-   ``ell_band_relax_masked`` must launch.
-9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
-   sampled KSP2 prefixes (the stride of ``benchmarks/bench_scale.py``'s
-   ``ksp2_churn_bench``), the rest SP_ECMP: one chunk of 256, the masked
-   kernel's block-per-row wide body on the 16 x 1024 spine band.
+   (``band_bytes_per_build``; patch rows and masks only).
 
-The ``kernels`` phase of the route sweep's kernels (``rev_band_relax``,
+The ``kernels`` phase holds ``ell_band_relax`` also at the KSP2 engine's
+all-sources shapes, S = n_pad rows (1024 and 10112), against its plain
+version on slices of 1024 rows. That of the route sweep's kernels (``rev_band_relax``,
 ``batched_minplus``, ``batched_minplus_t``) runs at both sweeps' shapes:
 one relax step of a 1024-destination block of the 10 000-node sweep and
 of a 256-destination block of the 1008-node one; that of
@@ -112,14 +132,16 @@ launches of every kernel) and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
 exits nonzero before doing anything. The sizes are fixed: the 1008-node
-fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones, 5
-with KSP2) and a 10 000-node one (3 events and 3 remote ones, 2 with
-KSP2); only the seed of the random kernel inputs can be set.
+fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
+with KSP2 5 and 3, and 2 with the chunked dispatch) and a 10 000-node one
+(3 events and 3 remote ones; with KSP2 2 and 3); only the seed of the
+random kernel inputs can be set.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -158,9 +180,19 @@ SPARSE_SWEEP_BLOCK = 1024
 KSP2_DENSE_EVENTS = 5
 KSP2_SPARSE_EVENTS = 2
 KSP2_SAMPLED_DSTS = 256
-# the KSP2 prefetch's host-clock parts (SpfSolver.ksp2_stats)
+# the chunked KSP2 dispatch (engine off) stays driven on the 1008-node
+# fabric for this many churn events
+KSP2_CHUNKED_EVENTS = 2
+# rows of the all-sources relax held against the plain version at once
+ALL_SOURCES_SLICE = 1024
+# the chunked KSP2 prefetch's host-clock parts (SpfSolver.ksp2_stats)
 KSP2_PARTS = ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
               "second_paths_ms")
+# the KSP2 counters each engine build reports the deltas of
+KSP2_COUNTERS = ("decision.ksp2_cold_builds", "decision.ksp2_incremental_syncs",
+                 "decision.ksp2_warm_dispatches", "decision.ksp2_affected_dsts",
+                 "decision.ksp2_route_reuses", "decision.ksp2_device_batches",
+                 "decision.ksp2_host_fallbacks")
 
 
 def emit(obj) -> None:
@@ -250,13 +282,13 @@ def top_device_ms(stats, n: int = 6):
              evt.count] for evt in top]
 
 
-def copy_ms(stats) -> dict:
-    """Device ms of the host-to-device copies in ``stats``, by the
-    profiler's copy kind (pageable or pinned host memory), with their
-    counts: ``{kind: [ms, count]}``."""
+def copy_ms(stats, way: str = "HtoD") -> dict:
+    """Device ms of the host-to-device copies in ``stats`` (``way``
+    "DtoH": device-to-host), by the profiler's copy kind (pageable or
+    pinned host memory), with their counts: ``{kind: [ms, count]}``."""
     out = {}
     for evt in stats:
-        if "Memcpy HtoD" in evt.key:
+        if f"Memcpy {way}" in evt.key:
             kind = "pinned" if "Pinned" in evt.key else "pageable"
             ms, n = out.get(kind, [0.0, 0])
             out[kind] = [ms + (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
@@ -276,6 +308,29 @@ def count_calls(obj, name: str) -> list:
 
     setattr(obj, name, counted)
     return calls
+
+
+class GcClock:
+    """Host ms spent in Python's cyclic garbage collector, and its full
+    (generation 2) collections, counted through ``gc.callbacks`` from
+    construction on; a build reads the delta around it."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.full = 0
+        self._t0 = None
+        gc.callbacks.append(self._note)
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+    def read(self):
+        return self.ms, self.full
 
 
 def kernel_records(stats, name) -> int:
@@ -437,6 +492,15 @@ def bump_metric(ls, node: str, metric: int) -> None:
     ls.update_adjacency_database(replace(db, adjacencies=tuple(adjs)))
 
 
+def remote_rsw(ls) -> str:
+    """The remote events' node: the last pod's first rack switch, far
+    from the root."""
+    return "rsw-%d-0" % max(
+        int(name.split("-")[1]) for name in ls.get_adjacency_databases()
+        if name.startswith("rsw-")
+    )
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random kernel inputs")
@@ -454,6 +518,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from openr_tpu_torch import carry
+    from openr_tpu_torch.decision import ksp2_engine
     from openr_tpu_torch.decision.prefix_state import PrefixState
     from openr_tpu_torch.decision.spf_solver import (
         SPARSE_NODE_THRESHOLD,
@@ -496,6 +561,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    gc_clock = GcClock()
 
     # -- 0. environment ----------------------------------------------------
     smi = nvidia_smi_line()
@@ -532,6 +598,8 @@ def main(argv=None) -> int:
                   for _ in range(2)]
     ksp2_sparse = [load_ksp2_network(topologies, LinkState, PrefixState, SPARSE_NODES,
                                      KSP2_SAMPLED_DSTS) for _ in range(2)]
+    ksp2_dense_chunked = [load_ksp2_network(topologies, LinkState, PrefixState, DENSE_NODES)
+                          for _ in range(2)]
     n_dense = len(dense_ls.get_adjacency_databases())
     n_sparse = len(sparse_ls.get_adjacency_databases())
     if not n_dense <= SPARSE_NODE_THRESHOLD < n_sparse:
@@ -710,6 +778,71 @@ def main(argv=None) -> int:
           "checked_shapes": [list(x) for x in ell_ragged],
           "kernel_ms": ell_ms, "plain_ms": ell_plain, "bound_ms": ell_bound,
           "call_ms": ell_call, "plain_call_ms": ell_plain_call})
+
+    # ell_band_relax at the KSP2 engine's all-sources shapes: S = n_pad
+    # rows (every node a source) over the 1008-node fabric's in-bands and
+    # over the 10 000-node one's, two relax hops from the unit rows. The
+    # plain version's gather holds [S, rows, k] at once, so it is held
+    # against the kernel on slices of ALL_SOURCES_SLICE rows (the first
+    # and the last)
+    all_sources_kernel = {}
+    for label, g in (("1008", spf_sparse.compile_ell(ksp2_dense[0][0])), ("10k", graph)):
+        s = g.n_pad
+        g_src = tuple(torch.from_numpy(x).to(dev) for x in g.src)
+        g_w = tuple(torch.from_numpy(x).to(dev) for x in g.w)
+        g_ov = torch.from_numpy(rng.random(g.n_pad) < 0.05).to(dev)
+        ids = torch.arange(s, device=dev)
+        d_all = torch.full((s, g.n_pad), INF, dtype=torch.int32, device=dev)
+        d_all[ids, ids] = 0
+        for _ in range(2):
+            d_all = spf_sparse._ell_relax(d_all, g.bands, g_src, g_w, torch.zeros_like(g_ov))
+        out_all = torch.empty_like(d_all)
+        slices = (slice(0, ALL_SOURCES_SLICE), slice(s - ALL_SOURCES_SLICE, s))
+
+        def all_step(rows=slice(None)):
+            dd = d_all[rows]
+            out = out_all[: dd.shape[0]]
+            at = 0
+            for band, s_b, w_b in zip(g.bands, g_src, g_w):
+                ell_band_relax(dd, s_b, w_b, g_ov, at, out=out)
+                at += band.rows
+            out[:, at:] = dd[:, at:]
+            return out
+
+        def all_step_plain(rows):
+            dd = d_all[rows]
+            out = torch.empty_like(dd)
+            at = 0
+            for band, s_b, w_b in zip(g.bands, g_src, g_w):
+                out[:, at : at + band.rows] = ell_band_relax_plain(dd, s_b, w_b, g_ov, at)
+                at += band.rows
+            out[:, at:] = dd[:, at:]
+            return out
+
+        full = all_step().clone()
+        for rows in slices:
+            compare("ell_band_relax", full[rows], all_step_plain(rows),
+                    f"all sources, {label}, rows {rows.start}:{rows.stop}")
+        del full
+        a_slots = sum(bd.rows * bd.k for bd in g.bands)
+        a_bound, a_by = bound_ms(4 * s * g.n_pad + 8 * a_slots + g.n_pad + 4 * s * g.n,
+                                 2 * s * a_slots)
+        all_sources_kernel[label] = {
+            "shape": {"S": s, "n_pad": g.n_pad, "bands": [[bd.rows, bd.k] for bd in g.bands]},
+            "plans": [plan_fields(ell_launch_plan(s, bd.rows, bd.k)) for bd in g.bands],
+            "kernel_ms": device_ms(torch, all_step, REPS, KERNEL_KEYS["ell_band_relax"],
+                                   records=len(g.bands)),
+            "call_ms": time_ms(torch, all_step, REPS),
+            "slice_rows": ALL_SOURCES_SLICE,
+            "kernel_slice_ms": device_ms(torch, lambda: all_step(slices[0]), REPS,
+                                         KERNEL_KEYS["ell_band_relax"], records=len(g.bands)),
+            "plain_slice_ms": device_ms(torch, lambda: all_step_plain(slices[0]), REPS),
+            "bound_ms": a_bound, "bound_by": a_by,
+        }
+        emit({"phase": "kernels", "kernel": "ell_band_relax", "cell": f"ksp2-{label}",
+              "at": "all sources", "match": True, **all_sources_kernel[label]})
+        del d_all, out_all
+    torch.cuda.empty_cache()
 
     # ell_band_relax_masked at the KSP2 cells' chunks: the in-bands of the
     # 1008-node fabric with S = 1024 destination rows and of the 10 000-node
@@ -1060,10 +1193,7 @@ def main(argv=None) -> int:
         rederived = count_calls(device_solver, "create_route_for_prefix")
         relabeled = count_calls(device_solver, "_derive_label_entry")
         stager = device_solver._resident.stager
-        remote = "rsw-%d-0" % max(
-            int(name.split("-")[1]) for name in ls.get_adjacency_databases()
-            if name.startswith("rsw-")
-        )
+        remote = remote_rsw(ls)
 
         def check(got, step, host=host_solver):
             want = host.build_route_db(root, areas, ps)
@@ -1341,9 +1471,164 @@ def main(argv=None) -> int:
     sweep_small = sweep_phase("sweep-1008", dense_ls, DENSE_SWEEP_BLOCK, True)
     sweep_large = sweep_phase("sweep-10k", sparse_ls, SPARSE_SWEEP_BLOCK, False)
 
-    # -- 8./9. the main path: KSP2 route builds through the masked kernel ----
-    def ksp2_drive(phase, worlds, events):
-        """Initial build + ``events`` churn builds of a KSP2 network from
+    # -- 8./9. the main path: KSP2 route builds through the engine --------
+    def ksp2_engine_drive(phase, worlds, events):
+        """The KSP2 engine (the default up to ksp2_engine.ENGINE_MAX_NODES
+        nodes) on a KSP2 network from ``root``: an initial build,
+        ``events`` bench events (a bump of ``fsw-0-0``), REMOTE_EVENTS
+        remote ones (a bump of the last pod's first rack switch), each
+        held against the host Dijkstra solver on its own copy of the
+        databases, and after each the engine's resident all-sources
+        matrix held against a cold ``ell_distances_from_sources`` on the
+        card (its launches are taken back out of the counts). Then one
+        more bench and one more remote build under the profiler. Each
+        build reports cold build or incremental sync, the affected
+        destinations, the KSP2 route reuses, the all-sources hops and
+        ``ell_band_relax`` launches, the fast path on or off and the
+        speculative rows changed, the engine's host-clock parts, the
+        kernel launches and the host's garbage-collector ms. The launch counts and the solver counters are zeroed just before
+        and read just after."""
+        (ls, ps), (host_ls, host_ps) = worlds
+        nodes = len(ls.get_adjacency_databases())
+        areas, host_areas = {ls.area: ls}, {host_ls.area: host_ls}
+        device_solver = SpfSolver(root, backend="device", device=dev)
+        host_solver = SpfSolver(root, backend="host", device=dev)
+        stager = device_solver._resident.stager
+        remote = remote_rsw(ls)
+        want_dsts = len({
+            node for prefix in ps.prefixes()
+            for (node, _), entry in ps.entries_for(prefix).items()
+            if node != root and entry.forwarding_algorithm == KSP2_ED_ECMP
+        })
+
+        def check(got, step):
+            want = host_solver.build_route_db(root, host_areas, host_ps)
+            if carry.route_db_to_plain(got.to_route_db(root)) != carry.route_db_to_plain(
+                want.to_route_db(root)
+            ):
+                raise AssertionError(
+                    f"{phase}: route database differs from the host oracle "
+                    f"after event {step}"
+                )
+            if len(got.unicast_routes) != nodes - 1 or len(got.mpls_routes) < nodes:
+                raise AssertionError(
+                    f"{phase}: {len(got.unicast_routes)} unicast and "
+                    f"{len(got.mpls_routes)} MPLS routes for {nodes} nodes"
+                )
+            engine = device_solver._ksp2_engines[ls]
+            state = device_solver._resident._cache[ls][1]
+            saved = dict(LAUNCHES)
+            cold = spf_sparse.ell_distances_from_sources(
+                state.graph, torch.arange(state.graph.n_pad, device=dev), state=state)
+            LAUNCHES.update(saved)
+            same = torch.equal(engine.d_prev_dev, cold)
+            del cold
+            if not same:
+                raise AssertionError(f"{phase}: the engine's resident all-sources matrix "
+                                     f"after event {step} differs from a cold solve")
+
+        def bump(node, metric):
+            def event():
+                for l in (ls, host_ls):
+                    bump_metric(l, node, metric)
+            return event
+
+        def one_build(step, event):
+            if event is not None:
+                event()
+            before = dict(LAUNCHES)
+            c0, b0 = get_spf_counters(), dict(stager.bytes)
+            gc0 = gc_clock.read()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = device_solver.build_route_db(root, areas, ps)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            gc1 = gc_clock.read()
+            c1 = get_spf_counters()
+            stats = dict(device_solver.ksp2_stats)
+            if stats.get("dsts") != want_dsts:
+                raise AssertionError(f"{phase}: the engine tracked {stats.get('dsts')} "
+                                     f"of {want_dsts} KSP2 destinations")
+            engine = device_solver._ksp2_engines[ls]
+            launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] > before[k]}
+            parts = {k: v for k, v in stats.items() if k.endswith("_ms")}
+            rec = {
+                "event": step, "ms": ms, "cold": bool(stats["cold"]),
+                "fast_path": engine.masks_t is not None,
+                "affected": stats.get("affected"),
+                "rows_changed": stats.get("rows_changed"),
+                "all_sources_hops": engine.last_hops,
+                "counters": {k[len("decision."):]: c1[k] - c0[k] for k in KSP2_COUNTERS},
+                "parts_ms": parts,
+                "assembly_ms": ms - sum(parts.values()),
+                "gc_ms": gc1[0] - gc0[0], "gc_full_collections": gc1[1] - gc0[1],
+                "masked_batches": stats.get("chunks", 0),
+                "h2d_bytes": {k: v - b0.get(k, 0) for k, v in stager.bytes.items()
+                              if v > b0.get(k, 0)},
+                "launches": launches,
+            }
+            check(got, step)
+            return rec
+
+        reset_launches()
+        for name in SPF_COUNTERS:
+            SPF_COUNTERS[name] = 0
+        builds = [one_build(step, None if step == 0 else bump("fsw-0-0", 2 + (step - 1) % 5))
+                  for step in range(events + 1)]
+        remotes = [one_build(f"remote {i}", bump(remote, 3 + i)) for i in range(REMOTE_EVENTS)]
+        profiles = {}
+        for label, node, metric in (("bench", "fsw-0-0", 9), ("remote", remote, 20)):
+            stats, (got, launched, wall_ms), _ = profiled(
+                torch, churn_build(torch, device_solver, areas, ps, root, LAUNCHES),
+                lambda st, res: build_lacking(st, res[1], least_launch_ms),
+                prepare=lambda attempt, node=node, metric=metric: bump(node, metric + attempt)())
+            check(got, f"profiled {label}")
+            busy_ms = device_us(stats, "a call") / 1e3
+            profiles[label] = {
+                "build_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+                "cold": bool(device_solver.ksp2_stats["cold"]),
+                "kernel_device_ms": {k: device_us(stats, KERNEL_KEYS[k]) / 1e3
+                                     for k in launched},
+                "profiled_launches": launched,
+                "kernel_records": {k: kernel_records(stats, KERNEL_KEYS[k]) for k in launched},
+                "h2d_copy_ms": copy_ms(stats), "d2h_copy_ms": copy_ms(stats, "DtoH"),
+                "top_device_ms": top_device_ms(stats),
+            }
+        counters = dict(SPF_COUNTERS)
+        if counters["decision.ksp2_device_batches"] == 0:
+            raise AssertionError(f"{phase}: no KSP2 device batch")
+        if counters["decision.ksp2_host_fallbacks"] or counters["decision.spf_host_fallback"]:
+            raise AssertionError(f"{phase}: host fallbacks {counters}")
+        if not any(b["counters"]["ksp2_incremental_syncs"] and b["counters"]["ksp2_route_reuses"]
+                   for b in remotes):
+            raise AssertionError(f"{phase}: no remote event synced incrementally and "
+                                 f"reused KSP2 routes: {[b['counters'] for b in remotes]}")
+        launches = dict(LAUNCHES)
+        for kernel in ("ell_band_relax", "ell_band_relax_masked"):
+            if launches[kernel] == 0:
+                raise AssertionError(f"{phase}: KSP2 builds launched no {kernel}")
+        events_only = builds[1:]
+        emit({
+            "phase": phase, "mode": "engine", "nodes": nodes, "root": root,
+            "events": events, "ksp2_dsts": want_dsts, "parity_with_host_oracle": True,
+            "resident_matches_cold_solve": True,
+            "first_build": builds[0],
+            "median_event_ms": statistics.median(b["ms"] for b in events_only),
+            "event_ms": [b["ms"] for b in events_only],
+            "remote_node": remote, "remote_event_ms": [b["ms"] for b in remotes],
+            "event_builds": events_only, "remote_builds": remotes,
+            "profiled": profiles,
+            "counters": counters, "launches": launches,
+            "unicast_routes": len(got.unicast_routes),
+            "mpls_routes": len(got.mpls_routes),
+        })
+        return launches
+
+    def ksp2_chunked_drive(phase, worlds, events):
+        """The per-build chunked masked dispatch (the engine turned off):
+        an initial build + ``events`` churn builds of a KSP2 network from
         ``root``, each held against the host Dijkstra solver on its own
         copy of the databases, then one more churn build under the
         profiler. The masked solves run over the solver's resident bands:
@@ -1394,6 +1679,7 @@ def main(argv=None) -> int:
                     bump_metric(l, "fsw-0-0", 2 + (step - 1) % 5)
             before = dict(LAUNCHES)
             b0 = dict(stager.bytes)
+            gc0 = gc_clock.read()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             device_solver._view(ls.area, ls, root)
@@ -1401,6 +1687,7 @@ def main(argv=None) -> int:
             got = device_solver.build_route_db(root, areas, ps)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            gc1 = gc_clock.read()
             h2d = {k: v - b0.get(k, 0) for k, v in stager.bytes.items() if v > b0.get(k, 0)}
             stats = device_solver.ksp2_stats
             if stats.get("dsts") != want_dsts:
@@ -1411,6 +1698,8 @@ def main(argv=None) -> int:
                      **{k: stats[k] for k in KSP2_PARTS}}
             build["assembly_ms"] = build["ms"] - build["view_ms"] - sum(
                 stats[k] for k in KSP2_PARTS)
+            build["gc_ms"] = gc1[0] - gc0[0]
+            build["gc_full_collections"] = gc1[1] - gc0[1]
             build["hops"] = launches["ell_band_relax_masked"] / (n_bands * stats["chunks"]) - 1
             build["chunks"] = stats["chunks"]
             build["mask_bytes"] = stats["mask_bytes"]
@@ -1477,11 +1766,18 @@ def main(argv=None) -> int:
         })
         return launches
 
-    ksp2_small = ksp2_drive("ksp2-1008", ksp2_dense, KSP2_DENSE_EVENTS)
-    ksp2_large = ksp2_drive("ksp2-10k", ksp2_sparse, KSP2_SPARSE_EVENTS)
+    ksp2_small = ksp2_engine_drive("ksp2-1008", ksp2_dense, KSP2_DENSE_EVENTS)
+    ksp2_large = ksp2_engine_drive("ksp2-10k", ksp2_sparse, KSP2_SPARSE_EVENTS)
+    engine_max = ksp2_engine.ENGINE_MAX_NODES
+    ksp2_engine.ENGINE_MAX_NODES = 0
+    try:
+        ksp2_chunked = ksp2_chunked_drive("ksp2-1008-chunked", ksp2_dense_chunked,
+                                          KSP2_CHUNKED_EVENTS)
+    finally:
+        ksp2_engine.ENGINE_MAX_NODES = engine_max
     main_launches = {
         k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + ksp2_small[k]
-        + ksp2_large[k]
+        + ksp2_large[k] + ksp2_chunked[k]
         for k in LAUNCHES
     }
 
@@ -1521,7 +1817,8 @@ def main(argv=None) -> int:
          "call_ms": ell_call, "plain_call_ms": ell_plain_call,
          "shape": {"S": b, "n_pad": graph.n_pad,
                    "bands": [[bd.rows, bd.k] for bd in graph.bands]},
-         "match": True},
+         "match": True,
+         "all_sources": all_sources_kernel},
         {"name": "ell_band_relax_masked", "route": "cuda",
          "source": f"{csrc}/ell_relax_masked.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:219",

@@ -3,7 +3,7 @@
 The "weights" of a route build are its inputs and compiled graph state:
 the link-state and prefix databases, the dense snapshot, the sliced-ELL
 bands (in-edge and out-edge), the grouped segments, the KSP2 exclusion
-sets (as link keys). These functions build the port's objects from plain
+sets and a KSP2 engine's cached paths (as link keys). These functions build the port's objects from plain
 Python data and numpy arrays, so any producer (a file, another
 implementation, a test) can hand state to the port without sharing a type
 with it, and turn a ``RouteDatabase`` into a canonical plain form for
@@ -276,6 +276,17 @@ def links_from_keys(ls, key_sets) -> List[set]:
     key that names no link of ``ls`` raises."""
     by_key = {link_key(link): link for link in ls.all_links()}
     return [{by_key[tuple(key)] for key in keys} for keys in key_sets]
+
+
+def paths_to_keys(paths_by_dst) -> dict:
+    """A KSP2 engine's cached paths (``{destination: [path]}``, a path a
+    list of ``Link``s of either package) as plain link keys
+    (``spf_sparse.link_key``), for comparison destination by
+    destination."""
+    return {
+        dst: [[link_key(link) for link in path] for path in paths]
+        for dst, paths in paths_by_dst.items()
+    }
 
 
 def _freeze(x):

@@ -14,7 +14,13 @@ incremental state of the churn path: ``ell_patch`` (with ``widen``),
 ``ELL_COUNTERS`` and ``ell_reconverge_step``; and the KSP2 second-path
 solve: ``_ell_relax_masked``, ``_ell_masked_fixed_point``,
 ``build_edge_masks``, ``ell_masked_distances`` (host bands) and
-``ell_masked_distances_resident`` (an ``EllState``'s resident bands).
+``ell_masked_distances_resident`` (an ``EllState``'s resident bands);
+and the incremental KSP2 engine's all-sources solve: ``_ell_fixed_point``,
+``ell_distances_from_sources`` and the fused engine dispatches
+``ell_all_view_rows`` and ``ell_all_view_rows_masked`` (all-sources
+distances, the root's view and the endpoint rows; the latter also the
+speculative masked re-solve of every destination, row-diffed on the
+device).
 The reference's jitted entries have no counterpart in eager PyTorch:
 the fixed points are called directly. Each band of a relax step goes
 through ``ops.ell_relax.ell_band_relax`` (or ``ell_band_relax_masked``:
@@ -26,10 +32,11 @@ cells. The JAX ``lax.while_loop`` becomes a Python loop with one host
 sync per hop. Where the reference donates its resident buffers, the port
 scatters the patched rows into them in place (``index_copy_``); its
 host-to-device copies go through one pinned buffer
-(``ops.staging.UploadStager``).
-Left out for later slices: ``ell_all_view_rows(_masked)``, the
-all-sources solve, the flat edge-list graph, sharding and the
-tenant-plane dispatch.
+(``ops.staging.UploadStager``), and the engine's and the masked solve's
+readbacks land in pinned host memory (``ops.staging.Readback``), where the
+reference kicks an async copy and reaps it. Left out for later slices:
+``iter_ell_all_sources``/``ell_all_sources``, the flat edge-list graph,
+sharding and the tenant-plane dispatch.
 
 One relaxation step over the class bands costs S x (total slots) work:
 
@@ -54,7 +61,7 @@ from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked, mask_words
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
-from openr_tpu_torch.ops.staging import UploadStager
+from openr_tpu_torch.ops.staging import Readback, UploadStager
 
 _NODE_PAD = 128
 _ELL_SLOT_PAD = 8
@@ -504,11 +511,18 @@ def _ell_view_batch(srcs_t, ws_t, overloaded, srcs, w_sv, bands, n):
     return torch.cat([d, fh.to(torch.int32)], dim=0)
 
 
-def _batch_args(graph: EllGraph, srcs, device):
+def _batch_host_args(graph: EllGraph, srcs) -> Tuple[np.ndarray, np.ndarray]:
+    """A source batch as int32 ids and the host-computed direct metric
+    source -> each batch node (INF where not adjacent)."""
     srcs = np.asarray(srcs, dtype=np.int32)
     w_sv = direct_metrics(graph, int(srcs[0]), srcs)
     # the source itself is never its own neighbour
     w_sv[srcs == srcs[0]] = INF
+    return srcs, w_sv
+
+
+def _batch_args(graph: EllGraph, srcs, device):
+    srcs, w_sv = _batch_host_args(graph, srcs)
     return (
         torch.from_numpy(srcs).to(device),
         torch.from_numpy(w_sv).to(device),
@@ -985,15 +999,182 @@ def ell_reconverge_step(state: EllState, patched: EllGraph, srcs) -> torch.Tenso
     return state.reconverge(patched, srcs)
 
 
-def ell_masked_distances_resident(state: EllState, src_id: int, masks) -> np.ndarray:
+def ell_masked_distances_resident(state: EllState, src_id: int, masks) -> Readback:
     """The batched masked solve from ``src_id`` over an ``EllState``'s
-    resident bands and overload mask: host [B, n_pad] int32. Only the
-    packed masks (``build_edge_masks``) cross to the device, through the
-    state's stager."""
+    resident bands and overload mask: [B, n_pad] int32 rows, one a mask
+    batch row, returned as their ``Readback`` into pinned host memory, in
+    flight (``tensor`` the device rows; ``reap()`` the host array).
+    ``masks`` are ``build_edge_masks``' packed words, crossing to the
+    device through the state's stager, or tensors already there."""
     state._check_whole()
-    masks_t = state.stager.upload([("masks", m) for m in masks])
+    if not isinstance(masks[0], torch.Tensor):
+        masks = state.stager.upload([("masks", m) for m in masks])
     d, _ = _ell_masked_fixed_point(
-        state.src, state.w, tuple(masks_t), state.overloaded, src_id,
+        state.src, state.w, tuple(masks), state.overloaded, src_id,
         state.graph.bands, state.graph.n_pad,
     )
-    return d.cpu().numpy()
+    return Readback(d)
+
+
+# -- all-sources solve and the KSP2 engine's fused dispatches ----------------
+
+
+def _ell_fixed_point(srcs_t, ws_t, overloaded, src_ids, bands, n, warm=None):
+    """``(distances [S, n], hops)`` from a batch of sources over the class
+    bands. The init is one relax with no overload mask, so an overloaded
+    source still originates; ``warm`` = (d_prev, inc_tail, inc_head,
+    inc_w) seeds it from the previous rows through ``_warm_seed`` (the
+    same fixed point, fewer hops under churn). Then one relax per hop
+    until a hop changes nothing or after ``n`` hops, one host sync per
+    hop."""
+    s = src_ids.shape[0]
+    dev = overloaded.device
+    unit = torch.full((s, n), INF, dtype=torch.int32, device=dev)
+    unit[torch.arange(s, device=dev), src_ids.long()] = 0
+    d = _ell_relax(unit, bands, srcs_t, ws_t, torch.zeros_like(overloaded))
+    del unit
+    if warm is not None:
+        d = _warm_seed(*warm, d)
+    hops = 0
+    while hops < n:
+        nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
+        hops += 1
+        changed = bool((nxt < d).any())
+        d = nxt
+        if not changed:
+            break
+    return d, hops
+
+
+def ell_distances_from_sources(graph: EllGraph, src_ids, state: Optional[EllState] = None,
+                               device: DeviceLike = None) -> torch.Tensor:
+    """Distances [S, n_pad] on the device from a batch of sources over
+    the ELL graph: over ``state``'s resident bands when one is passed (no
+    band upload), else over ``graph``'s bands uploaded to ``device``
+    (None = CUDA)."""
+    if state is not None:
+        state._check_whole()
+        srcs_t, ws_t, ov = state.src, state.w, state.overloaded
+    else:
+        dev = resolve_device(device)
+        srcs_t = tuple(torch.from_numpy(s).to(dev) for s in graph.src)
+        ws_t = tuple(torch.from_numpy(w).to(dev) for w in graph.w)
+        ov = torch.from_numpy(graph.overloaded).to(dev)
+    d, _ = _ell_fixed_point(srcs_t, ws_t, ov, _as_device_ids(src_ids, ov.device),
+                            graph.bands, graph.n_pad)
+    return d
+
+
+def _ell_all_view_rows(srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev,
+                       inc_tail, inc_head, inc_w, bands, n):
+    """The incremental KSP2 engine's fused step: all-sources distances D
+    [n, n] over the bands, warm-seeded from ``d_prev`` (the previous
+    step's D) with the increase-edge delta; the root's batched view
+    (distances + first hops, the algebra of ``_ell_view_batch``) taken
+    from D's rows instead of a second fixed point; and the rows of the
+    invalidation endpoints from D and from ``d_prev``. Returns ``(D,
+    packed, hops)``, ``packed`` = [view d | view first hops | new
+    endpoint rows | old endpoint rows]: one readback."""
+    arange = torch.arange(n, dtype=torch.int32, device=overloaded.device)
+    d_all, hops = _ell_fixed_point(srcs_t, ws_t, overloaded, arange, bands, n,
+                                   warm=(d_prev, inc_tail, inc_head, inc_w))
+    d = d_all[view_srcs.long()]
+    fh = _first_hops_from_rows(d, view_srcs, w_sv, overloaded)
+    ep = ep_ids.long()
+    packed = torch.cat([d, fh.to(torch.int32), d_all[ep], d_prev[ep]], dim=0)
+    return d_all, packed, hops
+
+
+def _changed_row_meta(row_changed, n: int, k_budget: int):
+    """The on-device row diff's meta row [n] int32: the first
+    ``k_budget`` changed row ids in ascending order, padded with -1, then
+    their count at ``k_budget`` and -1 after it; and the ids. A cumsum
+    ranks the changed rows and a scatter compacts them, where a nonzero
+    would sync with the host and take a data-dependent shape; ranks past
+    the budget and unchanged rows land in a spare slot that is dropped."""
+    b = row_changed.shape[0]
+    dev = row_changed.device
+    rank = torch.cumsum(row_changed.to(torch.int64), dim=0) - 1
+    slot = torch.where(row_changed & (rank < k_budget), rank,
+                       torch.full_like(rank, k_budget))
+    ids = torch.full((k_budget + 1,), -1, dtype=torch.int64, device=dev)
+    ids.scatter_(0, slot, torch.arange(b, dtype=torch.int64, device=dev))
+    ids = ids[:k_budget]
+    meta = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    meta[:k_budget] = ids.to(torch.int32)
+    meta[k_budget] = row_changed.sum().to(torch.int32)
+    return meta, ids
+
+
+def _ell_all_view_rows_masked(srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev,
+                              inc_tail, inc_head, inc_w, masks_t, dm_old, src_id, bands, n,
+                              k_budget):
+    """``_ell_all_view_rows`` plus the speculative masked re-solve of
+    every destination's second-path graph against the resident masks
+    ``masks_t`` (one batch row a destination, cold: a previous masked row
+    is no upper bound once the masks move), diffed on the device against
+    ``dm_old``, so the readback carries only the rows that moved. Returns
+    ``(D, dm_new, packed, hops)``, ``packed`` = ``_ell_all_view_rows``'
+    rows, then the meta row (``_changed_row_meta``), then the changed
+    rows (the first ``k_budget``; padding ids gather row 0)."""
+    d_all, packed, hops = _ell_all_view_rows(
+        srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev,
+        inc_tail, inc_head, inc_w, bands, n,
+    )
+    dm_new, _ = _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n)
+    b = dm_new.shape[0]
+    meta, ids = _changed_row_meta((dm_new != dm_old).any(dim=1), n, k_budget)
+    changed_rows = dm_new[ids.clamp(0, b - 1)]
+    packed = torch.cat([packed, meta[None, :], changed_rows], dim=0)
+    return d_all, dm_new, packed, hops
+
+
+def _inc_args(inc):
+    """Host increase-edge triple for the warm-seeded dispatches:
+    ``inc=None`` means cold (the reset sentinel flags every row); an
+    increase list, even an empty one, starts warm."""
+    return pad_increase_edges([_FORCE_RESET_EDGE] if inc is None else list(inc))
+
+
+def _engine_inputs(state: EllState, view_srcs, w_sv, ep_ids, inc):
+    """The fused dispatches' small host inputs in one staged copy."""
+    inc_t, inc_h, inc_w = _inc_args(inc)
+    return state.stager.upload([
+        ("view", np.asarray(view_srcs, dtype=np.int32)),
+        ("view", np.asarray(w_sv, dtype=np.int32)),
+        ("view", np.asarray(ep_ids, dtype=np.int32)),
+        ("view", inc_t), ("view", inc_h), ("view", inc_w),
+    ])
+
+
+def ell_all_view_rows(state: EllState, view_srcs, w_sv, ep_ids, d_prev, inc=None):
+    """The fused all-sources + view + endpoint-rows step over ``state``'s
+    resident bands. ``view_srcs``, ``w_sv`` and ``ep_ids`` are host
+    arrays; ``inc`` is the increase-edge delta [(tail, head, old w)]
+    (None: cold). ``d_prev`` is not changed: the caller rebinds its
+    resident matrix to the returned D. Returns ``(D, packed, hops)``,
+    ``packed`` as its ``Readback`` in flight."""
+    state._check_whole()
+    srcs_t, w_t, ep_t, inc_t, inc_h, inc_w = _engine_inputs(state, view_srcs, w_sv, ep_ids, inc)
+    d_all, packed, hops = _ell_all_view_rows(
+        state.src, state.w, state.overloaded, srcs_t, w_t, ep_t, d_prev,
+        inc_t, inc_h, inc_w, state.graph.bands, state.graph.n_pad,
+    )
+    return d_all, Readback(packed), hops
+
+
+def ell_all_view_rows_masked(state: EllState, view_srcs, w_sv, ep_ids, d_prev, masks_t,
+                             dm_old, src_id: int, k_budget: int, inc=None):
+    """``ell_all_view_rows`` plus the speculative masked re-solve against
+    the resident ``masks_t`` and its on-device row diff against
+    ``dm_old``. Neither ``d_prev`` nor ``dm_old`` is changed. Returns
+    ``(D, dm_new, packed, hops)``, ``packed`` as in
+    ``ell_all_view_rows``."""
+    state._check_whole()
+    srcs_t, w_t, ep_t, inc_t, inc_h, inc_w = _engine_inputs(state, view_srcs, w_sv, ep_ids, inc)
+    d_all, dm_new, packed, hops = _ell_all_view_rows_masked(
+        state.src, state.w, state.overloaded, srcs_t, w_t, ep_t, d_prev,
+        inc_t, inc_h, inc_w, tuple(masks_t), dm_old, src_id,
+        state.graph.bands, state.graph.n_pad, k_budget,
+    )
+    return d_all, dm_new, Readback(packed), hops

@@ -1,11 +1,14 @@
-"""Host-to-device copies through one pinned host buffer.
+"""Host-to-device copies through one pinned host buffer, and deferred
+device-to-host copies into pinned host memory.
 
 The resident state of a route build (the dense snapshot's metric rows,
 the sliced-ELL bands and their patched rows, the warm solve's increase
 edges, the source batch, the KSP2 edge masks) crosses to the card through
 an ``UploadStager``: one pinned buffer, each upload one ``non_blocking``
 copy on the current stream, where a copy from pageable numpy memory
-would be bounced by CUDA through a buffer of its own.
+would be bounced by CUDA through a buffer of its own. A ``Readback``
+is the way back: one ``non_blocking`` copy into pinned host memory that
+the caller reaps when it needs the bytes.
 """
 
 from __future__ import annotations
@@ -59,3 +62,34 @@ class UploadStager:
         self._landed = torch.cuda.Event()
         self._landed.record(torch.cuda.current_stream(self.device))
         return [dev[off : off + a.size].view(a.shape) for a, off in zip(arrays, offsets)]
+
+
+class Readback:
+    """A device-to-host copy of one tensor, in flight until reaped.
+
+    On a CUDA device the copy goes ``non_blocking`` into a fresh pinned
+    host tensor on the current stream, and an event marks its end: the
+    host goes on (tracing, a next dispatch) while it lands, and ``reap``
+    waits for the event. A pageable destination would make CUDA bounce
+    the bytes through a buffer of its own. On a CPU device the tensor is
+    copied at once. ``tensor`` stays the device tensor, for consumers
+    that chain further device work off it."""
+
+    def __init__(self, tensor: torch.Tensor):
+        self.tensor = tensor
+        self._done = None
+        if tensor.device.type == "cuda":
+            self._host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            self._host.copy_(tensor, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(tensor.device))
+        else:
+            self._host = tensor.detach().clone()
+
+    def reap(self) -> np.ndarray:
+        """The host copy as a numpy array, once it has landed. The array
+        shares the pinned tensor's memory and keeps it alive."""
+        if self._done is not None:
+            self._done.synchronize()
+            self._done = None
+        return self._host.numpy()

@@ -523,3 +523,123 @@ def test_batched_minplus_t_kernel_split_and_r_tiles(card, g, b, s, r, splits, r_
     torch.cuda.synchronize()
     assert LAUNCHES["batched_minplus_t"] == 1
     assert torch.equal(got, grouped_minplus.batched_minplus_t_plain(gath, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes", [1000, 10000])
+def test_ell_band_relax_at_all_sources_matches_plain(card, nodes):
+    """One relax step of the KSP2 engine's all-sources solve, S = n_pad
+    rows (1024 and 10112), over a fabric's in-bands: the kernel against
+    the plain version on slices of 1024 rows (the plain gather holds
+    [S, rows, k] at once), and the fixed point on the card against the
+    one on the CPU."""
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops import spf_sparse
+
+    topo = topologies.fat_tree_nodes(nodes)
+    ls = LinkState(area=topo.area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    graph = spf_sparse.compile_ell(ls)
+    s = graph.n_pad
+    rng = np.random.default_rng(nodes)
+    src = tuple(torch.from_numpy(x).to(card) for x in graph.src)
+    w = tuple(torch.from_numpy(x).to(card) for x in graph.w)
+    ov = torch.from_numpy(rng.random(s) < 0.05).to(card)
+    d = _mat(rng, (s, s), 0.5).to(card)
+    got = spf_sparse._ell_relax(d, graph.bands, src, w, ov)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax"] == len(graph.bands)
+    for rows in (slice(0, 1024), slice(s - 1024, s)):
+        pos = 0
+        for band, s_b, w_b in zip(graph.bands, src, w):
+            want = ell_relax.ell_band_relax_plain(d[rows], s_b, w_b, ov, pos)
+            assert torch.equal(got[rows, pos : pos + band.rows], want)
+            pos += band.rows
+    if nodes == 1000:
+        ids = np.arange(s)
+        on_card = spf_sparse.ell_distances_from_sources(graph, ids, device=card)
+        on_cpu = spf_sparse.ell_distances_from_sources(graph, ids, device="cpu")
+        assert torch.equal(on_card.cpu(), on_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", ["1", "0"])
+def test_ksp2_engine_on_the_card_matches_the_cpu(card, monkeypatch, fast):
+    """The KSP2 engine's route databases and counters through churn, on
+    the card and on the CPU, each solver on its own databases; after
+    every event the engine's resident all-sources matrix on the card
+    equals the CPU's and a cold solve on the card."""
+    from dataclasses import replace
+
+    from openr_tpu_torch import carry
+    from openr_tpu_torch.decision import spf_solver
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops import spf_sparse
+    from openr_tpu_torch.types.lsdb import PrefixForwardingAlgorithm, PrefixForwardingType
+
+    monkeypatch.setenv("OPENR_KSP2_FAST", fast)
+    monkeypatch.setattr(spf_solver, "KSP2_DEVICE_MIN_DSTS", 1)
+    topo = topologies.fat_tree_nodes(
+        120, forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+        forwarding_type=PrefixForwardingType.SR_MPLS)
+
+    def world():
+        ls = LinkState(area=topo.area)
+        for name in sorted(topo.adj_dbs):
+            ls.update_adjacency_database(topo.adj_dbs[name])
+        ps = PrefixState()
+        for name in sorted(topo.prefix_dbs):
+            ps.update_prefix_database(topo.prefix_dbs[name])
+        return {topo.area: ls}, ps
+
+    root = "rsw-0-0"
+    runs = {dev: (spf_solver.SpfSolver(root, backend="device", device=dev), world())
+            for dev in (card, torch.device("cpu"))}
+    names = sorted(topo.adj_dbs)
+    fsw = next(n for n in names if n.startswith("fsw"))
+    far = [n for n in names if n.startswith("rsw")][-1]
+
+    def event(change):
+        for _, (areas, _) in runs.values():
+            (ls,) = areas.values()
+            db = ls.get_adjacency_databases()[change[0]]
+            ls.update_adjacency_database(change[1](db))
+
+    def metric(node, m):
+        return node, lambda db: replace(db, adjacencies=(
+            replace(db.adjacencies[0], metric=m),) + db.adjacencies[1:])
+
+    def build():
+        out = {}
+        for dev, (solver, (areas, ps)) in runs.items():
+            before = dict(spf_solver.SPF_COUNTERS)
+            got = solver.build_route_db(root, areas, ps)
+            counts = {k: spf_solver.SPF_COUNTERS[k] - before[k]
+                      for k in before if "ksp2" in k}
+            (ls,) = areas.values()
+            out[dev] = (carry.route_db_to_plain(got.to_route_db(root)), counts,
+                        solver._ksp2_engines[ls])
+        (db_card, c_card, e_card), (db_cpu, c_cpu, e_cpu) = out[card], out[torch.device("cpu")]
+        assert db_card == db_cpu and c_card == c_cpu
+        assert torch.equal(e_card.d_prev_dev.cpu(), e_cpu.d_prev_dev)
+        state = e_card.state
+        cold = spf_sparse.ell_distances_from_sources(
+            state.graph, np.arange(state.graph.n_pad), state=state)
+        assert torch.equal(e_card.d_prev_dev, cold)
+        assert (e_card.masks_t is not None) == (fast == "1")
+        return c_card
+
+    build()
+    reset_launches()
+    syncs = 0
+    for change in (metric(fsw, 3), metric(far, 4), metric(far, 5),
+                   (fsw, lambda db: replace(db, is_overloaded=True)),
+                   (fsw, lambda db: replace(db, is_overloaded=False)), metric(far, 6)):
+        event(change)
+        syncs += build()["decision.ksp2_incremental_syncs"]
+    assert syncs > 0
+    assert LAUNCHES["ell_band_relax"] > 0

@@ -10,11 +10,15 @@ second paths to the oracle. Route databases must be equal, exactly,
 after every event of a churn sequence. The JAX device solver runs in
 both of its KSP2 modes: its incremental engine (the default at these
 sizes) and its per-build chunked masked dispatch
-(``ksp2_engine.ENGINE_MAX_NODES`` set to 0 for the test), which is the
-path the port implements; under the chunked mode the KSP2 counters must
-match too (``ENGINE_FAULTS`` names the one event where the engine
-disagrees with its own package's host backend). Both packages' ``KSP2_DEVICE_MIN_DSTS`` are set
-to 1 so that small graphs take the device path.
+(``ksp2_engine.ENGINE_MAX_NODES`` set to 0 for the test), and so does the
+port's, the two packages in the same mode. The port must equal the JAX
+host backend after every event, and the JAX device solver after every
+event outside ``ENGINE_FAULTS``, which names the one event where the
+reference engine disagrees with its own package's host backend; the port's
+engine does not. The KSP2 counters must match too: under the chunked mode
+over the whole run, under the engine mode event by event (outside
+``ENGINE_FAULTS``). Both packages' ``KSP2_DEVICE_MIN_DSTS`` are set to 1
+so that small graphs take the device path.
 
 The pieces are held against the reference one by one as well: the masked
 fixed point, ``build_edge_masks`` band by band (per-link slots and the
@@ -57,6 +61,14 @@ KSP2 = dict(
     forwarding_type=JaxFwdType.SR_MPLS,
 )
 COUNTERS = ("decision.ksp2_device_batches", "decision.ksp2_host_fallbacks")
+# the incremental engine's counters besides those
+ENGINE_COUNTERS = COUNTERS + (
+    "decision.ksp2_cold_builds",
+    "decision.ksp2_incremental_syncs",
+    "decision.ksp2_warm_dispatches",
+    "decision.ksp2_affected_dsts",
+    "decision.ksp2_route_reuses",
+)
 
 
 @pytest.fixture(autouse=True)
@@ -208,8 +220,8 @@ def _plain(route_db, root):
     return carry.route_db_to_plain(route_db.to_route_db(root))
 
 
-def _counts(counters):
-    return tuple(int(counters[name]) for name in COUNTERS)
+def _counts(counters, names=COUNTERS):
+    return tuple(int(counters[name]) for name in names)
 
 
 # Where openr_tpu's incremental KSP2 engine disagrees with openr_tpu's own
@@ -217,16 +229,25 @@ def _counts(counters):
 # drains in area "a" of the two-area network, the engine's route reuse keeps
 # the absent route of fd00::/128, which the root and fsw-0-0 (area "b")
 # both advertise; the host backend and the chunked dispatch route it through
-# area "b". There the port is held against the host backend, and the
-# engine's divergence is asserted, so a fix of the reference shows here.
+# area "b". The root's drain cold-builds area "a"'s engine, whose affected
+# set (all its destinations) never holds the root, so the root-advertised
+# prefix passes the reuse gate. The port's engine path puts the root into
+# the affected set when its overload bit flips: there the port is held
+# against the host backend, and the reference engine's divergence is
+# asserted, so a fix of the reference shows here.
 ENGINE_FAULTS = {("two_area", "a: root drained")}
+
+
+def _set_modes(mode, monkeypatch):
+    if mode == "chunked":
+        monkeypatch.setattr(jax_ksp2, "ENGINE_MAX_NODES", 0)
+        monkeypatch.setattr(port_ksp2, "ENGINE_MAX_NODES", 0)
 
 
 @pytest.mark.parametrize("mode", ["engine", "chunked"])
 @pytest.mark.parametrize("kind", ["fat_tree", "grid", "lag_equal", "lag_unequal", "two_area"])
 def test_ksp2_route_db_parity_through_churn(kind, mode, monkeypatch):
-    if mode == "chunked":
-        monkeypatch.setattr(jax_ksp2, "ENGINE_MAX_NODES", 0)
+    _set_modes(mode, monkeypatch)
     twin = Twin(kind)
     root = twin.root
     jax_dev = jax_solver.SpfSolver(root, backend="device")
@@ -240,6 +261,8 @@ def test_ksp2_route_db_parity_through_churn(kind, mode, monkeypatch):
 
     def compare(event):
         nonlocal ksp2_routes
+        jax_c = _counts(jax_solver.SPF_COUNTERS, ENGINE_COUNTERS)
+        port_c = _counts(port_solver.SPF_COUNTERS, ENGINE_COUNTERS)
         want = _plain(jax_dev.build_route_db(root, twin.jax.areas, twin.jax.ps), root)
         want_host = _plain(
             jax_host.build_route_db(root, twin.jax_host.areas, twin.jax_host.ps), root
@@ -248,10 +271,19 @@ def test_ksp2_route_db_parity_through_churn(kind, mode, monkeypatch):
         oracle = _plain(port_host.build_route_db(root, twin.host.areas, twin.host.ps), root)
         assert got == want_host, f"{kind}/{mode}: port device != openr_tpu host after {event}"
         assert oracle == want_host, f"{kind}/{mode}: port host != openr_tpu host after {event}"
+        jax_d = [a - b for a, b in zip(_counts(jax_solver.SPF_COUNTERS, ENGINE_COUNTERS), jax_c)]
+        port_d = [a - b for a, b in zip(_counts(port_solver.SPF_COUNTERS, ENGINE_COUNTERS), port_c)]
         if want != want_host:
             faults.add((kind, event))
         else:
             assert got == want, f"{kind}/{mode}: port device != openr_tpu after {event}"
+        if mode == "engine" and event.endswith("root drained"):
+            # the port re-derives the root's prefixes, which the reference
+            # reuses across the root's drain
+            assert port_d[:-1] == jax_d[:-1], f"{kind}: KSP2 counters after {event}"
+            assert port_d[-1] <= jax_d[-1] - ((kind, event) in ENGINE_FAULTS), event
+        elif mode == "engine":
+            assert port_d == jax_d, f"{kind}: KSP2 counters after {event}"
         ksp2_routes += len(got[1])
 
     compare("initial build")
@@ -265,18 +297,52 @@ def test_ksp2_route_db_parity_through_churn(kind, mode, monkeypatch):
     port_delta = tuple(
         a - b for a, b in zip(_counts(port_solver.SPF_COUNTERS), port_before)
     )
-    # one masked batch per area and build, no destination left to the host
-    assert port_delta == (events * len(twin.dev.areas), 0)
     if mode == "chunked":
+        # one masked batch per area and build, no destination left to the host
+        assert port_delta == (events * len(twin.dev.areas), 0)
         jax_delta = tuple(
             a - b for a, b in zip(_counts(jax_solver.SPF_COUNTERS), jax_before)
         )
         assert port_delta == jax_delta
 
 
-def test_ksp2_second_paths_come_from_the_device_batch():
-    # the device solver primes every destination's second paths before
-    # the prefix loop; the host solver leaves them to get_kth_paths
+def test_ksp2_engine_fault_is_not_reproduced():
+    # two_area, the root drained in area "a": the reference engine keeps
+    # the absent route of fd00::/128; the port's engine gives the host
+    # backend's route through area "b"
+    twin = Twin("two_area")
+    root = twin.root
+    jax_dev = jax_solver.SpfSolver(root, backend="device")
+    jax_host = jax_solver.SpfSolver(root, backend="host")
+    port_dev = port_solver.SpfSolver(root, backend="device", device="cpu")
+
+    def builds():
+        return (
+            port_dev.build_route_db(root, twin.dev.areas, twin.dev.ps),
+            jax_dev.build_route_db(root, twin.jax.areas, twin.jax.ps),
+            jax_host.build_route_db(root, twin.jax_host.areas, twin.jax_host.ps),
+        )
+
+    def route(route_db, prefix):
+        hits = [r for r in route_db.to_route_db(root).unicast_routes
+                if r.dest.to_str() == prefix]
+        return carry.route_db_to_plain(
+            replace(route_db.to_route_db(root), unicast_routes=hits, mpls_routes=[]))[1]
+
+    builds()
+    for event in _events(twin):
+        got, want, want_host = builds()
+        if event == "a: root drained":
+            break
+    assert _plain(got, root) == _plain(want_host, root) != _plain(want, root)
+    assert len(route(got, "fd00::/128")) == 1
+    assert route(got, "fd00::/128") == route(want_host, "fd00::/128")
+    assert route(want, "fd00::/128") == ()
+    assert ("two_area", event) in ENGINE_FAULTS
+
+
+def _second_paths_from_the_device_batch(mode, monkeypatch):
+    _set_modes(mode, monkeypatch)
     twin = Twin("fat_tree")
     root = twin.root
     port_dev = port_solver.SpfSolver(root, backend="device", device="cpu")
@@ -286,16 +352,59 @@ def test_ksp2_second_paths_come_from_the_device_batch():
     assert all((root, dst, 2) in ls._kth_path_cache for dst in dsts)
     stats = port_dev.ksp2_stats
     assert stats["dsts"] == len(dsts) and stats["chunks"] == 1
-    # one chunk's packed masks: a bit a slot and destination row
+    # one chunk's packed masks: a bit a slot and destination row; the
+    # chunked dispatch pads the chunk to _ksp2_chunk rows, the engine to
+    # the power of two at or above the destinations (at least 8)
     graph = port_sparse.compile_ell(ls)
     rows = port_solver._ksp2_chunk(graph)
+    if mode == "engine":
+        rows = min(rows, 1 << max(3, (len(dsts) - 1).bit_length()))
     assert stats["mask_bytes"] == 4 * rows * sum(mask_words(b.rows, b.k) for b in graph.bands)
     for key in ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
                 "second_paths_ms"):
         assert stats[key] >= 0
+    return port_dev, stats
+
+
+def test_ksp2_second_paths_come_from_the_device_batch(monkeypatch):
+    # the device solver primes every destination's second paths before
+    # the prefix loop; the host solver leaves them to get_kth_paths. The
+    # first build cold-builds the area's engine
+    _port_dev, stats = _second_paths_from_the_device_batch("engine", monkeypatch)
+    assert stats["cold"] == 1
+    for key in ("dispatch_ms", "prime_ms", "snapshot_ms"):
+        assert stats[key] >= 0
+    twin = Twin("fat_tree")
+    root = twin.root
     port_host = port_solver.SpfSolver(root, backend="host", device="cpu")
     port_host.build_route_db(root, twin.host.areas, twin.host.ps)
     assert port_host.ksp2_stats == {}
+
+
+def test_ksp2_chunked_dispatch_solves_one_chunk(monkeypatch):
+    port_dev, stats = _second_paths_from_the_device_batch("chunked", monkeypatch)
+    assert "cold" not in stats and not port_dev._ksp2_engines
+
+
+def test_ksp2_engine_stats_split_an_incremental_sync(monkeypatch):
+    # a metric bump far from the root: the engine syncs incrementally and
+    # splits the sync into its host-clock parts
+    twin = Twin("fat_tree")
+    root = twin.root
+    port_dev = port_solver.SpfSolver(root, backend="device", device="cpu")
+    port_dev.build_route_db(root, twin.dev.areas, twin.dev.ps)
+    before = _counts(port_solver.SPF_COUNTERS, ENGINE_COUNTERS)
+    _set_metric(twin, "0", "rsw-2-2", 0, 3)
+    port_dev.build_route_db(root, twin.dev.areas, twin.dev.ps)
+    delta = dict(zip(ENGINE_COUNTERS, (
+        a - b for a, b in zip(_counts(port_solver.SPF_COUNTERS, ENGINE_COUNTERS), before))))
+    assert delta["decision.ksp2_incremental_syncs"] == 1
+    assert delta["decision.ksp2_cold_builds"] == 0
+    stats = port_dev.ksp2_stats
+    assert stats["cold"] == 0 and "hop_gate_ms" not in stats
+    assert stats["affected"] == delta["decision.ksp2_affected_dsts"]
+    for key in ("graph_ms", "diff_ms", "dispatch_ms", "affected_ms", "prime_ms"):
+        assert stats[key] >= 0
 
 
 def test_ksp2_below_min_dsts_stays_on_the_host(monkeypatch):
@@ -318,8 +427,7 @@ def test_ksp2_below_min_dsts_stays_on_the_host(monkeypatch):
 def test_ksp2_high_diameter_area_stays_on_the_host(mode, monkeypatch):
     # a 10 x 10 grid's corner is 18 hops from the far corner: past
     # KSP2_DEVICE_MAX_HOPS, so both packages leave the area to the host
-    if mode == "chunked":
-        monkeypatch.setattr(jax_ksp2, "ENGINE_MAX_NODES", 0)
+    _set_modes(mode, monkeypatch)
     topo = jax_topologies.grid(10, **KSP2)
     jax_world = World([topo], [], jax=True)
     port_world = World([topo], [], jax=False)

@@ -39,6 +39,7 @@ from openr_tpu.ops import spf_sparse as jax_sparse
 from openr_tpu.types.lsdb import PrefixForwardingAlgorithm as JaxAlgo
 from openr_tpu.types.lsdb import PrefixForwardingType as JaxFwdType
 from openr_tpu_torch import carry
+from openr_tpu_torch.decision import ksp2_engine as port_ksp2
 from openr_tpu_torch.decision import spf_solver as port_solver
 from openr_tpu_torch.graph.linkstate import LinkState
 from openr_tpu_torch.kernels import LAUNCHES
@@ -393,11 +394,12 @@ def _solver_counters(module):
 @pytest.mark.parametrize("algo", ["sp", "ksp2"])
 @pytest.mark.parametrize("kind", ["mesh", "fat_tree"])
 def test_solver_churn_counters_match_reference(kind, algo, monkeypatch):
-    # the sparse regime at test size, the reference's KSP2 in its chunked
-    # mode over its resident bands; every event takes the patch path
+    # the sparse regime at test size, both packages' KSP2 in its chunked
+    # mode over the resident bands; every event takes the patch path
     monkeypatch.setattr(jax_solver, "SPARSE_NODE_THRESHOLD", 3)
     monkeypatch.setattr(port_solver, "SPARSE_NODE_THRESHOLD", 3)
     monkeypatch.setattr(jax_ksp2, "ENGINE_MAX_NODES", 0)
+    monkeypatch.setattr(port_ksp2, "ENGINE_MAX_NODES", 0)
     monkeypatch.setattr(jax_solver, "KSP2_DEVICE_MIN_DSTS", 1)
     monkeypatch.setattr(port_solver, "KSP2_DEVICE_MIN_DSTS", 1)
     if kind == "mesh":

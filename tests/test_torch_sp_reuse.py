@@ -9,10 +9,11 @@ CPU) and the port's host solver, each on its own copy of the databases
 (the JAX package's are the source; each update is handed to the port
 through ``openr_tpu_torch.carry``). After every build the three route
 databases must be equal, exactly, and the build's
-``decision.sp_route_reuses`` delta must equal the reference's. The JAX
-solver's KSP2 path runs in its per-build chunked mode
-(``ksp2_engine.ENGINE_MAX_NODES`` set to 0), the mode the port
-implements, whose KSP2 prefixes are re-derived on every build.
+``decision.sp_route_reuses`` delta must equal the reference's. Both
+packages' KSP2 paths run in their per-build chunked mode
+(``ksp2_engine.ENGINE_MAX_NODES`` set to 0 in both), whose KSP2 prefixes
+are re-derived on every build, so the SP reuse is held alone (the KSP2
+engine's reuse: ``tests/test_torch_ksp2_engine.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from openr_tpu.types import BinaryAddress as JaxBinaryAddress
 from openr_tpu.types.lsdb import PrefixForwardingAlgorithm as JaxAlgo
 from openr_tpu.types.lsdb import PrefixForwardingType as JaxFwdType
 from openr_tpu_torch import carry
+from openr_tpu_torch.decision import ksp2_engine as port_ksp2
 from openr_tpu_torch.decision import spf_solver as port_solver
 from openr_tpu_torch.decision.prefix_state import PrefixState
 from openr_tpu_torch.graph.linkstate import LinkState
@@ -45,6 +47,7 @@ REUSES = "decision.sp_route_reuses"
 @pytest.fixture(params=["dense", "sparse"])
 def regime(request, monkeypatch):
     monkeypatch.setattr(jax_ksp2, "ENGINE_MAX_NODES", 0)
+    monkeypatch.setattr(port_ksp2, "ENGINE_MAX_NODES", 0)
     if request.param == "sparse":
         monkeypatch.setattr(jax_solver, "SPARSE_NODE_THRESHOLD", 3)
         monkeypatch.setattr(port_solver, "SPARSE_NODE_THRESHOLD", 3)
