@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's route build and route sweep on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's route build, route sweep and Decision module on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -8,7 +8,10 @@ Phases, one JSON line each (``"phase": ...``):
 0. ``env``: torch, CUDA and nvcc versions and the card. The card's
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` line
    is also printed on a line of its own.
-1. ``build``: the CUDA kernels built from ``openr_tpu_torch/csrc``.
+1. ``build``: the CUDA kernels built from ``openr_tpu_torch/csrc`` by
+   ``nvcc``, then the native SPF core (``csrc/spfcore.cpp``, host C++) by
+   ``g++`` into ``build/openr_tpu_torch/libspfcore.so``, with the
+   compiler's version line.
 2. ``setup``: the two networks (a 1008-node and a 10 000-node 3-tier
    fat-tree) loaded into link-state and prefix databases.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
@@ -114,6 +117,41 @@ Phases, one JSON line each (``"phase": ...``):
    the solver's resident bands: a churn build uploads no band
    (``band_bytes_per_build``; patch rows and masks only).
 
+11. ``decision-1008``: the port's ``Decision`` module on the card
+   (``decision/decision.py``), wired to two ``ReplicateQueue``s (in:
+   KvStore publications, out: route updates) and running on its own event
+   base thread, at the module's default debounce (0.010 s, 0.250 s),
+   backend ``device``, root ``rsw-0-0``, on the 1008-node fabric. Every
+   adjacency and prefix database goes in as one publication (keys from
+   ``utils/keys.py``, values from ``utils/wire.py``), then 10 bench events
+   re-publish ``fsw-0-0``'s adjacency database with its first metric at
+   ``2 + step % 5`` and 3 remote events ``rsw-61-0``'s. Each event reports
+   ``pub_to_update_ms`` (host clock from the push to the route update off
+   the out-queue, the debounce included) and its parts: ``publication_ms``
+   (the push to the debounce window's start; of it ``process_ms`` and
+   ``prewarm_ms``, timed around the module's calls), ``debounce_ms``,
+   ``rebuild_ms`` (the ``decision.rebuild_ms`` sample: the solve),
+   ``emit_ms`` (the route diff and push) and ``gc_ms``; the rebuild
+   span's ``host_touches``, ``host_dispatches`` and
+   ``blocking_syncs`` (dispatch accounting), its SP route reuses and its
+   routes updated and deleted. After each the installed route database
+   must equal the host Dijkstra solver's on its own copy of the
+   databases, the ladder must stay on its warm rung (no
+   ``decision.fallbacks``, ``degradations`` or ``ladder_exhausted``) and
+   ``minplus`` must have launched.
+12. ``decision-10k``: the same on the 10 000-node fabric, 3 bench and 3
+   remote events (``rsw-623-0``); also every rebuild after the first
+   patches the resident bands (no ``decision.ell_full_compiles``), the
+   publications prewarm them (``decision.ell_prewarms`` > 0), and
+   ``ell_band_relax`` launches; ``ops.spec_*`` are reported as read.
+13. ``decision-ladder``: a fresh 1008-node module; the fault seam
+   ``decision.spf_solve`` armed ``fail_once`` (the rebuild lands on the
+   ``cold`` rung), then ``fail_n(2)`` (the ``native`` rung: the host C++
+   core), then disarmed (once the breaker allows a probe, the module heals
+   back onto the card). Every route database equals the oracle's, and the
+   ladder counters read one fallback, one degradation, one self-heal, two
+   warm and one cold rung failures.
+
 The ``kernels`` phase holds ``ell_band_relax`` also at the KSP2 engine's
 all-sources shapes, S = n_pad rows (1024 and 10112), against its plain
 version on slices of 1024 rows. That of the route sweep's kernels (``rev_band_relax``,
@@ -133,9 +171,10 @@ Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
 exits nonzero before doing anything. The sizes are fixed: the 1008-node
 fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
-with KSP2 5 and 3, and 2 with the chunked dispatch) and a 10 000-node one
-(3 events and 3 remote ones; with KSP2 2 and 3); only the seed of the
-random kernel inputs can be set.
+with KSP2 5 and 3, and 2 with the chunked dispatch; through Decision 10
+and 3) and a 10 000-node one (3 events and 3 remote ones; with KSP2 2 and
+3; through Decision 3 and 3); only the seed of the random kernel inputs
+can be set.
 """
 
 from __future__ import annotations
@@ -185,6 +224,14 @@ KSP2_SAMPLED_DSTS = 256
 KSP2_CHUNKED_EVENTS = 2
 # rows of the all-sources relax held against the plain version at once
 ALL_SOURCES_SLICE = 1024
+# the Decision module's phases: bench events (a re-published fsw-0-0
+# adjacency database) on the 1008-node and the 10 000-node fabric, each
+# followed by REMOTE_EVENTS remote ones; the module's default debounce
+DECISION_DENSE_EVENTS = 10
+DECISION_SPARSE_EVENTS = 3
+DECISION_DEBOUNCE_S = (0.010, 0.250)
+# the longest a route update may take to come off the out-queue
+DECISION_WAIT_S = 600.0
 # the chunked KSP2 prefetch's host-clock parts (SpfSolver.ksp2_stats)
 KSP2_PARTS = ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
               "second_paths_ms")
@@ -501,6 +548,308 @@ def remote_rsw(ls) -> str:
     )
 
 
+def decision_phases(dev, root, dense_nodes, sparse_nodes, dense_events, sparse_events,
+                    gc_clock=None):
+    """The Decision module's phases (``decision-1008``, ``decision-10k``,
+    ``decision-ladder``) on ``dev``, each emitting its JSON line; returns
+    each phase's kernel launches. The sizes are arguments so a rehearsal
+    can run them small on the CPU; ``main`` passes the full ones."""
+    from openr_tpu_torch import carry
+    from openr_tpu_torch.decision import spf_solver
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.faults import FaultSchedule, HealthState, get_injector
+    from openr_tpu_torch.graph import native_spf
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.messaging.queue import ReplicateQueue
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.telemetry import get_registry, get_tracer
+    from openr_tpu_torch.types import Publication, Value
+    from openr_tpu_torch.utils import keys as keyutil
+    from openr_tpu_torch.utils import wire
+
+    gc_clock = gc_clock or GcClock()
+    dense_label = "1008" if dense_nodes == DENSE_NODES else str(dense_nodes)
+    sparse_label = "10k" if sparse_nodes == SPARSE_NODES else str(sparse_nodes)
+    reg = get_registry()
+    tracer = get_tracer()
+
+    def counter_deltas(c0, names):
+        return {k: reg.counter_get(k) - c0.get(k, 0) for k in names}
+
+    def last_sample(name):
+        hist = reg.histogram_if_exists(name)
+        return hist._ring[(hist._next - 1) % len(hist._ring)]
+
+    class DecisionRun:
+        """A port Decision on the card, wired to two ReplicateQueues (in:
+        KvStore publications, out: route updates) and started on its
+        event base thread, and the host Dijkstra oracle on its own copy of
+        the databases. ``publish`` pushes adjacency and prefix databases
+        as one publication (keys from ``utils.keys``, values from
+        ``utils.wire``, a new version each) with a trace; ``wait`` reads
+        the route update it caused off the out-queue."""
+
+        def __init__(self, phase, nodes):
+            self.phase = phase
+            self.topo = topologies.fat_tree_nodes(nodes)
+            self.host_ls, self.host_ps = load_topology(self.topo, LinkState, PrefixState)
+            self.host = SpfSolver(root, backend="host", device=dev)
+            self.kv_q = ReplicateQueue(name="kvStoreUpdates")
+            self.route_q = ReplicateQueue(name="routeUpdates")
+            self.reader = self.route_q.get_reader("chip_smoke")
+            self.decision = Decision(
+                root, self.kv_q, self.route_q, debounce_min_s=DECISION_DEBOUNCE_S[0],
+                debounce_max_s=DECISION_DEBOUNCE_S[1], solver_backend="device", device=dev)
+            self.adj = dict(self.topo.adj_dbs)
+            self.versions = {}
+            # host ms of the publication's processing and prewarm, timed
+            # around the module's own calls on its event base
+            self.host_ms = {"process_ms": 0.0, "prewarm_ms": 0.0}
+            self._time(self.decision, "process_publication", "process_ms")
+            self._time(self.decision.spf_solver, "prewarm", "prewarm_ms")
+            self.decision.start()
+
+        def _time(self, obj, name, part):
+            real = getattr(obj, name)
+
+            def timed(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    self.host_ms[part] += (time.perf_counter() - t0) * 1e3
+
+            setattr(obj, name, timed)
+
+        def publish(self, dbs):
+            kv = {}
+            for db in dbs:
+                key = (keyutil.adj_key if hasattr(db, "adjacencies")
+                       else keyutil.prefix_db_key)(db.this_node_name)
+                self.versions[key] = self.versions.get(key, 0) + 1
+                kv[key] = Value(version=self.versions[key], originator_id=db.this_node_name,
+                                value=wire.dumps(db))
+            pub = Publication(key_vals=kv, area=self.topo.area)
+            pub.trace = tracer.start("kvstore.publish", node=root)
+            t0 = time.perf_counter()
+            self.kv_q.push(pub)
+            return t0
+
+        def wait(self, t0):
+            """The route update, the host ms since ``t0``, and the
+            event's parts: the rebuild span's dispatch accounting, the
+            ms from the push to the debounce window's start (queue,
+            decode, LinkState update, prewarm), the debounce window, the
+            rebuild's solve (``decision.rebuild_ms``) and the rest of its
+            span (the route diff and the push), and the garbage
+            collector's ms meanwhile."""
+            gc0 = gc_clock.read()
+            host0 = dict(self.host_ms)
+            update = self.reader.get(timeout=DECISION_WAIT_S)
+            ms = (time.perf_counter() - t0) * 1e3
+            gc1 = gc_clock.read()
+            trace = update.trace
+            spans = {sp.name: sp for sp in trace.spans} if trace else {}
+            rebuild, debounce = spans.get("decision.rebuild"), spans.get("decision.debounce")
+            if rebuild is None or debounce is None:
+                raise AssertionError(f"{self.phase}: a route update without its spans")
+            tracer.finish(trace, ok=True)
+            solve_ms = last_sample("decision.rebuild_ms")
+            parts = {
+                "publication_ms": debounce.ts_ms - trace.ts_ms,
+                **{k: v - host0[k] for k, v in self.host_ms.items()},
+                "debounce_ms": debounce.dur_ms,
+                "rebuild_ms": solve_ms,
+                "emit_ms": rebuild.dur_ms - solve_ms,
+                "gc_ms": gc1[0] - gc0[0], "gc_full_collections": gc1[1] - gc0[1],
+            }
+            return update, ms, dict(rebuild.attrs, **parts)
+
+        def bump(self, node, metric):
+            from dataclasses import replace
+
+            db = self.adj[node]
+            self.adj[node] = replace(db, adjacencies=(
+                replace(db.adjacencies[0], metric=metric),) + db.adjacencies[1:])
+            bump_metric(self.host_ls, node, metric)
+            return self.adj[node]
+
+        def check(self, step):
+            d = self.decision
+            got = d.evb.call_and_wait(
+                lambda: carry.route_db_to_plain(d.route_db.to_route_db(root)),
+                timeout=DECISION_WAIT_S)
+            want = self.host.build_route_db(root, {self.host_ls.area: self.host_ls}, self.host_ps)
+            if got != carry.route_db_to_plain(want.to_route_db(root)):
+                raise AssertionError(f"{self.phase}: the installed route database differs "
+                                     f"from the host oracle after event {step}")
+            if d.supervisor.state is not HealthState.HEALTHY:
+                raise AssertionError(f"{self.phase}: the ladder left the warm rung "
+                                     f"({d.supervisor.state.name}) at event {step}")
+
+        def stop(self):
+            self.decision.stop()
+
+    LADDER_COUNTERS = ("decision.fallbacks", "decision.ladder_exhausted",
+                       "decision.degradations", "decision.self_heals",
+                       "decision.rung_failures.warm", "decision.rung_failures.cold")
+    SPEC_COUNTERS = ("ops.spec_dispatches", "ops.spec_hits", "ops.spec_cancels",
+                     "ops.spec_skips")
+
+    def decision_drive(phase, nodes, events):
+        """The Decision module on the card: the initial convergence, then
+        ``events`` bench events (``fsw-0-0``'s adjacency database
+        re-published with its first metric at 2 + step % 5) and
+        REMOTE_EVENTS remote ones (the last pod's first rack switch). Each
+        reports the host clock from the push to the route update
+        (debounce included), the module's ``decision.rebuild_ms`` sample,
+        the rebuild span's dispatch accounting, the SP route reuses and
+        the routes updated and deleted; after each the installed route
+        database must equal the host oracle's, the ladder must stay on
+        its warm rung and no fallback may be counted. The launch counts
+        are zeroed just before and read just after."""
+        run = DecisionRun(phase, nodes)
+        remote = remote_rsw(run.host_ls)
+        reset_launches()
+        c0 = dict(reg._counters)
+        records = []
+        try:
+            def one(step, dbs):
+                s0 = dict(reg._counters)
+                t0 = run.publish(dbs)
+                update, ms, attrs = run.wait(t0)
+                rec = {
+                    "event": step, "pub_to_update_ms": ms,
+                    **{k: attrs[k] for k in ("publication_ms", "process_ms", "prewarm_ms",
+                                             "debounce_ms", "rebuild_ms", "emit_ms", "gc_ms",
+                                             "gc_full_collections")},
+                    "host_touches": attrs.get("host_touches"),
+                    "host_dispatches": attrs.get("host_dispatches"),
+                    "blocking_syncs": attrs.get("blocking_syncs"),
+                    "sp_route_reuses": reg.counter_get("decision.sp_route_reuses")
+                    - s0.get("decision.sp_route_reuses", 0),
+                    "routes_updated": len(update.unicast_routes_to_update),
+                    "routes_deleted": len(update.unicast_routes_to_delete),
+                    "ell": {k: reg.counter_get(f"decision.{k}") - s0.get(f"decision.{k}", 0)
+                            for k in ELL_KEYS + ("ell_prewarms",)},
+                }
+                run.check(step)
+                bad = {k: v for k, v in counter_deltas(c0, LADDER_COUNTERS).items() if v}
+                if bad:
+                    raise AssertionError(f"{phase}: the ladder moved at event {step}: {bad}")
+                return rec
+
+            initial = one("initial", list(run.topo.adj_dbs.values())
+                          + list(run.topo.prefix_dbs.values()))
+            for step in range(events):
+                records.append(one(step, [run.bump("fsw-0-0", 2 + step % 5)]))
+            remotes = [one(f"remote {i}", [run.bump(remote, 3 + i)])
+                       for i in range(REMOTE_EVENTS)]
+        finally:
+            run.stop()
+        launches = dict(LAUNCHES)
+        counters = counter_deltas(c0, LADDER_COUNTERS + SPEC_COUNTERS + (
+            "decision.ell_full_compiles", "decision.ell_prewarms", "decision.ell_patches",
+            "decision.sp_route_reuses",
+            "decision.spf_host_fallback", "ops.host_dispatches", "ops.blocking_syncs"))
+        if counters["decision.spf_host_fallback"]:
+            raise AssertionError(f"{phase}: {counters['decision.spf_host_fallback']} SPF "
+                                 "queries went to a host Dijkstra")
+        events_only = records + remotes
+        if nodes > spf_solver.SPARSE_NODE_THRESHOLD:
+            full = [r["event"] for r in events_only if r["ell"]["ell_full_compiles"]]
+            if full:
+                raise AssertionError(f"{phase}: rebuilds {full} compiled the bands in full")
+            if counters["decision.ell_prewarms"] == 0:
+                raise AssertionError(f"{phase}: no publication prewarmed the resident bands")
+            kernel = "ell_band_relax"
+        else:
+            kernel = "minplus"
+        if dev.type == "cuda" and launches[kernel] == 0:
+            raise AssertionError(f"{phase}: the module's rebuilds launched no {kernel}")
+        emit({
+            "phase": phase, "nodes": len(run.topo.adj_dbs), "root": root,
+            "debounce_s": DECISION_DEBOUNCE_S, "events": events, "remote_node": remote,
+            "parity_with_host_oracle": True, "health": "HEALTHY",
+            "pub_to_update_includes_debounce": True,
+            "initial": initial,
+            "median_pub_to_update_ms": statistics.median(r["pub_to_update_ms"] for r in records),
+            "median_rebuild_ms": statistics.median(r["rebuild_ms"] for r in records),
+            "event_builds": records, "remote_builds": remotes,
+            "counters": counters, "launches": launches,
+        })
+        return launches
+
+    def decision_ladder(phase):
+        """The degradation ladder on a fresh 1008-node module: the fault
+        seam ``decision.spf_solve`` armed ``fail_once`` (the rebuild lands
+        on the cold rung), then ``fail_n(2)`` (the native rung: the host
+        C++ core), then disarmed (once the breaker lets a probe through,
+        the module heals back onto the card). Each route database must
+        equal the oracle's, and the ladder counters read what the
+        reference's TestDecisionLadder reads."""
+        run = DecisionRun(phase, dense_nodes)
+        reset_launches()
+        rungs = []
+        try:
+            t0 = run.publish(list(run.topo.adj_dbs.values()) + list(run.topo.prefix_dbs.values()))
+            run.wait(t0)
+            run.check("initial")
+            c0 = dict(reg._counters)
+            for step, (schedule, want) in enumerate((
+                    (FaultSchedule.fail_once(), ("DEGRADED", "device")),
+                    (FaultSchedule.fail_n(2), ("FALLBACK", "native")),
+                    (None, ("HEALTHY", "device")))):
+                if schedule is None:
+                    get_injector().reset()
+                    time.sleep(run.decision.supervisor.breaker.get_time_remaining_until_retry()
+                               + 0.05)
+                else:
+                    get_injector().arm("decision.spf_solve", schedule)
+                t0 = run.publish([run.bump("fsw-0-0", 7 + 2 * step)])
+                update, ms, attrs = run.wait(t0)
+                d = run.decision
+                state = (d.supervisor.state.name, d.spf_solver.backend)
+                got = d.evb.call_and_wait(
+                    lambda: carry.route_db_to_plain(d.route_db.to_route_db(root)),
+                    timeout=DECISION_WAIT_S)
+                want_db = run.host.build_route_db(
+                    root, {run.host_ls.area: run.host_ls}, run.host_ps)
+                if got != carry.route_db_to_plain(want_db.to_route_db(root)):
+                    raise AssertionError(f"{phase}: the {state} route database differs from "
+                                         "the host oracle")
+                if state != want:
+                    raise AssertionError(f"{phase}: step {step} landed on {state}, not {want}")
+                rungs.append({"step": step, "health": state[0], "backend": state[1],
+                              "pub_to_update_ms": ms,
+                              **{k: attrs[k] for k in ("rebuild_ms", "emit_ms", "gc_ms",
+                                                       "gc_full_collections")},
+                              "host_dispatches": attrs.get("host_dispatches"),
+                              "blocking_syncs": attrs.get("blocking_syncs"),
+                              "routes_updated": len(update.unicast_routes_to_update)})
+        finally:
+            get_injector().reset()
+            run.stop()
+        counters = counter_deltas(c0, LADDER_COUNTERS)
+        want = {"decision.fallbacks": 1, "decision.ladder_exhausted": 0,
+                "decision.degradations": 1, "decision.self_heals": 1,
+                "decision.rung_failures.warm": 2, "decision.rung_failures.cold": 1}
+        if counters != want:
+            raise AssertionError(f"{phase}: ladder counters {counters}, want {want}")
+        emit({"phase": phase, "nodes": len(run.topo.adj_dbs), "root": root,
+              "rungs": rungs, "counters": counters, "parity_with_host_oracle": True,
+              "native_library": native_spf.LIB_NAME, "launches": dict(LAUNCHES)})
+        return dict(LAUNCHES)
+
+    small = decision_drive(f"decision-{dense_label}", dense_nodes, dense_events)
+    large = decision_drive(f"decision-{sparse_label}", sparse_nodes, sparse_events)
+    faults = decision_ladder("decision-ladder")
+    return small, large, faults
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random kernel inputs")
@@ -527,6 +876,7 @@ def main(argv=None) -> int:
         _ksp2_chunk,
         get_spf_counters,
     )
+    from openr_tpu_torch.graph import native_spf
     from openr_tpu_torch.graph.linkstate import LinkState
     from openr_tpu_torch.graph.snapshot import SnapshotCache
     from openr_tpu_torch.kernels import LAUNCHES, _build, reset_launches
@@ -585,8 +935,16 @@ def main(argv=None) -> int:
         if "registers" in line or "Compiling entry" in line
     ]
     _build.library()
-    emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "sources": [p.name for p in _build.sources()], "ptxas": ptxas})
+    nvcc_s = time.monotonic() - t0
+    native_spf.build(force=True)
+    native_build = dict(native_spf.BUILD_INFO)
+    native_spf.library()
+    emit({"phase": "build", "seconds": time.monotonic() - t0, "nvcc_seconds": nvcc_s,
+          "sources": [p.name for p in _build.sources()], "ptxas": ptxas,
+          "native": {"source": str(native_spf.SRC.relative_to(ROOT)),
+                     "library": str((native_spf.BUILD_DIR / native_spf.LIB_NAME).relative_to(ROOT)),
+                     "seconds": native_build["seconds"], "compiled": native_build["compiled"],
+                     "compiler": native_spf.compiler_version()}})
 
     # -- 2. networks -----------------------------------------------------------
     t0 = time.monotonic()
@@ -1553,8 +1911,11 @@ def main(argv=None) -> int:
             engine = device_solver._ksp2_engines[ls]
             launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] > before[k]}
             parts = {k: v for k, v in stats.items() if k.endswith("_ms")}
+            if engine.tracer != "native":
+                raise AssertionError(f"{phase}: the engine traced with {engine.tracer!r}")
             rec = {
                 "event": step, "ms": ms, "cold": bool(stats["cold"]),
+                "tracer": engine.tracer,
                 "fast_path": engine.masks_t is not None,
                 "affected": stats.get("affected"),
                 "rows_changed": stats.get("rows_changed"),
@@ -1611,7 +1972,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{phase}: KSP2 builds launched no {kernel}")
         events_only = builds[1:]
         emit({
-            "phase": phase, "mode": "engine", "nodes": nodes, "root": root,
+            "phase": phase, "mode": "engine", "tracer": ksp2_engine.TRACER,
+            "nodes": nodes, "root": root,
             "events": events, "ksp2_dsts": want_dsts, "parity_with_host_oracle": True,
             "resident_matches_cold_solve": True,
             "first_build": builds[0],
@@ -1775,9 +2137,16 @@ def main(argv=None) -> int:
                                           KSP2_CHUNKED_EVENTS)
     finally:
         ksp2_engine.ENGINE_MAX_NODES = engine_max
+
+    # -- 11-13. the Decision module -----------------------------------------------
+    decision_small, decision_large, decision_faults = decision_phases(
+        dev, root, DENSE_NODES, SPARSE_NODES, DECISION_DENSE_EVENTS, DECISION_SPARSE_EVENTS,
+        gc_clock)
+
     main_launches = {
         k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + ksp2_small[k]
-        + ksp2_large[k] + ksp2_chunked[k]
+        + ksp2_large[k] + ksp2_chunked[k] + decision_small[k] + decision_large[k]
+        + decision_faults[k]
         for k in LAUNCHES
     }
 

@@ -1,0 +1,332 @@
+// spfcore: native all-sources shortest-path engine, host C++.
+//
+// The PyTorch/CUDA port's copy of openr_tpu's native/spfcore.cpp, with the
+// same entry points and byte-identical output. It is not a CUDA kernel: it
+// runs on the host, built by g++ (openr_tpu_torch/graph/native_spf.py), and
+// serves the solver's "native" backend (spf_all_pairs, spf_first_hops) and
+// the KSP2 engine's batch tracer (ksp2_trace_batch). The role the C++
+// SpfSolver/LinkState Dijkstra plays in the reference
+// (openr/decision/LinkState.cpp:809 runSpf), generalized to batched sources.
+//
+// Semantics matched to the reference (and to openr_tpu_torch.ops.spf):
+//  - directed min-metric CSR graph
+//  - overloaded nodes do not transit (source-exempt)
+//  - distances saturate at INF = 2^30 - 1
+//  - ECMP first-hop reconstruction is algebraic:
+//      v is a first hop of s toward j iff
+//        metric(s,v) + dist(v,j) == dist(s,j)      (v not overloaded)
+//        or v == j and metric(s,v) == dist(s,j)
+//
+// Build: g++ -O3 -std=c++17 -shared -fPIC -pthread spfcore.cpp -o libspfcore.so
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <queue>
+#include <thread>
+#include <vector>
+
+namespace {
+
+constexpr int32_t kInf = (1 << 30) - 1;
+
+struct Csr {
+  int32_t n;
+  std::vector<int32_t> offsets;  // n + 1
+  std::vector<int32_t> dsts;
+  std::vector<int32_t> weights;
+  const uint8_t* overloaded;
+};
+
+// Dijkstra from one source with overloaded-transit exclusion.
+// out: distance row of length n (pre-filled with kInf by caller).
+void dijkstra_one(const Csr& g, int32_t src, int32_t* out) {
+  using Item = std::pair<int64_t, int32_t>;  // (dist, node)
+  std::priority_queue<Item, std::vector<Item>, std::greater<Item>> heap;
+  out[src] = 0;
+  heap.emplace(0, src);
+  while (!heap.empty()) {
+    auto [d, u] = heap.top();
+    heap.pop();
+    if (d > out[u]) {
+      continue;  // stale entry
+    }
+    if (g.overloaded[u] && u != src) {
+      continue;  // reachable, but never extends paths
+    }
+    for (int32_t e = g.offsets[u]; e < g.offsets[u + 1]; ++e) {
+      int32_t v = g.dsts[e];
+      int64_t nd = d + g.weights[e];
+      if (nd < out[v]) {
+        out[v] = static_cast<int32_t>(std::min<int64_t>(nd, kInf));
+        heap.emplace(nd, v);
+      }
+    }
+  }
+}
+
+void run_block(const Csr& g, const int32_t* sources, int32_t count,
+               int32_t* out) {
+  for (int32_t i = 0; i < count; ++i) {
+    int32_t* row = out + static_cast<int64_t>(i) * g.n;
+    std::fill(row, row + g.n, kInf);
+    dijkstra_one(g, sources[i], row);
+  }
+}
+
+Csr build_csr(int32_t n, int32_t n_edges, const int32_t* srcs,
+              const int32_t* dsts, const int32_t* weights,
+              const uint8_t* overloaded) {
+  Csr g;
+  g.n = n;
+  g.overloaded = overloaded;
+  g.offsets.assign(n + 1, 0);
+  for (int32_t e = 0; e < n_edges; ++e) {
+    ++g.offsets[srcs[e] + 1];
+  }
+  for (int32_t i = 0; i < n; ++i) {
+    g.offsets[i + 1] += g.offsets[i];
+  }
+  g.dsts.resize(n_edges);
+  g.weights.resize(n_edges);
+  std::vector<int32_t> cursor(g.offsets.begin(), g.offsets.end() - 1);
+  for (int32_t e = 0; e < n_edges; ++e) {
+    int32_t pos = cursor[srcs[e]]++;
+    g.dsts[pos] = dsts[e];
+    g.weights[pos] = weights[e];
+  }
+  return g;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Batched shortest paths from `n_sources` sources over a directed edge
+// list. out_dist must hold n_sources * n int32.
+void spf_from_sources(int32_t n, int32_t n_edges, const int32_t* edge_src,
+                      const int32_t* edge_dst, const int32_t* edge_weight,
+                      const uint8_t* overloaded, const int32_t* sources,
+                      int32_t n_sources, int32_t n_threads,
+                      int32_t* out_dist) {
+  Csr g = build_csr(n, n_edges, edge_src, edge_dst, edge_weight, overloaded);
+  if (n_threads <= 1 || n_sources <= 1) {
+    run_block(g, sources, n_sources, out_dist);
+    return;
+  }
+  int32_t threads = std::min<int32_t>(n_threads, n_sources);
+  std::vector<std::thread> pool;
+  int32_t per = (n_sources + threads - 1) / threads;
+  for (int32_t t = 0; t < threads; ++t) {
+    int32_t begin = t * per;
+    int32_t count = std::min(per, n_sources - begin);
+    if (count <= 0) {
+      break;
+    }
+    pool.emplace_back([&g, sources, begin, count, out_dist]() {
+      run_block(g, sources + begin,
+                count, out_dist + static_cast<int64_t>(begin) * g.n);
+    });
+  }
+  for (auto& th : pool) {
+    th.join();
+  }
+}
+
+// All-sources convenience: sources = 0..n-1.
+void spf_all_pairs(int32_t n, int32_t n_edges, const int32_t* edge_src,
+                   const int32_t* edge_dst, const int32_t* edge_weight,
+                   const uint8_t* overloaded, int32_t n_threads,
+                   int32_t* out_dist) {
+  std::vector<int32_t> sources(n);
+  for (int32_t i = 0; i < n; ++i) {
+    sources[i] = i;
+  }
+  spf_from_sources(n, n_edges, edge_src, edge_dst, edge_weight, overloaded,
+                   sources.data(), n, n_threads, out_dist);
+}
+
+// ECMP first-hop matrix for one source: out_mask[v * n + j] = 1 iff
+// neighbor v of `src` lies on an equal-cost shortest path to j.
+// dist_src: row of distances from src (length n); dist_all: n*n matrix
+// whose row v holds distances from v.
+void spf_first_hops(int32_t n, int32_t n_edges, const int32_t* edge_src,
+                    const int32_t* edge_dst, const int32_t* edge_weight,
+                    const uint8_t* overloaded, int32_t src,
+                    const int32_t* dist_src, const int32_t* dist_all,
+                    uint8_t* out_mask) {
+  std::memset(out_mask, 0, static_cast<size_t>(n) * n);
+  // min metric per neighbor of src
+  std::vector<int32_t> min_metric(n, kInf);
+  for (int32_t e = 0; e < n_edges; ++e) {
+    if (edge_src[e] == src) {
+      min_metric[edge_dst[e]] =
+          std::min(min_metric[edge_dst[e]], edge_weight[e]);
+    }
+  }
+  for (int32_t v = 0; v < n; ++v) {
+    if (min_metric[v] >= kInf || v == src) {
+      continue;
+    }
+    uint8_t* row = out_mask + static_cast<int64_t>(v) * n;
+    const int32_t* dv = dist_all + static_cast<int64_t>(v) * n;
+    if (!overloaded[v]) {
+      for (int32_t j = 0; j < n; ++j) {
+        if (dist_src[j] < kInf &&
+            min_metric[v] + static_cast<int64_t>(dv[j]) == dist_src[j]) {
+          row[j] = 1;
+        }
+      }
+    }
+    // directly-connected case (valid even for overloaded v)
+    if (min_metric[v] == dist_src[v]) {
+      row[v] = 1;
+    }
+  }
+}
+
+// Batched KSP2 path enumeration: link-disjoint shortest paths from one
+// source to many destinations, byte-identical in path content AND order
+// to the Python tracer (ksp2_engine.trace_paths_from_row, itself
+// mirroring the reference LinkState.cpp:399 traceOnePath): predecessor
+// candidates are walked in the caller's canonical order, a link is
+// marked visited the moment it is tried (monotone within one
+// destination's enumeration), and enumeration stops at the first
+// failed trace.
+//
+// Candidates per node v live in cand_off[v]..cand_off[v+1) of the
+// parallel arrays cand_link / cand_uid (origin node id, -1 when the
+// origin is unknown to the graph) / cand_w. rows: one row of n
+// distances shared by every destination when shared_row != 0
+// (predecessor lists are then also shared across destinations as long
+// as no exclusions exist), else [n_dsts, n] row-major. Excluded link
+// ids per destination: excl_off[d]..excl_off[d+1) of excl_ids.
+//
+// Output, per destination: n_paths, then per path: len, link ids in
+// src->dst order. Returns the total int32 count written, or -1 when
+// out_cap would be exceeded (caller grows the buffer and retries).
+int32_t ksp2_trace_batch(
+    int32_t n, int32_t n_links, const int32_t* cand_off,
+    const int32_t* cand_link, const int32_t* cand_uid,
+    const int32_t* cand_w, int32_t src, const uint8_t* transit_blocked,
+    int32_t n_dsts, const int32_t* dst_ids, const int32_t* rows,
+    int32_t shared_row, const int32_t* excl_off,
+    const int32_t* excl_ids, int32_t* out, int32_t out_cap) {
+  // epoch-stamped scratch: visited/excluded links, per-node pred lists
+  std::vector<int32_t> vis(n_links, -1);
+  std::vector<int32_t> exc(n_links, -1);
+  int32_t total_cands = cand_off[n];
+  std::vector<int32_t> pred_link(total_cands);
+  std::vector<int32_t> pred_uid(total_cands);
+  std::vector<int32_t> pred_cnt(n, 0);
+  std::vector<int32_t> pred_epoch(n, -1);
+  bool share_preds = shared_row && excl_off[n_dsts] == 0;
+
+  struct Frame {
+    int32_t v;
+    int32_t idx;      // next candidate offset within v's pred list
+    int32_t in_link;  // link taken from the previous frame into v
+  };
+  std::vector<Frame> frames;
+  std::vector<int32_t> path;
+
+  int64_t written = 0;
+  for (int32_t d = 0; d < n_dsts; ++d) {
+    if (written >= out_cap) {
+      return -1;
+    }
+    int64_t npaths_slot = written++;
+    out[npaths_slot] = 0;
+    int32_t dst = dst_ids[d];
+    const int32_t* row =
+        shared_row ? rows : rows + static_cast<int64_t>(d) * n;
+    if (dst < 0 || dst >= n || row[dst] >= kInf || dst == src) {
+      continue;  // unreachable or trivial: zero paths (matches Python)
+    }
+    // stamp this destination's exclusions
+    for (int32_t x = excl_off[d]; x < excl_off[d + 1]; ++x) {
+      exc[excl_ids[x]] = d;
+    }
+    // predecessor lists: shared across the batch only when every
+    // destination sees the same row and no exclusions exist;
+    // otherwise rebuilt lazily per destination (epoch d)
+    int32_t epoch = share_preds ? 0 : d;
+    auto ensure_preds = [&](int32_t v) {
+      if (pred_epoch[v] == epoch) {
+        return;
+      }
+      pred_epoch[v] = epoch;
+      int32_t cnt = 0;
+      int32_t dv = row[v];
+      for (int32_t c = cand_off[v]; c < cand_off[v + 1]; ++c) {
+        int32_t uid = cand_uid[c];
+        if (uid < 0) {
+          continue;
+        }
+        int32_t l = cand_link[c];
+        if (exc[l] == d) {
+          continue;
+        }
+        if (uid != src && transit_blocked[uid]) {
+          continue;
+        }
+        if (row[uid] >= kInf || row[uid] + cand_w[c] != dv) {
+          continue;
+        }
+        pred_link[cand_off[v] + cnt] = l;
+        pred_uid[cand_off[v] + cnt] = uid;
+        ++cnt;
+      }
+      pred_cnt[v] = cnt;
+    };
+    // enumerate link-disjoint paths until a trace fails
+    for (;;) {
+      frames.clear();
+      frames.push_back({dst, 0, -1});
+      bool found = false;
+      while (!frames.empty()) {
+        Frame& f = frames.back();
+        if (f.v == src) {
+          found = true;
+          break;
+        }
+        ensure_preds(f.v);
+        bool advanced = false;
+        while (f.idx < pred_cnt[f.v]) {
+          int32_t c = cand_off[f.v] + f.idx++;
+          int32_t l = pred_link[c];
+          if (vis[l] == d) {
+            continue;
+          }
+          vis[l] = d;  // visited stays set even if this branch dies
+          frames.push_back({pred_uid[c], 0, l});
+          advanced = true;
+          break;
+        }
+        if (!advanced) {
+          frames.pop_back();
+        }
+      }
+      if (!found) {
+        break;
+      }
+      // frames: dst, ..., src with in_link = step toward dst; the
+      // src->dst path is those links read back-to-front
+      path.clear();
+      for (size_t i = frames.size() - 1; i >= 1; --i) {
+        path.push_back(frames[i].in_link);
+      }
+      if (written + 1 + static_cast<int64_t>(path.size()) > out_cap) {
+        return -1;
+      }
+      out[written++] = static_cast<int32_t>(path.size());
+      for (int32_t l : path) {
+        out[written++] = l;
+      }
+      ++out[npaths_slot];
+    }
+  }
+  return static_cast<int32_t>(written);
+}
+
+}  // extern "C"

@@ -16,10 +16,16 @@ reference kicks an async copy inside a dispatch-accounting window and reaps
 it. The reference's annotations say what this docstring says in words:
 ``d_prev_dev``, ``dm_dev`` and ``masks_t`` are the resident device buffers,
 all three rebuilt by ``_cold_build``; and an engine is driven by one owner
-at a time (its solver), never by two threads at once. Left out for later
-slices: the native batch tracer (``_TraceArrays``; ``_trace_many`` runs the
-Python tracer, the reference's semantic one), the device mesh
-(``set_engine_mesh`` and the sharded dispatches) and dispatch accounting.
+at a time (its solver), never by two threads at once. Every trace site
+(cold build, recompute, retrace, the masked second paths) goes through
+``_trace_many``, which runs the native batch tracer (``_TraceArrays`` over
+``graph/native_spf.py``'s ``trace_batch``) on every device, the CPU
+included. The Python tracer ``trace_paths_from_row`` stays as its plain
+version: an engine runs it only when made with the module's ``TRACER``
+set to "python", and the tests hold the two against each other. Where the
+reference falls back to the Python tracer when the native core is
+missing, the port raises. Left out for later slices: the device mesh
+(``set_engine_mesh`` and the sharded dispatches).
 
 The affected set comes from a sound distance test. A changed directed
 edge C = (u, v) of weight w lies on some shortest path src -> dst iff
@@ -63,6 +69,9 @@ ENGINE_FULL_REBUILD_FRACTION = 3  # affected * N > dsts  -> cold
 # fast path: how many changed masked rows the fused dispatch reads back
 # inline; more than this forces one extra full-matrix readback
 ENGINE_ROW_BUDGET = 64
+# the engines' tracer: "native" (the batch tracer of csrc/spfcore.cpp) or
+# "python" (trace_paths_from_row, its plain version)
+TRACER = "native"
 
 
 def engine_max_nodes() -> int:
@@ -100,6 +109,12 @@ class Laps:
         now = time.perf_counter()
         self.stats[part] = self.stats.get(part, 0.0) + (now - self._last) * 1e3
         self._last = now
+
+    def carve(self, part: str, ms: float) -> None:
+        """Book ``ms`` just spent to ``part`` and keep it out of the next
+        lap."""
+        self.stats[part] = self.stats.get(part, 0.0) + ms
+        self._last += ms / 1e3
 
 
 def trace_paths_from_row(
@@ -233,6 +248,127 @@ def _transit_blocked(ls: LinkState, graph, src_name: str) -> Set[str]:
     }
 
 
+class _TraceArrays:
+    """Int-encoded view of the candidate structure for the native batch
+    tracer (``csrc/spfcore.cpp`` ``ksp2_trace_batch``): a candidate CSR in
+    the order ``make_cands_of`` yields, a link table for id <-> object
+    mapping, and the transit-blocked bitmap. Built once, then kept across
+    events: ``update`` rewrites only the ranges of the nodes a change
+    touched, and every trace site of an event shares the result."""
+
+    __slots__ = ("off", "link", "uid", "w", "links", "lid_of", "blocked", "n_pad",
+                 "node_index")
+
+    def __init__(self, graph, cands_of, transit_blocked):
+        names = graph.node_names
+        self.n_pad = graph.n_pad
+        self.node_index = graph.node_index
+        self.links: List[Link] = []
+        # keyed by the Link VALUE (its hash is cached), not id(): the
+        # Python tracer excludes via `link not in excluded`, and a link
+        # that flapped down and back up is a fresh but equal object, whose
+        # exclusion an identity key would drop
+        self.lid_of: Dict[Link, int] = {}
+        link_l: List[int] = []
+        uid_l: List[int] = []
+        w_l: List[int] = []
+        off = np.zeros(self.n_pad + 1, np.int32)
+        for i, v in enumerate(names):
+            self._encode(cands_of(v), link_l, uid_l, w_l)
+            off[i + 1] = len(link_l)
+        off[len(names) + 1 :] = len(link_l)
+        self.off = off
+        self.link = np.asarray(link_l, np.int32)
+        self.uid = np.asarray(uid_l, np.int32)
+        self.w = np.asarray(w_l, np.int32)
+        self._set_blocked(transit_blocked)
+
+    def _encode(self, cands, link_l, uid_l, w_l) -> None:
+        """Append one node's candidates. The table keeps the current Link
+        object for a value: routes read attributes off the traced links."""
+        lid_of = self.lid_of
+        for lnk, _u, uuid, w in cands:
+            lid = lid_of.get(lnk)
+            if lid is None:
+                lid = lid_of[lnk] = len(self.links)
+                self.links.append(lnk)
+            else:
+                self.links[lid] = lnk
+            link_l.append(lid)
+            uid_l.append(-1 if uuid is None else int(uuid))
+            w_l.append(int(w))
+
+    def _set_blocked(self, transit_blocked) -> None:
+        blocked = np.zeros(self.n_pad, np.uint8)
+        for nm in transit_blocked:
+            bi = self.node_index.get(nm)
+            if bi is not None:
+                blocked[bi] = 1
+        self.blocked = blocked
+
+    def update(self, cands_of, transit_blocked, dirty) -> None:
+        """Re-encode the candidates of the nodes in ``dirty`` (names; the
+        LinkState's journal of the changes since this table's version,
+        which holds both ends of every link that changed) and splice them
+        into the CSR; every other node's range is copied as it stands."""
+        index = self.node_index
+        rows = sorted(index[v] for v in dirty if v in index)
+        names_of = {index[v]: v for v in dirty if v in index}
+        off = self.off
+        lens = np.diff(off)
+        pieces = ([], [], [])
+        prev = 0
+        for i in rows:
+            link_l: List[int] = []
+            uid_l: List[int] = []
+            w_l: List[int] = []
+            self._encode(cands_of(names_of[i]), link_l, uid_l, w_l)
+            lo, hi = off[prev], off[i]
+            for piece, old, new in zip(pieces, (self.link, self.uid, self.w),
+                                       (link_l, uid_l, w_l)):
+                piece.append(old[lo:hi])
+                piece.append(np.asarray(new, np.int32))
+            lens[i] = len(link_l)
+            prev = i + 1
+        for piece, old in zip(pieces, (self.link, self.uid, self.w)):
+            piece.append(old[off[prev]:])
+        self.link, self.uid, self.w = (np.concatenate(p) for p in pieces)
+        new_off = np.zeros_like(off)
+        np.cumsum(lens, out=new_off[1:])
+        self.off = new_off
+        self._set_blocked(transit_blocked)
+
+    def _excl_arrays(self, excls):
+        """Per-destination exclusion ranges; a link absent from the
+        current candidate table is down, so its exclusion is vacuous."""
+        ids: List[int] = []
+        off = np.zeros(len(excls) + 1, np.int32)
+        for i, excl in enumerate(excls):
+            for lnk in excl:
+                lid = self.lid_of.get(lnk)
+                if lid is not None:
+                    ids.append(lid)
+            off[i + 1] = len(ids)
+        return off, np.asarray(ids, np.int32)
+
+    def trace(self, src_id, dst_ids, rows, shared_row, excls):
+        """Batch-enumerate through the native core. Paths come back as
+        Link lists, identical in content and order to
+        ``trace_paths_from_row``'s."""
+        from openr_tpu_torch.graph import native_spf
+
+        excl_off, excl_ids = self._excl_arrays(excls)
+        got = native_spf.trace_batch(
+            self.n_pad, len(self.links), self.off, self.link,
+            self.uid, self.w, src_id, self.blocked,
+            np.ascontiguousarray(dst_ids, np.int32),
+            np.ascontiguousarray(rows, np.int32),
+            shared_row, excl_off, excl_ids,
+        )
+        links = self.links
+        return [[[links[l] for l in p] for p in paths] for paths in got]
+
+
 class Ksp2Engine:
     """Per-(LinkState, root) incremental KSP2 state on ``resident``'s
     device: the resident all-sources matrix ``d_prev_dev``, and per
@@ -244,9 +380,14 @@ class Ksp2Engine:
     ``root_flipped`` says whether the root's overload bit moved since the
     previous sync; ``last_hops`` is the last fused dispatch's all-sources
     hop count and ``last_rows_changed`` its speculative row diff's count
-    (None off the fast path or on a cold build)."""
+    (None off the fast path or on a cold build). ``tracer`` is the
+    module's ``TRACER`` when the engine is made."""
 
     def __init__(self, src_name: str, resident) -> None:
+        self.tracer = TRACER
+        if self.tracer not in ("native", "python"):
+            raise ValueError(f"unknown KSP2 tracer {self.tracer!r}")
+        self._tarrays = None
         self.src_name = src_name
         self.resident = resident
         self.device = resident.device
@@ -569,7 +710,7 @@ class Ksp2Engine:
         self.excl: Dict[str, Set[Link]] = {}
         self.node_users: Dict[str, Set[str]] = {}
         traced = self._trace_many(
-            graph, cands_of, transit_blocked, dsts, self.d_base, True, [set()] * len(dsts),
+            ls, graph, cands_of, transit_blocked, dsts, self.d_base, True, [set()] * len(dsts),
         )
         for dst, paths in zip(dsts, traced):
             self.first_paths[dst] = paths
@@ -833,7 +974,7 @@ class Ksp2Engine:
                     if users is not None:
                         users.discard(dst)
         traced = self._trace_many(
-            graph, cands_of, transit_blocked, dsts,
+            ls, graph, cands_of, transit_blocked, dsts,
             np.ascontiguousarray(self.dm[[self.dst_pos[d] for d in dsts]]),
             False, [self.excl[d] for d in dsts],
         )
@@ -866,7 +1007,7 @@ class Ksp2Engine:
                     if users is not None:
                         users.discard(dst)
         traced = self._trace_many(
-            graph, cands_of, transit_blocked, affected,
+            ls, graph, cands_of, transit_blocked, affected,
             d_new_src.astype(np.int32), True, [set()] * len(affected),
         )
         for dst, paths in zip(affected, traced):
@@ -942,7 +1083,7 @@ class Ksp2Engine:
                     continue
                 traceable.append(i)
             traced = self._trace_many(
-                graph, cands_of, transit_blocked, [batch[i] for i in traceable],
+                ls, graph, cands_of, transit_blocked, [batch[i] for i in traceable],
                 np.ascontiguousarray(np.asarray(drows)[traceable]),
                 False, [self.excl[batch[i]] for i in traceable],
             )
@@ -968,13 +1109,49 @@ class Ksp2Engine:
                 for x in _path_nodes(self.src_name, path):
                     self.node_users.setdefault(x, set()).add(dst)
 
+    def _trace_arrays(self, ls, graph, cands_of, transit_blocked) -> _TraceArrays:
+        """The native tracer's int-encoded candidate structure at ``ls``'s
+        (topology version, attribute version): one build serves every
+        trace site of an event. Kept across events while the graph keeps
+        its node ids; a later version re-encodes only the nodes that
+        ``ls.affected_since`` reports, and a new node set or a journal
+        that cannot say builds it whole. Its host ms are booked to
+        ``trace_arrays_ms``."""
+        key = (ls.topology_version, ls.attributes_version)
+        cached = self._tarrays
+        if cached is not None and cached[0] == key and cached[1].node_index is graph.node_index:
+            return cached[1]
+        t0 = time.perf_counter()
+        dirty = None
+        if (cached is not None and cached[1].node_index is graph.node_index
+                and cached[1].n_pad == graph.n_pad):
+            dirty = ls.affected_since(cached[0][0])
+        if dirty is None:
+            arrays = _TraceArrays(graph, cands_of, transit_blocked)
+        else:
+            arrays = cached[1]
+            arrays.update(cands_of, transit_blocked, dirty)
+        self._tarrays = (key, arrays)
+        self._lap.carve("trace_arrays_ms", (time.perf_counter() - t0) * 1e3)
+        return arrays
+
     def _trace_many(
-        self, graph, cands_of, transit_blocked, dsts, rows, shared_row, excls,
+        self, ls, graph, cands_of, transit_blocked, dsts, rows, shared_row, excls,
     ) -> List[List[List[Link]]]:
-        """The trace front-end of every per-event path enumeration, by
-        the Python tracer. ``rows``: one [n_pad] row (``shared_row``) or
-        [len(dsts), n_pad]; ``excls``: per-dst exclusion sets (empty for
-        first paths)."""
+        """The trace front-end of every per-event path enumeration: the
+        native batch tracer, or with ``TRACER = "python"`` the Python one a
+        destination at a time. ``rows``: one [n_pad] row (``shared_row``)
+        or [len(dsts), n_pad]; ``excls``: per-dst exclusion sets (empty
+        for first paths). Nothing to trace builds nothing."""
+        if not dsts:
+            return []
+        if self.tracer == "native":
+            arrays = self._trace_arrays(ls, graph, cands_of, transit_blocked)
+            return arrays.trace(
+                self.sid,
+                np.asarray([graph.node_index[d] for d in dsts], np.int32),
+                rows, shared_row, excls,
+            )
         shared_preds: Optional[Dict[str, list]] = {} if shared_row else None
         row_list = rows.tolist() if shared_row else None
         return [

@@ -25,11 +25,14 @@ One departure from the reference: when the root's overload bit flips,
 the engine path puts the root into the area's affected set, so no route
 of a prefix the root advertises is reused across its drain or undrain
 (the reference's engine reuses them; its own host backend and chunked
-dispatch do not). Left out for later slices: the fleet/state hooks of
-the resident cache (``export_resident_state``, ``fleet_preload_views``,
-``seed_resident_state``), ``prewarm`` and ``speculate_views``, the
-native and plugin backends, the multi-area world batch and the fault
-seams.
+dispatch do not). The "native" backend answers from the host C++ core
+(``graph/native_spf.py``), the degradation ladder's last rung in Decision;
+``prewarm`` and ``speculate_views`` are Decision's publication-time hooks;
+a fresh device view solve crosses the fault seam ``decision.spf_solve``.
+Left out for later slices: the fleet/state hooks of the resident cache
+(``export_resident_state``, ``fleet_preload_views``,
+``seed_resident_state``), the plugin backends (``register_spf_backend``),
+the view cache's size option and the multi-area world batch.
 
 Behavioural parity with the reference ``openr/decision/Decision.cpp``
 SpfSolverImpl (buildRouteDb:569, createRouteForPrefix:402,
@@ -57,10 +60,13 @@ from openr_tpu_torch.decision.rib import (
     RibUnicastEntry,
 )
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.faults.injector import fault_point, get_injector, register_fault_site
 from openr_tpu_torch.graph.linkstate import Link, LinkState
 from openr_tpu_torch.graph.snapshot import INF, SnapshotCache
+from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops import spf_sparse
 from openr_tpu_torch.ops.staging import UploadStager
+from openr_tpu_torch.telemetry import get_registry
 from openr_tpu_torch.types import (
     BinaryAddress,
     IpPrefix,
@@ -82,41 +88,58 @@ AreaLinkStates = Dict[str, LinkState]
 # snapshot (O(N^2) metric matrix) to the sliced-ELL bands
 SPARSE_NODE_THRESHOLD = 4096
 
-# solver counters, by the JAX package's names. spf_host_fallback counts the
-# device views' queries answered by a host Dijkstra instead: it must stay at
-# 0 on the route-build path. ell_full_compiles and ell_patches count the
-# resident bands' syncs (a full compile_ell, or an ell_patch of the
-# journal's affected rows). ksp2_device_batches counts masked KSP2 solves
-# (one per chunk of destinations); ksp2_host_fallbacks counts destinations
-# of such a batch whose exclusions the masks could not express, left to the
-# lazy host path. The KSP2 engine's: ksp2_cold_builds and
-# ksp2_incremental_syncs count its syncs by kind, ksp2_warm_dispatches its
-# fused dispatches seeded warm, ksp2_affected_dsts the destinations its
-# incremental syncs marked affected, and ksp2_route_reuses the KSP2
-# routes a build took from the previous build. sp_route_reuses counts SP
-# routes a build took from the previous build. device_state_resets and
-# backend_switches count reset_device_state and set_backend calls.
-SPF_COUNTERS: Dict[str, int] = {
-    "decision.spf_host_fallback": 0,
-    "decision.ell_full_compiles": 0,
-    "decision.ell_patches": 0,
-    "decision.ksp2_device_batches": 0,
-    "decision.ksp2_host_fallbacks": 0,
-    "decision.ksp2_cold_builds": 0,
-    "decision.ksp2_incremental_syncs": 0,
-    "decision.ksp2_warm_dispatches": 0,
-    "decision.ksp2_affected_dsts": 0,
-    "decision.ksp2_route_reuses": 0,
-    "decision.sp_route_reuses": 0,
-    "decision.device_state_resets": 0,
-    "decision.backend_switches": 0,
-}
+# solver counters, by the JAX package's names, stored in the port's
+# telemetry registry (``SPF_COUNTERS[k] += 1`` and ``dict(SPF_COUNTERS)``
+# work as on a dict), so ``Decision.get_counters`` and a registry snapshot
+# read the same names. spf_host_fallback counts the device views' queries
+# answered by a host Dijkstra instead: it must stay at 0 on the
+# route-build path. ell_full_compiles and ell_patches count the resident
+# bands' syncs (a full compile_ell, or an ell_patch of the journal's
+# affected rows), ell_prewarms the publication-time syncs of ``prewarm``.
+# ksp2_device_batches counts masked KSP2 solves (one per chunk of
+# destinations); ksp2_host_fallbacks counts destinations of such a batch
+# whose exclusions the masks could not express, left to the lazy host
+# path. The KSP2 engine's: ksp2_cold_builds and ksp2_incremental_syncs
+# count its syncs by kind, ksp2_warm_dispatches its fused dispatches
+# seeded warm, ksp2_affected_dsts the destinations its incremental syncs
+# marked affected, and ksp2_route_reuses the KSP2 routes a build took
+# from the previous build. sp_route_reuses counts SP routes a build took
+# from the previous build. device_state_resets and backend_switches count
+# reset_device_state and set_backend calls.
+SPF_COUNTERS = get_registry().counter_dict(
+    [
+        "decision.spf_host_fallback",
+        "decision.ell_full_compiles",
+        "decision.ell_patches",
+        "decision.ell_prewarms",
+        "decision.ksp2_device_batches",
+        "decision.ksp2_host_fallbacks",
+        "decision.ksp2_cold_builds",
+        "decision.ksp2_incremental_syncs",
+        "decision.ksp2_warm_dispatches",
+        "decision.ksp2_affected_dsts",
+        "decision.ksp2_route_reuses",
+        "decision.sp_route_reuses",
+        "decision.device_state_resets",
+        "decision.backend_switches",
+    ]
+)
+
+# the Decision degradation ladder's injection seam: a fresh device view
+# solve (see openr_tpu_torch.faults)
+FAULT_SPF_SOLVE = register_fault_site("decision.spf_solve")
+
+SPF_BACKENDS = ("device", "host", "native")
 
 
 def get_spf_counters() -> Dict[str, int]:
-    """``SPF_COUNTERS`` and, under "decision.", the resident bands'
-    ``spf_sparse.ELL_COUNTERS``: one merged view."""
+    """``SPF_COUNTERS``, the dispatch accounting's ``ops.*`` counters and,
+    under "decision.", the resident bands' ``spf_sparse.ELL_COUNTERS``:
+    one merged view."""
     out = dict(SPF_COUNTERS)
+    reg = get_registry()
+    for k in ("ops.host_dispatches", "ops.blocking_syncs"):
+        out[k] = reg.counter_get(k)
     for k, v in spf_sparse.ELL_COUNTERS.items():
         out["decision." + k] = v
     return out
@@ -409,7 +432,7 @@ class _EllResidentCache:
         graph = pending if pending is not None else state.graph
         srcs = spf_sparse.ell_source_batch(graph, ls, root)
         try:
-            packed = state.reconverge(graph, srcs).cpu().numpy()
+            packed = da.reap_read(state.reconverge(graph, srcs))
         except BaseException:
             self.drop(ls)
             raise
@@ -434,7 +457,10 @@ class SpfView:
     of ``resident`` past SPARSE_NODE_THRESHOLD, or at any size when a
     KSP2 engine preloaded this view there; a private resident cache when
     None). Host backend: the Dijkstra oracle; its view has no ``_d`` rows,
-    so the SP dirty test never reuses a host build.
+    so the SP dirty test never reuses a host build. Native backend: the
+    host C++ core (``graph/native_spf.py``) over the host ``GraphSnapshot``
+    (all-pairs distances and the root's first-hop matrix); it never
+    touches the card, and raises when the core cannot be built.
     """
 
     def __init__(
@@ -458,6 +484,8 @@ class SpfView:
                 )
             else:
                 self._init_device(snapshots)
+        elif backend == "native":
+            self._init_native(snapshots)
         elif backend == "host":
             self._spf = ls.get_spf_result(root)
         else:
@@ -484,7 +512,7 @@ class SpfView:
         packed = spf_ops.spf_view_batch_packed(
             dev.metric, dev.overloaded, srcs_dev
         )
-        self._set_rows(packed.cpu().numpy(), srcs, srcs_dev.shape[0])
+        self._set_rows(da.reap_read(packed), srcs, srcs_dev.shape[0])
 
     def _init_device_sparse(self, resident: _EllResidentCache) -> None:
         """Large-area device view over the resident sliced-ELL bands
@@ -499,6 +527,26 @@ class SpfView:
         self._snap = _SparseIndexAdapter(graph)
         self._sid = graph.node_index[self._root]
         self._set_rows(packed, srcs, len(srcs))
+
+    # -- native backend ---------------------------------------------------
+
+    def _init_native(self, snapshots: SnapshotCache) -> None:
+        """All-pairs distances and the root's ECMP first hops from the
+        native core, over the host snapshot (``SnapshotCache.get`` builds
+        host arrays only; nothing is uploaded)."""
+        from openr_tpu_torch.graph import native_spf
+
+        self._snap = snapshots.get(self._ls)
+        sid = self._snap.id_of(self._root)
+        self._sid = sid
+        if sid is None:
+            self._d_all = None
+            self._fh = None
+            return
+        self._d_all = native_spf.all_pairs_distances(self._snap)
+        self._fh = native_spf.first_hop_matrix(
+            self._snap, sid, self._d_all[sid], self._d_all
+        ).astype(bool)
 
     def _set_rows(self, packed: np.ndarray, srcs: List[int], bucket: int) -> None:
         self._d = packed[:bucket]
@@ -518,6 +566,11 @@ class SpfView:
                 return dst == self._root
             did = self._snap.id_of(dst)
             return did is not None and self._d[0, did] < INF
+        if self._backend == "native":
+            if self._sid is None:
+                return dst == self._root
+            did = self._snap.id_of(dst)
+            return did is not None and self._d_all[self._sid, did] < INF
         return dst in self._spf
 
     def metric_to(self, dst: str) -> Optional[Metric]:
@@ -528,6 +581,13 @@ class SpfView:
             if did is None or self._d[0, did] >= INF:
                 return None
             return int(self._d[0, did])
+        if self._backend == "native":
+            if self._sid is None:
+                return 0 if dst == self._root else None
+            did = self._snap.id_of(dst)
+            if did is None or self._d_all[self._sid, did] >= INF:
+                return None
+            return int(self._d_all[self._sid, did])
         res = self._spf.get(dst)
         return res.metric if res is not None else None
 
@@ -542,6 +602,18 @@ class SpfView:
             return {
                 self._snap.node_names[self._batch_srcs[i]]
                 for i in np.nonzero(col)[0]
+            }
+        if self._backend == "native":
+            if self._sid is None:
+                return set()
+            did = self._snap.id_of(dst)
+            if did is None:
+                return set()
+            col = self._fh[:, did]
+            return {
+                self._snap.node_names[v]
+                for v in np.nonzero(col)[0]
+                if v < self._snap.n
             }
         res = self._spf.get(dst)
         return set(res.next_hops) if res is not None else set()
@@ -567,6 +639,13 @@ class SpfView:
             if self._d[row, bid] >= INF:
                 return None
             return int(self._d[row, bid])
+        if self._backend == "native":
+            if self._d_all is None:
+                return None
+            aid, bid = self._snap.id_of(a), self._snap.id_of(b)
+            if aid is None or bid is None or self._d_all[aid, bid] >= INF:
+                return None
+            return int(self._d_all[aid, bid])
         res = self._ls.get_spf_result(a)
         return res[b].metric if b in res else None
 
@@ -588,7 +667,7 @@ class SpfSolver:
         backend: str = "device",
         device: DeviceLike = None,
     ):
-        if backend not in ("device", "host"):
+        if backend not in SPF_BACKENDS:
             raise ValueError(f"unknown SPF backend {backend!r}")
         self.my_node_name = my_node_name
         self.enable_v4 = enable_v4
@@ -606,6 +685,10 @@ class SpfSolver:
         # incremental KSP2 engines, weakly keyed by LinkState: a dead area
         # graph releases its engine (resident [n, n] matrix, path caches)
         self._ksp2_engines: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        # debounce-terminal speculation ledger: ls -> (version, root)
+        # staged by speculate_views and not yet consumed by a rebuild (the
+        # staged view itself lives in _views)
+        self._spec_staged: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         self.static_mpls_routes: Dict[int, List[NextHop]] = {}
         self.best_routes_cache: Dict[IpPrefix, BestRouteSelectionResult] = {}
         # per-graph SPF view cache: ls -> {(version, root): view}. Strong
@@ -696,6 +779,7 @@ class SpfSolver:
         LinkStates alone."""
         self._views = {}
         self._ksp2_engines = weakref.WeakKeyDictionary()
+        self._spec_staged = weakref.WeakKeyDictionary()
         self._ksp2_dsts_cache = None
         self._init_route_caches()
         reset_device_caches()
@@ -704,13 +788,90 @@ class SpfSolver:
     def set_backend(self, backend: str) -> None:
         """Switch the solve backend. The view and route caches are not
         keyed by backend, so a switch drops them."""
-        if backend not in ("device", "host"):
+        if backend not in SPF_BACKENDS:
             raise ValueError(f"unknown SPF backend {backend!r}")
         if backend == self.backend:
             return
         self.backend = backend
         self.reset_device_state()
         SPF_COUNTERS["decision.backend_switches"] += 1
+
+    # -- publication-time hooks ---------------------------------------------
+
+    def prewarm(self, area_link_states: AreaLinkStates) -> None:
+        """Publication-time overlap hook (Decision calls it as
+        publications land, before the debounced rebuild fires): scatter
+        the pending topology deltas into the resident sliced-ELL bands
+        now, so the band scatter overlaps the debounce window instead of
+        sitting on the rebuild's critical path. Touches only graphs that
+        already have resident state (never compiles one). The resident
+        state journals stacked patches, so N prewarmed publications in
+        one window still leave the rebuild on the warm-solve path.
+
+        Like the reference, a failure here is not raised: this is an
+        overlap, not a correctness step. ``_EllResidentCache.state_for``
+        drops the state a failed scatter tore, so the next rebuild compiles
+        the bands in full (``decision.ell_full_compiles``), and the failure
+        is counted in ``decision.ell_prewarm_failures``."""
+        if self.backend != "device":
+            return
+        for ls in area_link_states.values():
+            entry = self._resident._cache.get(ls)
+            if entry is None or entry[0] == ls.topology_version:
+                continue
+            try:
+                self._resident.state_for(ls)
+            except Exception:
+                get_registry().counter_bump("decision.ell_prewarm_failures")
+                continue
+            SPF_COUNTERS["decision.ell_prewarms"] += 1
+
+    def speculate_views(
+        self, my_node_name: str, area_link_states: AreaLinkStates
+    ) -> int:
+        """Debounce-terminal speculation hook (Decision calls it once a
+        saturated debounce window): solve the root's view for the current
+        coalesced backlog now, so the rebuild's ``_view`` lands on a cache
+        hit. Counted: ``ops.spec_dispatches`` on stage, ``ops.spec_hits``
+        when the rebuild consumes it, ``ops.spec_cancels`` when a later
+        publication supersedes it (or the solve failed), and
+        ``ops.spec_skips`` when it stands down because a fault is armed:
+        every fault seam belongs to the committed path's degradation
+        ladder, and a speculative solve must not consume its charges.
+        Returns the views staged."""
+        reg = get_registry()
+        if self.backend != "device":
+            return 0
+        if get_injector().any_armed:
+            reg.counter_bump("ops.spec_skips")
+            return 0
+        staged = 0
+        for area in sorted(area_link_states):
+            ls = area_link_states[area]
+            if not ls.has_node(my_node_name):
+                continue
+            key = (ls.topology_version, my_node_name)
+            prev = self._spec_staged.pop(ls, None)
+            if prev == key:
+                self._spec_staged[ls] = prev
+                continue
+            if prev is not None:
+                # an earlier stage for this graph died unconsumed
+                reg.counter_bump("ops.spec_cancels")
+            per_ls = self._views.get(ls)
+            if per_ls is not None and key in per_ls:
+                continue  # already current: nothing to speculate
+            try:
+                self._view(area, ls, my_node_name)
+            except Exception:
+                # abandoned speculation, never an escalation: the
+                # committed rebuild owns the retry ladder
+                reg.counter_bump("ops.spec_cancels")
+                continue
+            self._spec_staged[ls] = key
+            reg.counter_bump("ops.spec_dispatches")
+            staged += 1
+        return staged
 
     # -- SPF views --------------------------------------------------------
 
@@ -725,10 +886,27 @@ class SpfSolver:
             self._views.pop(next(iter(self._views)))
         key = (ls.topology_version, root)
         view = per_ls.get(key)
+        spec = self._spec_staged.get(ls)
+        if spec is not None:
+            if view is not None and spec == key:
+                # the debounced rebuild consumed the staged view
+                del self._spec_staged[ls]
+                get_registry().counter_bump("ops.spec_hits")
+            elif spec[0] != key[0]:
+                # the graph moved past the staged version: the
+                # speculative solve died unconsumed
+                del self._spec_staged[ls]
+                get_registry().counter_bump("ops.spec_cancels")
+            # same version, another root (a query): the stage stays armed
         if view is None:
             # drop stale versions of this graph
             for k in [k for k in per_ls if k[0] != key[0]]:
                 del per_ls[k]
+            if self.backend == "device":
+                # the degradation ladder's device seam: a cached view
+                # never fails (its rows already crossed), a fresh device
+                # solve can
+                fault_point(FAULT_SPF_SOLVE)
             view = SpfView(ls, root, self.backend, self._snapshots, self._resident)
             per_ls[key] = view
         return view

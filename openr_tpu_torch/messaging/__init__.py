@@ -1,0 +1,1 @@
+"""messaging layer of the PyTorch/CUDA port (mirrors ``openr_tpu/messaging/``)."""

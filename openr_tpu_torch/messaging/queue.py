@@ -1,0 +1,208 @@
+"""Typed in-process message bus: multi-writer fan-out queues.
+
+Port note: a copy of ``openr_tpu/messaging/queue.py``; nothing left out.
+
+Behavioral parity with the reference ``openr/messaging/ReplicateQueue.h``
+and ``Queue.h``: a ``ReplicateQueue`` replicates every pushed message to
+every reader endpoint; readers block on ``get`` until a message arrives or
+the queue closes. This is the only inter-module communication mechanism in
+the daemon (modules share no mutable state — reference: Main.cpp:269-280
+wires 11 of these between the modules).
+
+Service-plane instrumentation: every named reader exports a depth gauge
+(``messaging.queue.depth.<reader>``), an oldest-item-age gauge
+(``messaging.queue.age_ms.<reader>``) and a high-watermark counter
+(``messaging.queue.hwm.<reader>``) through the process registry — the
+primary backpressure signals the admission path keys on. A reader may
+opt into a bound (``maxlen``): when full, the OLDEST item is dropped to
+admit the new one (newest state wins; KvStore-style streams are
+re-convergent) and ``messaging.queue.overflow.<reader>`` counts the
+shed instead of the queue growing without bound.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+import time
+from collections import deque
+from typing import Deque, Generic, List, Optional, Tuple, TypeVar
+
+from openr_tpu_torch.telemetry import get_registry
+
+T = TypeVar("T")
+
+_METRIC_SAFE_RE = re.compile(r"[^a-z0-9_]+")
+
+
+def _metric_leaf(name: str) -> str:
+    """Reader name -> fb303-safe metric leaf (``decision:a`` ->
+    ``decision_a``)."""
+    return _METRIC_SAFE_RE.sub("_", name.lower()).strip("_") or "anon"
+
+
+class QueueClosedError(Exception):
+    """Raised by get() once the queue is closed and drained."""
+
+
+class QueueTimeoutError(Exception):
+    """Raised by get(timeout=...) when no message arrives in time."""
+
+
+class RQueue(Generic[T]):
+    """Reader endpoint of a ReplicateQueue (reference: messaging/Queue.h)."""
+
+    def __init__(self, name: str = "", maxlen: Optional[int] = None):
+        self.name = name
+        # (enqueue_monotonic, item): the timestamp feeds the age gauge
+        self._items: Deque[Tuple[float, T]] = deque()
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._closed = False
+        self._maxlen = maxlen
+        self._hwm = 0
+        self._overflows = 0
+        self._leaf = _metric_leaf(name)
+        if name:
+            reg = get_registry()
+            reg.gauge(f"messaging.queue.depth.{self._leaf}", self.size)
+            reg.gauge(
+                f"messaging.queue.age_ms.{self._leaf}", self.oldest_age_ms
+            )
+
+    def _push(self, item: T) -> None:
+        overflowed = False
+        with self._cv:
+            if self._closed:
+                return
+            if (
+                self._maxlen is not None
+                and len(self._items) >= self._maxlen
+            ):
+                # bounded mode: shed the OLDEST entry so the newest
+                # state wins, and count it — never grow silently
+                self._items.popleft()
+                self._overflows += 1
+                overflowed = True
+            self._items.append((time.monotonic(), item))
+            depth = len(self._items)
+            new_hwm = depth > self._hwm
+            if new_hwm:
+                self._hwm = depth
+            self._cv.notify()
+        if self.name:
+            reg = get_registry()
+            if overflowed:
+                reg.counter_bump(f"messaging.queue.overflow.{self._leaf}")
+            if new_hwm:
+                key = f"messaging.queue.hwm.{self._leaf}"
+                reg.counter_set(key, max(reg.counter_get(key), depth))
+
+    def _close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    def get(self, timeout: Optional[float] = None) -> T:
+        """Block until a message is available. Raises QueueClosedError when
+        the queue is closed and fully drained; QueueTimeoutError on
+        timeout."""
+        with self._cv:
+            if not self._cv.wait_for(
+                lambda: self._items or self._closed, timeout=timeout
+            ):
+                raise QueueTimeoutError(self.name)
+            if self._items:
+                return self._items.popleft()[1]
+            raise QueueClosedError(self.name)
+
+    def try_get(self) -> Optional[T]:
+        with self._cv:
+            if self._items:
+                return self._items.popleft()[1]
+            if self._closed:
+                raise QueueClosedError(self.name)
+            return None
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._items)
+
+    def oldest_age_ms(self) -> float:
+        """Age of the head-of-line item — the time the slowest consumer
+        is running behind (0 when drained)."""
+        with self._lock:
+            if not self._items:
+                return 0.0
+            return (time.monotonic() - self._items[0][0]) * 1000.0
+
+    @property
+    def high_watermark(self) -> int:
+        with self._lock:
+            return self._hwm
+
+    @property
+    def overflows(self) -> int:
+        with self._lock:
+            return self._overflows
+
+    @property
+    def closed(self) -> bool:
+        with self._lock:
+            return self._closed and not self._items
+
+
+class ReplicateQueue(Generic[T]):
+    """Multi-writer fan-out queue: every push is replicated to every
+    reader. reference: messaging/ReplicateQueue.h:22."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
+        self._readers: List[RQueue[T]] = []
+        self._lock = threading.Lock()
+        self._closed = False
+        self._writes = 0
+
+    def get_reader(
+        self, name: str = "", maxlen: Optional[int] = None
+    ) -> RQueue[T]:
+        with self._lock:
+            if self._closed:
+                raise QueueClosedError(self.name)
+            reader = RQueue(
+                name or f"{self.name}::reader{len(self._readers)}",
+                maxlen=maxlen,
+            )
+            self._readers.append(reader)
+            return reader
+
+    def push(self, item: T) -> bool:
+        with self._lock:
+            if self._closed:
+                return False
+            readers = list(self._readers)
+            self._writes += 1
+        for reader in readers:
+            reader._push(item)
+        return True
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            readers = list(self._readers)
+        for reader in readers:
+            reader._close()
+
+    def open(self) -> None:
+        with self._lock:
+            self._closed = False
+
+    @property
+    def num_readers(self) -> int:
+        with self._lock:
+            return len(self._readers)
+
+    @property
+    def num_writes(self) -> int:
+        with self._lock:
+            return self._writes

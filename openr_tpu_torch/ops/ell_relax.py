@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from openr_tpu_torch.kernels import LAUNCHES
+from openr_tpu_torch.kernels import note_launch
 
 INF = (1 << 30) - 1
 
@@ -269,7 +269,7 @@ def ell_band_relax(
             pos, plan.row_threads, out.data_ptr(), stream,
         )
     _build.check(rc, "ell_band_relax")
-    LAUNCHES["ell_band_relax"] += 1
+    note_launch("ell_band_relax")
     return view
 
 
@@ -365,5 +365,5 @@ def ell_band_relax_masked(
             plan.row_threads, plan.chunk, out.data_ptr(), stream,
         )
     _build.check(rc, "ell_band_relax_masked")
-    LAUNCHES["ell_band_relax_masked"] += 1
+    note_launch("ell_band_relax_masked")
     return view

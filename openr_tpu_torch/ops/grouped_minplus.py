@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from openr_tpu_torch.kernels import LAUNCHES
+from openr_tpu_torch.kernels import note_launch
 
 INF = (1 << 30) - 1
 
@@ -228,7 +228,7 @@ def _run(name: str, entry: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, entry)(*args, stream)
     _build.check(rc, name)
-    LAUNCHES[name] += 1
+    note_launch(name)
 
 
 def _alloc(name: str, gath, w, out_shape, scratch_shape):

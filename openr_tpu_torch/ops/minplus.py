@@ -14,7 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from openr_tpu_torch.kernels import LAUNCHES
+from openr_tpu_torch.kernels import note_launch
 
 INF = (1 << 30) - 1
 
@@ -140,5 +140,5 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             plan.k_warps, plan.k_chunk, plan.splits, stream,
         )
     _build.check(rc, "minplus")
-    LAUNCHES["minplus"] += 1
+    note_launch("minplus")
     return out

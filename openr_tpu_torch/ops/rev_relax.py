@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from openr_tpu_torch.kernels import LAUNCHES
+from openr_tpu_torch.kernels import note_launch
 
 INF = (1 << 30) - 1
 
@@ -182,5 +182,5 @@ def rev_band_relax(
             out.data_ptr(), stream,
         )
     _build.check(rc, "rev_band_relax")
-    LAUNCHES["rev_band_relax"] += 1
+    note_launch("rev_band_relax")
     return view

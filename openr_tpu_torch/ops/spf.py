@@ -30,6 +30,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops.minplus import INF, minplus
 from openr_tpu_torch.ops.staging import UploadStager
 
@@ -48,7 +49,7 @@ def _relax_to_fixed_point(d: torch.Tensor, t: torch.Tensor, limit: int) -> torch
     steps ran; one host sync per step."""
     for _ in range(limit):
         nxt = torch.minimum(d, minplus(d, t))
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break
@@ -64,7 +65,7 @@ def all_pairs_distances(w: torch.Tensor, overloaded: torch.Tensor) -> torch.Tens
     d.diagonal().fill_(0)
     for _ in range(n):
         nxt = torch.minimum(d, minplus(d, _mask_transit_rows(d, overloaded)))
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break

@@ -58,27 +58,33 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked, mask_words
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
 from openr_tpu_torch.ops.staging import Readback, UploadStager
+from openr_tpu_torch.telemetry import get_registry
 
 _NODE_PAD = 128
 _ELL_SLOT_PAD = 8
 
 # Churn-path health counters of the resident bands, by the JAX package's
-# names; ``decision.spf_solver.get_spf_counters`` reports them with a
-# "decision." prefix. A change that knocks the churn path back to full
-# recompiles shows as ell_incremental_syncs staying flat while
-# ell_cold_solves climbs.
-ELL_COUNTERS: Dict[str, int] = {
-    "ell_incremental_syncs": 0,  # patches scattered into resident bands
-    "ell_warm_solves": 0,  # solves seeded from the previous distances
-    "ell_cold_solves": 0,  # solves from the unit init
-    "ell_widen_events": 0,  # bands re-uploaded whole after a widen
-    "ell_patch_merges": 0,  # stacked patches coalesced warm
-    "ell_structural_warm_solves": 0,  # overload/link flips kept warm
-}
+# names, stored in the port's telemetry registry under "decision." (so
+# ``decision.spf_solver.get_spf_counters`` and a registry snapshot read the
+# same numbers; ``ELL_COUNTERS[k] += 1`` works as on a dict). A change that
+# knocks the churn path back to full recompiles shows as
+# ell_incremental_syncs staying flat while ell_cold_solves climbs.
+ELL_COUNTERS = get_registry().counter_dict(
+    [
+        "ell_incremental_syncs",  # patches scattered into resident bands
+        "ell_warm_solves",  # solves seeded from the previous distances
+        "ell_cold_solves",  # solves from the unit init
+        "ell_widen_events",  # bands re-uploaded whole after a widen
+        "ell_patch_merges",  # stacked patches coalesced warm
+        "ell_structural_warm_solves",  # overload/link flips kept warm
+    ],
+    prefix="decision.",
+)
 
 
 def _pad_up(n: int, align: int) -> int:
@@ -503,7 +509,7 @@ def _ell_view_batch(srcs_t, ws_t, overloaded, srcs, w_sv, bands, n):
     d = _ell_relax(unit, bands, srcs_t, ws_t, torch.zeros_like(overloaded))
     for _ in range(n):
         nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break
@@ -597,7 +603,7 @@ def _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n)
     while hops < n:
         nxt = _ell_relax_masked(d, bands, srcs_t, ws_t, masks_t, overloaded)
         hops += 1
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break
@@ -684,7 +690,7 @@ def ell_masked_distances(
         torch.from_numpy(graph.overloaded).to(dev),
         src_id, graph.bands, graph.n_pad,
     )
-    return d.cpu().numpy()
+    return da.reap_read(d)
 
 
 # -- resident incremental state ----------------------------------------------
@@ -751,7 +757,7 @@ def _ell_reconverge(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t,
     while hops < n:
         nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
         hops += 1
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break
@@ -794,6 +800,10 @@ def band_patch_inputs(resident_src, resident_w, patched: EllGraph, stager: Uploa
         else:
             ids[bi], p_src[bi], p_w[bi] = next(tensors), next(tensors), next(tensors)
     return tuple(in_src), tuple(in_w), tuple(ids), tuple(p_src), tuple(p_w), list(tensors)
+
+
+class TornStateError(RuntimeError):
+    """A resident ``EllState`` whose earlier scatter or solve failed."""
 
 
 class EllState:
@@ -851,8 +861,8 @@ class EllState:
 
     def _check_whole(self) -> None:
         if self.torn:
-            raise RuntimeError("EllState: a previous scatter or solve failed; "
-                               "the resident bands are torn")
+            raise TornStateError("EllState: a previous scatter or solve failed; "
+                                 "the resident bands are torn")
 
     def _note_patch(self, patched: EllGraph, ov_changed: bool) -> None:
         """Fold one patch's delta into the warm-start journal. An edge
@@ -1039,7 +1049,7 @@ def _ell_fixed_point(srcs_t, ws_t, overloaded, src_ids, bands, n, warm=None):
     while hops < n:
         nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
         hops += 1
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break

@@ -18,6 +18,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from openr_tpu_torch.ops import dispatch_accounting as da
+
 
 class UploadStager:
     """Host-to-device copies of int32 arrays through one pinned host
@@ -88,7 +90,9 @@ class Readback:
 
     def reap(self) -> np.ndarray:
         """The host copy as a numpy array, once it has landed. The array
-        shares the pinned tensor's memory and keeps it alive."""
+        shares the pinned tensor's memory and keeps it alive. Counted as
+        one blocking sync (``ops.blocking_syncs``)."""
+        da.note_blocking_sync()
         if self._done is not None:
             self._done.synchronize()
             self._done = None

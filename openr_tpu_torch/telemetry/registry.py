@@ -1,0 +1,273 @@
+"""Thread-safe metric registry with fb303-style dotted names.
+
+Port note: a copy of ``openr_tpu/telemetry/registry.py``; nothing left out.
+
+One process-wide ``Registry`` (``get_registry()``) owns every counter,
+gauge, and histogram. Modules keep their historical idioms:
+
+- legacy module-global counter dicts (``SPF_COUNTERS``,
+  ``ELL_COUNTERS``) become ``CounterDict`` shims — same ``d[k] += 1``
+  / ``dict(d)`` / ``.items()`` call sites, but the backing store is
+  the registry, so ``OpenrCtrl.get_counters`` and bench artifacts see
+  them without per-module merge loops;
+- latency distributions are ``Histogram``s over a sliding window of
+  the most recent observations, exported as streaming percentiles
+  (``<name>.p50/.p95/.p99/.max/.avg/.count``) — per DeltaPath, means
+  hide the warm/cold split that the churn path must account for.
+
+Everything here must stay cheap on the hot path: a counter bump is a
+lock + dict add; a histogram observation is a lock + ring append.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Union
+
+from collections.abc import MutableMapping
+
+_PERCENTILES = ((".p50", 0.50), (".p95", 0.95), (".p99", 0.99))
+
+
+class Histogram:
+    """Streaming latency distribution over a sliding window.
+
+    Keeps the last ``window`` observations in a ring buffer plus
+    cumulative ``count``/``max`` over the histogram's whole life, so
+    the percentiles track recent behaviour while the count keeps
+    monotonic fb303 semantics.
+
+    Observations land from several module threads at once (decision
+    rebuild, fib program, monitor scrape) while snapshot() reads from
+    another — the per-histogram lock keeps ring/next/filled mutually
+    consistent. A plain Lock, never held while calling out.
+    """
+
+    __slots__ = (
+        "name", "_lock", "_ring", "_next", "_filled", "_count", "_max",
+        "_sum",
+    )
+
+    def __init__(self, name: str, window: int = 1024) -> None:
+        self.name = name
+        self._lock = threading.Lock()
+        self._ring: List[float] = [0.0] * window
+        self._next = 0
+        self._filled = 0
+        self._count = 0
+        self._max = 0.0
+        self._sum = 0.0
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._ring[self._next] = value
+            self._next = (self._next + 1) % len(self._ring)
+            self._filled = min(self._filled + 1, len(self._ring))
+            self._count += 1
+            self._sum += value
+            if value > self._max:
+                self._max = value
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def stats(self) -> Dict[str, float]:
+        """Flattened ``<name>.p50/.p95/.p99/.max/.avg/.count`` dict."""
+        with self._lock:
+            count, filled = self._count, self._filled
+            ring = self._ring[:filled]
+            hmax, hsum = self._max, self._sum
+        out: Dict[str, float] = {self.name + ".count": count}
+        if count == 0:
+            return out
+        window = sorted(ring)
+        n = len(window)
+        for suffix, q in _PERCENTILES:
+            # nearest-rank over the sliding window
+            idx = min(n - 1, max(0, int(round(q * (n - 1)))))
+            out[self.name + suffix] = round(window[idx], 4)
+        out[self.name + ".max"] = round(hmax, 4)
+        out[self.name + ".avg"] = round(hsum / count, 4)
+        return out
+
+    def percentile(self, q: float) -> float:
+        """Nearest-rank percentile over the sliding window (same rule
+        as ``stats``), 0.0 when empty — the serve plane's live SLO
+        breach check reads this between waves instead of snapshotting
+        the whole registry."""
+        with self._lock:
+            ring = list(self._ring[: self._filled])
+        if not ring:
+            return 0.0
+        window = sorted(ring)
+        n = len(window)
+        idx = min(n - 1, max(0, int(round(q * (n - 1)))))
+        return window[idx]
+
+
+class Registry:
+    """Process-wide metric store. All methods are thread-safe."""
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._counters: Dict[str, Union[int, float]] = {}
+        self._gauges: Dict[str, Callable[[], float]] = {}
+        self._histograms: Dict[str, Histogram] = {}
+
+    # -- counters ---------------------------------------------------
+    def counter_bump(self, name: str, delta: Union[int, float] = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + delta
+
+    def counter_set(self, name: str, value: Union[int, float]) -> None:
+        with self._lock:
+            self._counters[name] = value
+
+    def counter_get(self, name: str) -> Union[int, float]:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def counter_dict(
+        self,
+        initial: Iterable[str] = (),
+        prefix: str = "",
+    ) -> "CounterDict":
+        """A dict-shaped shim over registry counters (see CounterDict)."""
+        d = CounterDict(self, prefix)
+        with self._lock:
+            for key in initial:
+                d.setdefault(key, 0)
+        return d
+
+    # -- gauges -----------------------------------------------------
+    def gauge(self, name: str, fn: Callable[[], float]) -> None:
+        """Register a callable sampled at snapshot time. A gauge that
+        raises is dropped from that snapshot (never poisons export)."""
+        with self._lock:
+            self._gauges[name] = fn
+
+    # -- histograms -------------------------------------------------
+    def histogram(self, name: str, window: int = 1024) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(name, window)
+            return h
+
+    def histogram_if_exists(self, name: str) -> Optional[Histogram]:
+        """The histogram, or None if nothing has observed it yet —
+        anomaly triggers poll through this so they never materialize
+        empty histograms (the telemetry smoke fails on any registered
+        histogram with count 0)."""
+        with self._lock:
+            return self._histograms.get(name)
+
+    def observe(self, name: str, value: float) -> None:
+        self.histogram(name).observe(value)
+
+    def percentile(self, name: str, q: float) -> float:
+        return self.histogram(name).percentile(q)
+
+    @contextmanager
+    def timed(self, name: str) -> Iterator[None]:
+        """Context manager observing the block's wall-clock into the
+        ``name`` histogram in milliseconds — the one-liner the fleet
+        twin's converge waves (and any future timed section) use
+        instead of hand-rolled perf_counter bookkeeping."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(name, (time.perf_counter() - t0) * 1000.0)
+
+    def histograms(self) -> Dict[str, Histogram]:
+        with self._lock:
+            return dict(self._histograms)
+
+    # -- export -----------------------------------------------------
+    def snapshot(self) -> Dict[str, Union[int, float]]:
+        """One flat fb303-style dict: counters, sampled gauges, and
+        expanded histogram stats."""
+        with self._lock:
+            out: Dict[str, Union[int, float]] = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = list(self._histograms.values())
+        for name, fn in gauges.items():
+            try:
+                out[name] = fn()
+            except Exception:
+                pass
+        for h in hists:
+            out.update(h.stats())
+        return out
+
+    def reset(self) -> None:
+        """Zero counters and drop histogram samples (tests only).
+        Registered names survive so snapshots keep a stable shape."""
+        with self._lock:
+            for name in self._counters:
+                self._counters[name] = 0
+            for name, h in list(self._histograms.items()):
+                self._histograms[name] = Histogram(name, len(h._ring))
+
+
+class CounterDict(MutableMapping):
+    """Compatibility shim: looks like the historical module-global
+    counter dict (``SPF_COUNTERS[k] += 1``, ``dict(SPF_COUNTERS)``,
+    ``.items()``), stores in the shared registry under
+    ``prefix + key``. Keys read before first write register at 0, so
+    ``before = COUNTERS[k]`` works for names no code path bumped yet.
+    """
+
+    __slots__ = ("_registry", "_prefix", "_keys")
+
+    def __init__(self, registry: Registry, prefix: str = "") -> None:
+        self._registry = registry
+        self._prefix = prefix
+        self._keys: Dict[str, None] = {}  # insertion-ordered key set
+
+    def __getitem__(self, key: str) -> Union[int, float]:
+        self.setdefault(key, 0)
+        return self._registry.counter_get(self._prefix + key)
+
+    def __setitem__(self, key: str, value: Union[int, float]) -> None:
+        self._keys[key] = None
+        self._registry.counter_set(self._prefix + key, value)
+
+    def __delitem__(self, key: str) -> None:
+        del self._keys[key]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(list(self._keys))
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def __contains__(self, key: object) -> bool:
+        return key in self._keys
+
+    def setdefault(self, key, default=0):
+        if key not in self._keys:
+            self._keys[key] = None
+            name = self._prefix + key
+            self._registry.counter_set(
+                name, self._registry.counter_get(name) or default
+            )
+        return self._registry.counter_get(self._prefix + key)
+
+
+_REGISTRY: Optional[Registry] = None
+_REGISTRY_LOCK = threading.Lock()
+
+
+def get_registry() -> Registry:
+    global _REGISTRY
+    if _REGISTRY is None:
+        with _REGISTRY_LOCK:
+            if _REGISTRY is None:
+                _REGISTRY = Registry()
+    return _REGISTRY

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -123,3 +124,49 @@ def test_the_card_is_named_with_its_index(monkeypatch):
     assert resolve_device("cuda") == torch.device("cuda", 0)
     assert resolve_device("cuda:1") == torch.device("cuda:1")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_decision_modules_import_without_jax_or_openr_tpu():
+    """The Decision slice's modules, each imported alone with JAX and
+    ``openr_tpu`` refused (the walk above imports them all together)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in (
+        "openr_tpu_torch.decision.decision",
+        "openr_tpu_torch.graph.native_spf",
+        "openr_tpu_torch.ops.dispatch_accounting",
+        "openr_tpu_torch.telemetry.profiler",
+        "openr_tpu_torch.faults.supervisor",
+        "openr_tpu_torch.load.admission",
+        "openr_tpu_torch.utils.wire",
+    ):
+        code = _BLOCKED_IMPORT.split("import openr_tpu_torch\n")[0] + (
+            f"import importlib; importlib.import_module({name!r})\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        )
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (name, proc.stderr)
+
+
+def test_native_core_builds_from_the_port_source_into_build():
+    from openr_tpu_torch.graph import native_spf
+
+    assert native_spf.SRC == Path(REPO) / "openr_tpu_torch" / "csrc" / "spfcore.cpp"
+    assert native_spf.BUILD_DIR == Path(REPO) / "build" / "openr_tpu_torch"
+    path = native_spf.build()
+    assert path == native_spf.BUILD_DIR / "libspfcore.so" and path.exists()
+    stamp = native_spf.BUILD_DIR / "libspfcore.so.sha256"
+    assert stamp.read_text().strip() == native_spf._digest()
+    # the reference's native/ directory is never read or built by the port
+    assert "native" not in native_spf.SRC.relative_to(REPO).parts[:1]
+    assert native_spf.library().spf_all_pairs is not None
+
+
+def test_decision_raises_without_cuda(no_cuda):
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.messaging.queue import ReplicateQueue
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Decision("a", ReplicateQueue(), ReplicateQueue())
+    assert Decision("a", ReplicateQueue(), ReplicateQueue(), device="cpu").spf_solver.device == \
+        torch.device("cpu")

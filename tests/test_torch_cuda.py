@@ -643,3 +643,95 @@ def test_ksp2_engine_on_the_card_matches_the_cpu(card, monkeypatch, fast):
         syncs += build()["decision.ksp2_incremental_syncs"]
     assert syncs > 0
     assert LAUNCHES["ell_band_relax"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes,sparse", [(120, False), (120, True)], ids=["dense", "sparse"])
+def test_decision_on_the_card_matches_the_cpu(card, monkeypatch, nodes, sparse):
+    """The port's Decision module on the card and on the CPU, fed the same
+    publications through a churn sequence (bench and remote events, a
+    burst that saturates the debounce, a drain): the emitted updates,
+    installed route databases and decision.* counter deltas are equal, and
+    the card's rebuilds launched their kernels."""
+    import dataclasses
+    from dataclasses import replace
+
+    from openr_tpu_torch.decision import spf_solver
+    from openr_tpu_torch.decision.decision import Decision
+    from openr_tpu_torch.messaging.queue import ReplicateQueue
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.telemetry import get_registry
+    from openr_tpu_torch.types import Publication, Value
+    from openr_tpu_torch.utils import keys, wire
+
+    if sparse:
+        monkeypatch.setattr(spf_solver, "SPARSE_NODE_THRESHOLD", 8)
+    topo = topologies.fat_tree_nodes(nodes)
+    root = "rsw-0-0"
+    mods = {dev: Decision(root, ReplicateQueue(), ReplicateQueue(), device=dev)
+            for dev in (card, torch.device("cpu"))}
+    readers = {dev: d.route_updates_queue.get_reader("t") for dev, d in mods.items()}
+    versions = {}
+
+    def publish(dbs):
+        kv = {}
+        for db in dbs:
+            key = (keys.adj_key if hasattr(db, "adjacencies") else keys.prefix_db_key)(
+                db.this_node_name)
+            versions[key] = versions.get(key, 0) + 1
+            kv[key] = Value(versions[key], db.this_node_name, wire.dumps(db))
+        for d in mods.values():
+            d._on_publication(Publication(key_vals=kv, area=topo.area))
+
+    def form(x):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return tuple((f.name, form(getattr(x, f.name))) for f in dataclasses.fields(x)
+                         if f.name not in ("perf_events", "trace"))
+        if isinstance(x, (set, frozenset)):
+            return tuple(sorted(map(form, x), key=repr))
+        if isinstance(x, dict):
+            return tuple(sorted(((form(k), form(v)) for k, v in x.items()), key=repr))
+        if isinstance(x, (list, tuple)):
+            return tuple(map(form, x))
+        return x
+
+    def step():
+        got = {}
+        for dev, d in mods.items():
+            c0 = dict(get_registry()._counters)
+            if d._rebuild_debounced.is_scheduled():
+                d._rebuild_debounced._handle.cancel()
+                d._rebuild_debounced._fire()
+            ups = []
+            while (u := readers[dev].try_get()) is not None:
+                ups.append(form(u))
+            c1 = dict(get_registry()._counters)
+            deltas = {k: v - c0.get(k, 0) for k, v in c1.items()
+                      if k.startswith("decision.") and v != c0.get(k, 0)
+                      and not k.startswith("decision.rung")}
+            got[dev] = (ups, form(d.route_db.unicast_routes), form(d.route_db.mpls_routes),
+                        deltas)
+        assert got[card] == got[torch.device("cpu")]
+
+    publish(list(topo.adj_dbs.values()) + list(topo.prefix_dbs.values()))
+    step()
+    reset_launches()
+    adj = dict(topo.adj_dbs)
+    far = sorted(n for n in adj if n.startswith("rsw"))[-1]
+    fsws = sorted(n for n in adj if n.startswith("fsw"))
+    for node, metric in (("fsw-0-0", 3), (far, 4), ("fsw-0-0", 5)):
+        adj[node] = replace(adj[node], adjacencies=(
+            replace(adj[node].adjacencies[0], metric=metric),) + adj[node].adjacencies[1:])
+        publish([adj[node]])
+        step()
+    for i in range(8):  # one saturated window: prewarm and speculation
+        node = fsws[i % len(fsws)]
+        adj[node] = replace(adj[node], adjacencies=(
+            replace(adj[node].adjacencies[0], metric=2 + i),) + adj[node].adjacencies[1:])
+        publish([adj[node]])
+    step()
+    adj[fsws[3]] = replace(adj[fsws[3]], is_overloaded=True)
+    publish([adj[fsws[3]]])
+    step()
+    kernel = "ell_band_relax" if sparse else "minplus"
+    assert LAUNCHES[kernel] > 0

@@ -473,5 +473,7 @@ def test_reset_device_state_and_set_backend():
     assert port_solver.SPF_COUNTERS["decision.device_state_resets"] == (
         c0["decision.device_state_resets"] + 1
     )
+    # "native" is a backend since the native SPF core was ported; an
+    # unknown name still raises
     with pytest.raises(ValueError):
-        solver.set_backend("native")
+        solver.set_backend("plugin")
