@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's route build, route sweep and Decision module on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's route build, route sweep, Decision module and route plane on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -151,6 +151,46 @@ Phases, one JSON line each (``"phase": ...``):
    back onto the card). Every route database equals the oracle's, and the
    ladder counters read one fallback, one degradation, one self-heal, two
    warm and one cold rung failures.
+14. ``pipeline-1008``: the route plane under sustained load, as
+   ``tools/load_report.py``'s full mode drives the reference: the port's
+   ``load/harness.py::SustainedLoadHarness`` wires KvStore
+   (``kvstore/store.py``) -> Decision (backend ``device``, on the card)
+   -> Fib (``fib/fib.py``) over ``MockFibAgent``, each on its own event
+   base, with seed 20260805, debounce cap 0.05 s, admission (shed depth
+   4, cap 0.5 s) and pipelined emit, root ``rsw-0-0`` of the 1008-node
+   fabric; the seeded generator's default mix (metric churn 0.70, link
+   flap 0.15, prefix update 0.15). It reports the initial convergence,
+   then a 5 s window at each of 120, 240 and 360 events/s: each window's
+   ``RateReport.to_dict()`` (offered, published, achieved rate, e2e
+   p50/p95/p99 from the KvStore merge to the programmed FIB and its
+   sample count, malformed traces, the reader's high-water mark, drain
+   seconds, shed and coalesce counters) with the garbage collector's ms
+   (``gc_ms``), the kernel launches by name and Decision's rebuilds; one
+   more 2 s window at 120 events/s under the profiler (the card's busy
+   ms, its idle share over the session and, at least, over the
+   publishing span alone, beside the drain ms; a session with fewer
+   records of the kernel than the window launched is run again); then ``find_max_sustainable_rate`` against
+   a 100 ms p99 (``BM_DecisionFabric``'s goal; from 25 to 800 events/s,
+   2 s probes) with its ladder. A fixed-rate window that did not drain
+   or took no e2e sample fails the phase; so does any window with a
+   malformed trace, without a ``minplus`` launch, or in which
+   ``decision.fallbacks`` or ``decision.spf_host_fallback`` moved. At
+   the end the live route database must equal the harness's unshedded
+   host replay of the journal (``check_parity``; the replay must launch
+   no kernel) and the host Dijkstra solver's over the generator's final
+   databases.
+15. ``pipeline-10k``: the same on the 10 000-node fabric (sparse regime,
+   resident bands; ``ell_band_relax`` must launch in every window) at 10
+   and 40 events/s, with no rate search and no Dijkstra check beyond the
+   replay.
+
+Phases 14 and 15 run last, in a process of their own
+(``pipeline_process``, started with ``spawn`` and joined): it holds only
+the route plane, as a daemon's does. The earlier phases keep six copies
+of the two networks alive, and a full garbage collection's pause grows
+with the heap.
+
+Every phase line carries ``t_s``, the seconds since the script started.
 
 The ``kernels`` phase holds ``ell_band_relax`` also at the KSP2 engine's
 all-sources shapes, S = n_pad rows (1024 and 10112), against its plain
@@ -173,8 +213,8 @@ exits nonzero before doing anything. The sizes are fixed: the 1008-node
 fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
 with KSP2 5 and 3, and 2 with the chunked dispatch; through Decision 10
 and 3) and a 10 000-node one (3 events and 3 remote ones; with KSP2 2 and
-3; through Decision 3 and 3); only the seed of the random kernel inputs
-can be set.
+3; through Decision 3 and 3; under load, the windows above); only the
+seed of the random kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -232,6 +272,29 @@ DECISION_SPARSE_EVENTS = 3
 DECISION_DEBOUNCE_S = (0.010, 0.250)
 # the longest a route update may take to come off the out-queue
 DECISION_WAIT_S = 600.0
+# the route plane under sustained load (tools/load_report.py's full mode):
+# the harness's seed, debounce cap and admission, fixed-rate windows
+# (events/s) of PIPELINE_WINDOW_S on the 1008-node and the 10 000-node
+# fabric, one profiled window, and on the 1008-node fabric the search for
+# the highest rate whose e2e p99 meets the reference fabric goal
+# (BM_DecisionFabric, 100 ms)
+PIPELINE_SEED = 20260805
+PIPELINE_DEBOUNCE_MAX_S = 0.05
+PIPELINE_ADMISSION = {"shed_depth": 4, "cap_s": 0.5}
+PIPELINE_DENSE_RATES = (120, 240, 360)
+PIPELINE_SPARSE_RATES = (10, 40)
+PIPELINE_WINDOW_S = 5.0
+PIPELINE_PROFILED_S = 2.0
+PIPELINE_SEARCH = {"p99_slo_ms": 100.0, "lo": 25, "hi": 800, "duration_s": 2.0}
+# the parts of a sampled trace, in order: the KvStore merge to the debounce
+# window's start (queue hand-off and Decision's processing), the debounce,
+# the rebuild span (solve and emit), the rebuild's end to Fib's start, and
+# Fib's programming
+SPAN_PARTS = ("to_debounce", "debounce", "rebuild", "to_fib", "fib_program")
+# the longest the initial convergence and the drain before the parity
+# may take
+PIPELINE_START_S = 600.0
+PIPELINE_DRAIN_S = 120.0
 # the chunked KSP2 prefetch's host-clock parts (SpfSolver.ksp2_stats)
 KSP2_PARTS = ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
               "second_paths_ms")
@@ -242,7 +305,14 @@ KSP2_COUNTERS = ("decision.ksp2_cold_builds", "decision.ksp2_incremental_syncs",
                  "decision.ksp2_host_fallbacks")
 
 
+_START = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``t_s``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.monotonic() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -848,6 +918,239 @@ def decision_phases(dev, root, dense_nodes, sparse_nodes, dense_events, sparse_e
     large = decision_drive(f"decision-{sparse_label}", sparse_nodes, sparse_events)
     faults = decision_ladder("decision-ladder")
     return small, large, faults
+
+
+
+def trace_parts():
+    """``(parts, on_finish)``: a tracer finish listener that appends each
+    well-formed sampled trace's parts (``SPAN_PARTS``, ms) to the lists of
+    ``parts``. It reads only span names and times, so it serves the
+    reference package's tracer as well as the port's."""
+    parts = {k: [] for k in SPAN_PARTS}
+
+    def on_finish(trace, ok):
+        spans = {sp.name: sp for sp in trace.spans}
+        debounce, rebuild = spans.get("decision.debounce"), spans.get("decision.rebuild")
+        program = spans.get("fib.program")
+        if not ok or trace.e2e_ms is None or None in (debounce, rebuild, program):
+            return
+        for name, ms in zip(SPAN_PARTS, (
+                debounce.ts_ms - trace.ts_ms, debounce.dur_ms, rebuild.dur_ms,
+                program.ts_ms - rebuild.ts_ms - rebuild.dur_ms, program.dur_ms)):
+            parts[name].append(ms)
+
+    return parts, on_finish
+
+
+def pipeline_phases(dev, dense_nodes, sparse_nodes, dense_rates, sparse_rates, window_s,
+                    search, profiled_s=PIPELINE_PROFILED_S):
+    """The route plane under sustained load (``pipeline-1008``,
+    ``pipeline-10k``) on ``dev``, each emitting its JSON line; returns
+    each phase's kernel launches. ``search`` holds the keyword arguments
+    of ``find_max_sustainable_rate`` for the dense fabric (None: no
+    search). The sizes, rates and durations are arguments so a rehearsal
+    can run them small on the CPU; ``main`` passes the full ones."""
+    from types import SimpleNamespace
+
+    from openr_tpu_torch import carry
+    from openr_tpu_torch.decision import spf_solver
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.load import AdmissionConfig
+    from openr_tpu_torch.load.harness import SustainedLoadHarness
+    from openr_tpu_torch.telemetry import get_registry, get_tracer
+
+    gc_clock = GcClock()
+    reg = get_registry()
+    tracer = get_tracer()
+    dense_label = "1008" if dense_nodes == DENSE_NODES else str(dense_nodes)
+    sparse_label = "10k" if sparse_nodes == SPARSE_NODES else str(sparse_nodes)
+    fallbacks = ("decision.fallbacks", "decision.spf_host_fallback",
+                 "decision.degradations", "decision.ladder_exhausted")
+
+    def window(h, phase, kernel, run, rate, duration_s, p99_slo_ms=None, fixed=True):
+        """One window through ``run`` (the harness's ``run_fixed_rate``):
+        its ``RateReport``, and its record with the garbage collector's
+        ms, the kernel launches by name and Decision's rebuilds beside
+        the report, and the median of each part of the sampled traces
+        (``SPAN_PARTS``). A fixed-rate window fails the phase if it did not
+        drain or took no e2e sample; any window does if a trace was
+        malformed, ``kernel`` never launched on the card, or a fallback
+        counter moved."""
+        l0, g0 = dict(LAUNCHES), gc_clock.read()
+        r0 = h.decision.counters["decision.route_build_runs"]
+        f0 = {k: reg.counter_get(k) for k in fallbacks}
+        parts, on_finish = trace_parts()
+        tracer.add_finish_listener(on_finish)
+        try:
+            rep = run(rate, duration_s, p99_slo_ms=p99_slo_ms)
+        finally:
+            tracer.remove_finish_listener(on_finish)
+        g1 = gc_clock.read()
+        rec = dict(rep.to_dict(), gc_ms=g1[0] - g0[0], gc_full_collections=g1[1] - g0[1],
+                   launches={k: LAUNCHES[k] - l0[k] for k in LAUNCHES if LAUNCHES[k] > l0[k]},
+                   rebuilds=h.decision.counters["decision.route_build_runs"] - r0,
+                   median_parts_ms={k: statistics.median(v) if v else None
+                                    for k, v in parts.items()})
+        faults = []
+        if fixed and not rep.drained:
+            faults.append(f"did not drain in {rep.drain_s} s")
+        if fixed and not rep.e2e_samples:
+            faults.append("took no e2e sample")
+        if rep.traces_malformed:
+            faults.append(f"{rep.traces_malformed} malformed traces")
+        if dev.type == "cuda" and not rec["launches"].get(kernel):
+            faults.append(f"launched no {kernel}")
+        moved = {k: reg.counter_get(k) - f0[k] for k in fallbacks if reg.counter_get(k) != f0[k]}
+        if moved:
+            faults.append(f"fallback counters moved: {moved}")
+        if faults:
+            raise AssertionError(f"{phase}: the {rate} events/s window " + "; ".join(faults))
+        return rep, rec
+
+    def pipeline_drive(phase, nodes, rates, search):
+        """The harness on ``dev`` (``tools/load_report.py``'s full-mode
+        configuration): the initial convergence, a window at each of
+        ``rates`` for ``window_s``, one profiled window at ``rates[0]``
+        for ``profiled_s`` (device busy ms and idle share), the rate
+        search when ``search`` is given, then the parity: the live route
+        database against the host oracle's replay of the journal (which
+        must launch nothing) and, in the dense regime, against the host
+        Dijkstra solver on the generator's final databases. The launch
+        counts are zeroed just before and read just after."""
+        import torch
+
+        kernel = "ell_band_relax" if nodes > spf_solver.SPARSE_NODE_THRESHOLD else "minplus"
+        reset_launches()
+        c0 = dict(reg._counters)
+        g0 = gc_clock.read()
+        t0 = time.perf_counter()
+        h = SustainedLoadHarness(
+            nodes=nodes, seed=PIPELINE_SEED, solver_backend="device",
+            debounce_max_s=PIPELINE_DEBOUNCE_MAX_S, admission=AdmissionConfig(**PIPELINE_ADMISSION),
+            pipelined_emit=True, device=dev)
+        try:
+            h.start(initial_timeout_s=PIPELINE_START_S)
+            g1 = gc_clock.read()
+            initial = {"seconds": time.perf_counter() - t0, "gc_ms": g1[0] - g0[0],
+                       "gc_full_collections": g1[1] - g0[1], "launches": dict(LAUNCHES),
+                       "rebuilds": h.decision.counters["decision.route_build_runs"]}
+            windows = [window(h, phase, kernel, h.run_fixed_rate, rate, window_s)[1]
+                       for rate in rates]
+            profile = None
+            if dev.type == "cuda":
+                # each launch of ``kernel`` runs its first key's kernel once
+                # (a split minplus adds a reduce): a session with fewer of
+                # those records than the window's launches missed some
+                launch_key = KERNEL_KEYS[kernel][0]
+
+                def short(stats, result):
+                    return lacking(stats, launch_key,
+                                   records=result[1]["launches"].get(kernel, 0))
+
+                stats, (rep, rec), wall_ms = profiled(
+                    torch, lambda: window(h, phase, kernel, h.run_fixed_rate, rates[0],
+                                          profiled_s), short)
+                busy_ms = device_us(stats, "a call") / 1e3
+                # the publishing span (offered events over the achieved rate)
+                # and the drain after it; all the session's device time
+                # counted against the publishing span alone gives the least
+                # idle share the card can have had while work was offered
+                publish_ms = rep.offered / rep.achieved_rate * 1e3
+                profile = {"window": rec, "wall_ms": wall_ms, "publish_ms": publish_ms,
+                           "drain_ms": rep.drain_s * 1e3, "device_busy_ms": busy_ms,
+                           "device_idle_share": 1 - busy_ms / wall_ms,
+                           "device_idle_share_publishing_least": 1 - busy_ms / publish_ms,
+                           "kernel_records": kernel_records(stats, launch_key),
+                           "kernel_device_ms": device_us(stats, KERNEL_KEYS[kernel]) / 1e3,
+                           "top_device_ms": top_device_ms(stats)}
+            found = None
+            if search is not None:
+                probes = []
+
+                def probe(rate, duration_s, p99_slo_ms=None):
+                    rep, rec = window(h, phase, kernel, real, rate, duration_s, p99_slo_ms,
+                                      fixed=False)
+                    probes.append(rec)
+                    return rep
+
+                real = h.run_fixed_rate
+                h.run_fixed_rate = probe
+                try:
+                    found = h.find_max_sustainable_rate(**search)
+                finally:
+                    del h.run_fixed_rate
+                found["ladder"] = probes
+            if not h.drain(timeout_s=PIPELINE_DRAIN_S):
+                raise AssertionError(f"{phase}: the pipeline did not drain before the parity")
+            l0 = dict(LAUNCHES)
+            parity = h.check_parity()
+            oracle_launches = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES if LAUNCHES[k] != l0[k]}
+            if not parity:
+                raise AssertionError(f"{phase}: the live route database differs from the "
+                                     "oracle's replay of the journal")
+            if oracle_launches:
+                raise AssertionError(f"{phase}: the oracle's replay launched {oracle_launches}")
+            dijkstra = None
+            if kernel == "minplus":
+                gen = h.generator
+                ls, ps = load_topology(SimpleNamespace(
+                    area=h.area, adj_dbs=gen.adj_dbs, prefix_dbs=gen.prefix_dbs),
+                    LinkState, PrefixState)
+                root = h.my_node
+                want = SpfSolver(root, backend="host", device=dev).build_route_db(
+                    root, {h.area: ls}, ps)
+                got = h.live_route_db().to_route_db(root)
+                dijkstra = carry.route_db_to_plain(got) == carry.route_db_to_plain(
+                    want.to_route_db(root))
+                if not dijkstra:
+                    raise AssertionError(f"{phase}: the live route database differs from "
+                                         "the host Dijkstra solver's")
+        finally:
+            h.stop()
+        launches = dict(LAUNCHES)
+        counters = {k: reg.counter_get(k) - c0.get(k, 0) for k in fallbacks + (
+            "decision.ell_full_compiles", "decision.ell_patches", "decision.ell_prewarms",
+            "decision.sp_route_reuses", "decision.admission.sheds",
+            "decision.coalesced_publications", "telemetry.traces_finished")}
+        emit({
+            "phase": phase, "nodes": len(h.topo.adj_dbs), "root": h.my_node,
+            "seed": PIPELINE_SEED, "debounce_max_s": PIPELINE_DEBOUNCE_MAX_S,
+            "admission": PIPELINE_ADMISSION, "pipelined_emit": True, "window_s": window_s,
+            "kernel": kernel, "initial": initial, "windows": windows,
+            "profiled_window": profile, "search": found,
+            "parity_with_oracle_replay": parity, "oracle_launches": oracle_launches,
+            "parity_with_host_dijkstra": dijkstra, "journal": len(h._journal),
+            "counters": counters, "launches": launches,
+            "seconds": time.perf_counter() - t0,
+        })
+        return launches
+
+    small = pipeline_drive(f"pipeline-{dense_label}", dense_nodes, dense_rates, search)
+    large = pipeline_drive(f"pipeline-{sparse_label}", sparse_nodes, sparse_rates, None)
+    return small, large
+
+
+def pipeline_process(start: float):
+    """``pipeline_phases`` at full size on the card, in a process that
+    holds only the route plane (as a daemon's does): the other phases
+    keep six copies of the two networks alive, a full garbage
+    collection's pause grows with the heap, and their profiler sessions
+    stay apart from this one. ``start`` is the script's ``_START``, so
+    ``t_s`` counts from the script's start here too."""
+    global _START
+    _START = start
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from openr_tpu_torch.kernels import _build
+
+    _build.library()
+    return pipeline_phases(torch.device("cuda"), DENSE_NODES, SPARSE_NODES,
+                           PIPELINE_DENSE_RATES, PIPELINE_SPARSE_RATES, PIPELINE_WINDOW_S,
+                           PIPELINE_SEARCH)
 
 
 def main(argv=None) -> int:
@@ -2143,10 +2446,16 @@ def main(argv=None) -> int:
         dev, root, DENSE_NODES, SPARSE_NODES, DECISION_DENSE_EVENTS, DECISION_SPARSE_EVENTS,
         gc_clock)
 
+    # -- 14-15. the route plane under sustained load, in a process of its own
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pipeline_small, pipeline_large = pool.apply(pipeline_process, (_START,))
+
     main_launches = {
         k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + ksp2_small[k]
         + ksp2_large[k] + ksp2_chunked[k] + decision_small[k] + decision_large[k]
-        + decision_faults[k]
+        + decision_faults[k] + pipeline_small[k] + pipeline_large[k]
         for k in LAUNCHES
     }
 

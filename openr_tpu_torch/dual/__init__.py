@@ -1,0 +1,1 @@
+"""dual layer of the PyTorch/CUDA port (mirrors ``openr_tpu/dual/``)."""

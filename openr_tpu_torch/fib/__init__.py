@@ -1,0 +1,1 @@
+"""fib layer of the PyTorch/CUDA port (mirrors ``openr_tpu/fib/``)."""

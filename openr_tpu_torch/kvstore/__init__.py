@@ -1,0 +1,1 @@
+"""kvstore layer of the PyTorch/CUDA port (mirrors ``openr_tpu/kvstore/``)."""

@@ -1,0 +1,1 @@
+"""platform layer of the PyTorch/CUDA port (mirrors ``openr_tpu/platform/``)."""

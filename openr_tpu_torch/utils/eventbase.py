@@ -1,6 +1,8 @@
 """Per-module event loop: the daemon's async runtime substrate.
 
-Port note: a copy of ``openr_tpu/utils/eventbase.py``; nothing left out.
+Port note: a copy of ``openr_tpu/utils/eventbase.py``; nothing left out,
+and one fault fixed: a queue reader delivers one message at a time (see
+``add_queue_reader``).
 
 Behavioral parity with the reference ``openr/common/OpenrEventBase.h``
 (folly EventBase wrapper): every protocol module owns exactly one
@@ -210,7 +212,13 @@ class OpenrEventBase:
         self, rqueue: RQueue, callback: Callable[[object], None]
     ) -> None:
         """Deliver every message from rqueue as a callback on the loop
-        thread (reference: fiber reading loops like Decision.cpp:1433)."""
+        thread (reference: fiber reading loops like Decision.cpp:1433),
+        one at a time: the next message leaves rqueue only after the
+        previous callback ran. A callback that drains rqueue itself
+        (Decision's admission path) then never has an older message
+        delivered after the newer ones it drained; the reference's reader
+        forwards ahead, and under a backlog Decision applied a superseded
+        LSDB value last."""
 
         def forward() -> None:
             while not self._stop_requested.is_set():
@@ -220,7 +228,18 @@ class OpenrEventBase:
                     return
                 except Exception:
                     continue
-                self.run_in_event_base(lambda item=item: callback(item))
+                done = threading.Event()
+
+                def deliver(item=item, done=done) -> None:
+                    try:
+                        callback(item)
+                    finally:
+                        done.set()
+
+                self.run_in_event_base(deliver)
+                while not done.wait(timeout=0.2):
+                    if self._stop_requested.is_set():
+                        return
 
         t = threading.Thread(
             target=forward, name=f"{self.name}::reader", daemon=True

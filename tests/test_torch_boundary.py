@@ -170,3 +170,28 @@ def test_decision_raises_without_cuda(no_cuda):
         Decision("a", ReplicateQueue(), ReplicateQueue())
     assert Decision("a", ReplicateQueue(), ReplicateQueue(), device="cpu").spf_solver.device == \
         torch.device("cpu")
+
+
+def test_route_plane_modules_import_without_jax_or_openr_tpu():
+    """The route plane's modules (KvStore, DUAL, the FIB service, Fib,
+    the load generator and harness), each imported alone with JAX and
+    ``openr_tpu`` refused."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in (
+        "openr_tpu_torch.monitor.monitor",
+        "openr_tpu_torch.dual.dual",
+        "openr_tpu_torch.kvstore.store",
+        "openr_tpu_torch.kvstore.client",
+        "openr_tpu_torch.kvstore.wrapper",
+        "openr_tpu_torch.platform.fib_service",
+        "openr_tpu_torch.fib.fib",
+        "openr_tpu_torch.load.generator",
+        "openr_tpu_torch.load.harness",
+    ):
+        code = _BLOCKED_IMPORT.split("import openr_tpu_torch\n")[0] + (
+            f"import importlib; importlib.import_module({name!r})\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        )
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (name, proc.stderr)
