@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's route build, route sweep, Decision module and route plane on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's route build, route sweep, Decision module, route plane and daemon fabric on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -19,7 +19,7 @@ Phases, one JSON line each (``"phase": ...``):
    shapes with INF and overloaded nodes sprinkled in. ``kernel_ms`` and
    ``plain_ms`` are device time per call from the profiler's CUDA
    activity. A session missed device activity, and is profiled again
-   (three times, then the script fails), when it records none, when it
+   (six times, then the script fails), when it records none, when it
    holds fewer kernel records than its calls launched, or when a relax
    step's reading is below 0.9 of the sum of its bands or segments, each
    profiled alone. ``call_ms`` is
@@ -44,7 +44,7 @@ Phases, one JSON line each (``"phase": ...``):
    the build's launches); a session that holds less device time of a
    kernel the build launched than its launches times its least time a
    launch at the main path's shapes missed device activity and is
-   profiled again on a fresh churn event (three times, then the script
+   profiled again on a fresh churn event (six times, then the script
    fails). Launch counts and
    the solver's host-SPF fallback count are zeroed before the phase and
    read after it; the fallback count must stay at 0. The LFA build must
@@ -184,13 +184,42 @@ Phases, one JSON line each (``"phase": ...``):
    and 40 events/s, with no rate search and no Dijkstra check beyond the
    replay.
 
-Phases 14 and 15 run last, in a process of their own
-(``pipeline_process``, started with ``spawn`` and joined): it holds only
-the route plane, as a daemon's does. The earlier phases keep six copies
-of the two networks alive, and a full garbage collection's pause grows
-with the heap.
+16. ``daemon-fabric``: whole daemons (``daemon.py::OpenrNode``: Spark,
+   LinkMonitor, KvStore, PrefixManager, Decision on the card, Fib) wired
+   as ``FABRIC``'s fat tree (8 spines, 2 pods of 4 fabric and 4 rack
+   switches: 24 daemons named ``d-<switch>``) over one ``MockIoProvider``,
+   Spark set from the configuration's defaults as the process entry point
+   sets it (a keepalive every 2 s, a 10 s hold), each advertising
+   ``fd01:<i>::1/128``. Bring-up (``bringup_s``: from ``start()`` until
+   every daemon's Fib routes every other loopback); the flood
+   (``flood_s``: the generator's LSDB of the 1008-node fabric, seed
+   20260805, set at ``d-rsw-0-0``'s KvStore, until every Decision holds
+   all 1032 nodes and their prefixes and has rebuilt; the generated block
+   is a component of its own, so its prefixes get no routes); 20
+   generator events one at a time (``event_ms`` each, until every
+   Decision holds it and is idle); the cut (``reroute_ms``: the link
+   ``rsw-1-0``–``fsw-1-0`` partitioned both ways, until both ends lost
+   the neighbour, every Decision dropped the link and every Fib equals
+   its oracle, the oracles' own build left out). After each step
+   every daemon's Fib must equal the host oracle (``SpfSolver`` on the
+   host backend over that daemon's own link-state and prefix state, run
+   on its Decision's thread; it must launch no kernel); no neighbour may
+   be lost but the cut's two; no ``decision.fallbacks`` or
+   ``spf_host_fallback``; ``minplus`` must launch. It reports launches by
+   kernel and by step, threads, ``gc_ms``, the solvers' pinned bytes and
+   ``torch.cuda.max_memory_allocated``.
+
+Phases 14 and 15 run in a process of their own (``pipeline_process``,
+started with ``spawn`` and joined): it holds only the route plane, as a
+daemon's does. The earlier phases keep six copies of the two networks
+alive, and a full garbage collection's pause grows with the heap. Phase
+16 runs last, in another (``daemon_fabric_process``).
 
 Every phase line carries ``t_s``, the seconds since the script started.
+Each profiler session idles a margin inside its window before and after
+what it measures, doubled after a short session (``profiled``); a
+``profiler`` line of the main process, and one of the pipeline's, counts
+the sessions, the short ones, the margin and the launch skew.
 
 The ``kernels`` phase holds ``ell_band_relax`` also at the KSP2 engine's
 all-sources shapes, S = n_pad rows (1024 and 10112), against its plain
@@ -213,8 +242,8 @@ exits nonzero before doing anything. The sizes are fixed: the 1008-node
 fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
 with KSP2 5 and 3, and 2 with the chunked dispatch; through Decision 10
 and 3) and a 10 000-node one (3 events and 3 remote ones; with KSP2 2 and
-3; through Decision 3 and 3; under load, the windows above); only the
-seed of the random kernel inputs can be set.
+3; through Decision 3 and 3; under load, the windows above; 24 daemons,
+20 events); only the seed of the random kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -222,11 +251,14 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -295,6 +327,21 @@ SPAN_PARTS = ("to_debounce", "debounce", "rebuild", "to_fib", "fib_program")
 # may take
 PIPELINE_START_S = 600.0
 PIPELINE_DRAIN_S = 120.0
+# the daemon fabric (daemon-fabric): one OpenrNode a switch of FABRIC's fat
+# tree (8 spines, 2 pods of 4 fabric and 4 rack switches: 24 daemons), named
+# FABRIC_PREFIX and the switch's name, over one MockIoProvider, Spark set as
+# the process entry point sets it from the configuration's defaults
+# (deployed_spark_config: a 10 s hold); the generator's LSDB of
+# fat_tree_nodes(FABRIC_LSDB_NODES) flooded in at FABRIC_INJECT,
+# FABRIC_EVENTS of its events, then the link FABRIC_CUT partitioned both
+# ways; the longest a step may take
+FABRIC = {"pods": 2, "ssw_per_plane": 2, "fsw_per_pod": 4, "rsw_per_pod": 4}
+FABRIC_PREFIX = "d-"
+FABRIC_INJECT = "d-rsw-0-0"
+FABRIC_LSDB_NODES = 1000
+FABRIC_EVENTS = 20
+FABRIC_CUT = ("rsw-1-0", "fsw-1-0")
+FABRIC_STEP_S = 120.0
 # the chunked KSP2 prefetch's host-clock parts (SpfSolver.ksp2_stats)
 KSP2_PARTS = ("hop_gate_ms", "graph_ms", "first_paths_ms", "masks_ms", "solve_ms",
               "second_paths_ms")
@@ -343,34 +390,97 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def profiled(torch, fn, short, attempts: int = 3, prepare=None):
-    """Run ``fn`` under the profiler's CUDA activity (CUPTI) and return
+# The profiler keeps a device record only when its times fall inside the
+# session's window, which it takes on the host's clock; where the card's
+# records run behind that clock (``launch_skew_us`` below 0) a session
+# loses the kernels launched early in it, or every kernel of a short one.
+# So a session idles ``margin_s`` inside its window before ``fn`` and after
+# it; a short session doubles the margin, up to PROFILE_MARGIN_MAX_S, for
+# itself and every later session of the process. ``PROFILER`` also counts
+# the sessions, the short ones, and each session's launch skew (µs).
+PROFILE_MARGIN_MAX_S = 1.6
+PROFILER = {"margin_s": 0.05, "sessions": 0, "short": 0, "skew_us": []}
+
+
+def launch_skew_us(prof):
+    """The least time (µs) from a kernel's launch, the host's runtime
+    record, to its start on the card, CUPTI's record, over the finished
+    session ``prof``; None where it holds no launched kernel. A few µs
+    where the two clocks agree; below 0 the card's records run behind."""
+    try:
+        events = prof.profiler.kineto_results.events()
+        launched = {e.correlation_id(): e.start_ns() for e in events
+                    if "LaunchKernel" in e.name() and "CUDA" not in str(e.device_type())}
+        gaps = [e.start_ns() - launched[e.correlation_id()] for e in events
+                if "CUDA" in str(e.device_type()) and e.correlation_id() in launched]
+    except (AttributeError, RuntimeError):
+        return None
+    return min(gaps) / 1e3 if gaps else None
+
+
+def profiler_summary() -> dict:
+    """The ``profiler`` phase line's fields: this process's sessions,
+    the short ones, the margin it ended with, and the launch skew's
+    least, median and greatest reading."""
+    skews = [x for x in PROFILER["skew_us"] if x is not None]
+    return {"sessions": PROFILER["sessions"], "short_sessions": PROFILER["short"],
+            "margin_s": PROFILER["margin_s"],
+            "launch_skew_us": [min(skews), statistics.median(skews), max(skews)]
+            if skews else None}
+
+
+def profiled(torch, fn, short, attempts: int = 6, prepare=None):
+    """Run ``fn`` under the profiler's CUDA activity (CUPTI), in the step
+    after a warm-up step the profiler throws away and between two idle
+    margins inside the window (``PROFILER``), and return
     ``(key_averages, fn's result, host ms)``. ``short(stats, result)``
     names what the session's device activity lacks (``{}`` when it is
     whole, see ``lacking``); a session that lacks some missed device
-    activity: it is reported on stderr and run again, up to ``attempts``
-    times; then this raises. ``prepare(attempt)``, when given, runs
-    before each session, outside it."""
-    from torch.profiler import ProfilerActivity, profile
+    activity: it is reported on stderr with its launch skew and, after a
+    pause, run again with the margin doubled, up to ``attempts`` times;
+    then this raises. Short sessions come in runs
+    (``tools/torch_profiler_records.py`` counts them: on an H100 about one
+    in 25 sessions kept a part of its records, and whole-script runs saw
+    three and six short sessions in a row). ``prepare(attempt)``, when
+    given, runs before each session, outside it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     gaps = {}
     for attempt in range(attempts):
         if prepare is not None:
             prepare(attempt)
+        margin = PROFILER["margin_s"]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            # a warm-up step switches CUPTI on and is thrown away: kernels
+            # launched early in a session went unrecorded (all six of a
+            # ksp2-10k build's, in three whole runs)
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            prof.step()
+            time.sleep(margin)
             t0 = time.perf_counter()
             result = fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(margin)
         stats = prof.key_averages()
         gaps = short(stats, result)
+        skew = launch_skew_us(prof)
+        PROFILER["sessions"] += 1
+        PROFILER["skew_us"].append(skew)
         if not gaps:
             return stats, result, wall_ms
+        PROFILER["short"] += 1
+        PROFILER["margin_s"] = min(2 * margin, PROFILE_MARGIN_MAX_S)
         print(json.dumps({"profiler_session_missed_device_time": gaps,
-                          "attempt": attempt + 1,
+                          "attempt": attempt + 1, "margin_s": margin,
+                          "launch_skew_us": skew,
                           "keys": [evt.key[:80] for evt in stats][:8]}),
               file=sys.stderr, flush=True)
+        time.sleep(1.0)
     raise RuntimeError(
         f"the profiler missed device time in {attempts} sessions: {gaps}"
     )
@@ -380,6 +490,12 @@ def _keys(name):
     return (name,) if isinstance(name, str) else tuple(name)
 
 
+def _step_mark(evt) -> bool:
+    """The profiler schedule's step annotation (``ProfilerStep#n``): not
+    device activity of its own."""
+    return evt.key.startswith("ProfilerStep")
+
+
 def device_us(stats, name) -> float:
     """Device microseconds in ``stats`` of the kernels whose name holds
     ``name``, or any of the strings of a tuple ``name`` (all device
@@ -387,13 +503,15 @@ def device_us(stats, name) -> float:
     return sum(
         getattr(evt, "self_device_time_total", 0) or 0
         for evt in stats
-        if name == "a call" or any(key in evt.key for key in _keys(name))
+        if (name == "a call" and not _step_mark(evt))
+        or any(key in evt.key for key in _keys(name))
     )
 
 
 def top_device_ms(stats, n: int = 6):
     """The ``n`` heaviest device ops in ``stats``: ``[key, ms, count]``."""
-    top = sorted(stats, key=lambda e: getattr(e, "self_device_time_total", 0) or 0,
+    top = sorted((e for e in stats if not _step_mark(e)),
+                 key=lambda e: getattr(e, "self_device_time_total", 0) or 0,
                  reverse=True)[:n]
     return [[evt.key[:60], (getattr(evt, "self_device_time_total", 0) or 0) / 1e3,
              evt.count] for evt in top]
@@ -950,7 +1068,6 @@ def pipeline_phases(dev, dense_nodes, sparse_nodes, dense_rates, sparse_rates, w
     of ``find_max_sustainable_rate`` for the dense fabric (None: no
     search). The sizes, rates and durations are arguments so a rehearsal
     can run them small on the CPU; ``main`` passes the full ones."""
-    from types import SimpleNamespace
 
     from openr_tpu_torch import carry
     from openr_tpu_torch.decision import spf_solver
@@ -1148,9 +1265,400 @@ def pipeline_process(start: float):
     from openr_tpu_torch.kernels import _build
 
     _build.library()
-    return pipeline_phases(torch.device("cuda"), DENSE_NODES, SPARSE_NODES,
-                           PIPELINE_DENSE_RATES, PIPELINE_SPARSE_RATES, PIPELINE_WINDOW_S,
-                           PIPELINE_SEARCH)
+    phases = pipeline_phases(torch.device("cuda"), DENSE_NODES, SPARSE_NODES,
+                             PIPELINE_DENSE_RATES, PIPELINE_SPARSE_RATES, PIPELINE_WINDOW_S,
+                             PIPELINE_SEARCH)
+    emit({"phase": "profiler", "process": "pipeline", **profiler_summary()})
+    return phases
+
+
+class DaemonFabric:
+    """Whole daemons (``OpenrNode``: Spark, LinkMonitor, KvStore,
+    PrefixManager, Decision, Fib, Monitor) wired as a fat tree over one
+    ``MockIoProvider``, one daemon a switch, named ``FABRIC_PREFIX`` and
+    the switch's name, each advertising the loopback ``fd01:<i>::1/128``.
+    ``m`` names the package's pieces (``port_modules``), so a test can
+    drive the reference's daemons through the same steps. Every wait is
+    bounded; ``stop`` stops every daemon that started and the provider."""
+
+    def __init__(self, m, fabric, spark, node_kwargs, step_s=FABRIC_STEP_S):
+        self.m = m
+        # the longest a read may wait for a module's thread: while 24
+        # Decisions decode a flooded LSDB under one interpreter lock, one
+        # callback can hold its thread for tens of seconds
+        self.step_s = step_s
+        topo = m.topologies.fat_tree(**fabric)
+        self.switches = sorted(topo.adj_dbs)
+        self.names = [FABRIC_PREFIX + s for s in self.switches]
+        self.links = sorted({tuple(sorted((a, adj.other_node_name)))
+                             for a, db in topo.adj_dbs.items() for adj in db.adjacencies})
+        self.io = m.MockIoProvider()
+        registry = {}
+        self.nodes = {
+            name: m.OpenrNode(name, self.io, node_registry=registry, v6_addr=f"fe80::{i + 1}",
+                              spark_config=spark, **node_kwargs)
+            for i, name in enumerate(self.names)
+        }
+        self.loopbacks = {name: m.IpPrefix.from_str(f"fd01:{i}::1/128")
+                          for i, name in enumerate(self.names)}
+        self._started = []
+
+    @staticmethod
+    def iface(a: str, b: str) -> str:
+        return f"if_{a}_{b}"
+
+    def start(self) -> None:
+        for node in self.nodes.values():
+            node.start()
+            self._started.append(node)
+        for a, b in self.links:
+            self.io.connect_pair(self.iface(a, b), self.iface(b, a), 1)
+            self.nodes[FABRIC_PREFIX + a].add_interface(self.iface(a, b))
+            self.nodes[FABRIC_PREFIX + b].add_interface(self.iface(b, a))
+        for name, node in self.nodes.items():
+            node.advertise_loopback(self.loopbacks[name].to_str())
+
+    def stop(self) -> None:
+        for node in reversed(self._started):
+            node.stop()
+        self._started = []
+        self.io.stop()
+
+    def cut(self, a: str, b: str) -> None:
+        """Drop every packet both ways over the link between switches
+        ``a`` and ``b``."""
+        self.io.partition(self.iface(a, b))
+        self.io.partition(self.iface(b, a))
+
+    # -- reads, each on the module's own thread --------------------------------
+
+    def on_decision(self, name, fn):
+        dec = self.nodes[name].decision
+        return dec.evb.call_and_wait(lambda: fn(dec), timeout=self.step_s)
+
+    def has_loopbacks(self, name) -> bool:
+        have = {r.dest for r in self.nodes[name].get_fib_routes().unicast_routes}
+        return all(p in have for n, p in self.loopbacks.items() if n != name)
+
+    def oracle(self, name):
+        """The host oracle's route database over the daemon's own
+        link-state and prefix state (launch-free), as a plain tuple."""
+        def build(dec):
+            db = self.m.oracle(name).build_route_db(name, dec.area_link_states, dec.prefix_state)
+            return self.m.route_db_to_plain(
+                (db if db is not None else self.m.DecisionRouteDb()).to_route_db(name))
+        return self.on_decision(name, build)
+
+    def foreign_routes(self) -> int:
+        """Fib routes, over all daemons, to anything but a daemon's
+        loopback."""
+        own = set(self.loopbacks.values())
+        return sum(r.dest not in own for node in self.nodes.values()
+                   for r in node.get_fib_routes().unicast_routes)
+
+    def fib(self, name):
+        return self.m.route_db_to_plain(self.nodes[name].get_fib_routes())
+
+    def neighbors_lost(self) -> int:
+        return sum(n.spark.counters["spark.neighbor_down"] for n in self.nodes.values())
+
+    # -- waits -----------------------------------------------------------------
+
+    def wait(self, names, pred, timeout_s):
+        """Poll ``pred(name)`` for each of ``names`` until all hold; the
+        names that never did by ``timeout_s``."""
+        pending = list(names)
+        deadline = time.monotonic() + timeout_s
+        while pending:
+            pending = [n for n in pending if not pred(n)]
+            if not pending or time.monotonic() > deadline:
+                break
+            time.sleep(0.02)
+        return pending
+
+    def wait_decisions(self, pred, timeout_s):
+        """Until every daemon's Decision holds ``pred`` (on its own
+        thread) with nothing left to do: its reader empty, no debounce
+        armed, no route update pending."""
+        def settled(name):
+            return self.on_decision(name, lambda d: bool(pred(d)) and d._kv_reader.size() == 0
+                                    and not d._rebuild_debounced.is_scheduled()
+                                    and not d.pending.needs_route_update())
+        return self.wait(self.names, settled, timeout_s)
+
+    def check_oracle(self, step, timeout_s):
+        """Every daemon's Fib equals its host oracle (waited for: Fib
+        follows Decision); returns the oracle databases and the ms spent
+        building them."""
+        t0 = time.perf_counter()
+        want = {n: self.oracle(n) for n in self.names}
+        build_ms = (time.perf_counter() - t0) * 1e3
+        late = self.wait(self.names, lambda n: self.fib(n) == want[n], timeout_s)
+        if late:
+            raise AssertionError(f"daemon-fabric: after {step} the Fib of {late} differs "
+                                 "from the host oracle")
+        return want, build_ms
+
+
+def deployed_spark_config() -> dict:
+    """Spark's settings as the daemon's process entry point derives them
+    from the configuration's defaults (``config.SparkConfig``, the
+    reference Open/R's: fast-init hellos and handshakes every 0.5 s,
+    hellos every 20 s, a keepalive every 2 s, a 10 s hold, 30 s graceful
+    restart). ``Spark``'s own defaults are a test's: 25 packets a second
+    an interface, which one simulated LAN cannot carry for 96 interfaces
+    (its delivery fell seconds behind with the fabric idle)."""
+    from openr_tpu_torch.config.config import SparkConfig
+
+    c = SparkConfig()
+    return {"hello_interval_s": c.hello_time_s,
+            "fast_hello_interval_s": c.fastinit_hello_time_ms / 1000,
+            "handshake_interval_s": c.handshake_time_ms / 1000,
+            "heartbeat_interval_s": c.keepalive_time_s, "hold_time_s": c.hold_time_s,
+            "graceful_restart_time_s": c.graceful_restart_time_s}
+
+
+def port_modules(dev):
+    """The port's pieces a ``DaemonFabric`` drives, Decision on ``dev``."""
+    from openr_tpu_torch import carry
+    from openr_tpu_torch.daemon import OpenrNode
+    from openr_tpu_torch.decision.rib import DecisionRouteDb
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.load.generator import LoadGenerator
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.spark.io_provider import MockIoProvider
+    from openr_tpu_torch.types import (TTL_INFINITY, AdjacencyDatabase, IpPrefix, KeySetParams,
+                                       PrefixDatabase, Value)
+    from openr_tpu_torch.utils import wire
+
+    return SimpleNamespace(
+        OpenrNode=OpenrNode, MockIoProvider=MockIoProvider, topologies=topologies,
+        LoadGenerator=LoadGenerator, TTL_INFINITY=TTL_INFINITY, AdjacencyDatabase=AdjacencyDatabase,
+        IpPrefix=IpPrefix, KeySetParams=KeySetParams, PrefixDatabase=PrefixDatabase, Value=Value,
+        wire=wire, DecisionRouteDb=DecisionRouteDb, route_db_to_plain=carry.route_db_to_plain,
+        oracle=lambda name: SpfSolver(name, backend="host", device="cpu"),
+        node_kwargs={"device": dev})
+
+
+def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC_STEP_S):
+    """``daemon-fabric``: a ``DaemonFabric`` over ``m`` brought up, then
+    flooded with the generator's LSDB of ``fat_tree_nodes(lsdb_nodes)``
+    (seed ``PIPELINE_SEED``) set at ``FABRIC_INJECT``'s KvStore, then
+    ``events`` of its events one at a time, then the link ``cut`` (two
+    switch names) partitioned both ways. After each step every daemon's
+    Fib must equal its host oracle, and no neighbour may be lost but by
+    the cut. Emits the phase line and returns it with the daemons'
+    route databases after each step (``fibs``) and the kernel launches."""
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.telemetry import get_registry
+
+    import torch
+
+    dev = m.node_kwargs.get("device")
+    on_card = dev is not None and torch.device(dev).type == "cuda"
+    reg = get_registry()
+    fallbacks = ("decision.fallbacks", "decision.spf_host_fallback",
+                 "decision.degradations", "decision.ladder_exhausted")
+    gc_clock = GcClock()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    f0 = {k: reg.counter_get(k) for k in fallbacks}
+    t_phase = time.perf_counter()
+    fabric_ = DaemonFabric(m, fabric, spark, m.node_kwargs, step_s)
+    hold_s = spark["hold_time_s"]
+    names = fabric_.names
+    inject = fabric_.nodes[FABRIC_INJECT].kvstore
+    phase = "daemon-fabric"
+    fibs = {}
+
+    def launched_since(before):
+        return {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] > before[k]}
+
+    def oracle_step(step):
+        """The Fib check after ``step``: the ms building the oracles."""
+        l0 = dict(LAUNCHES)
+        fibs[step], build_ms = fabric_.check_oracle(step, step_s)
+        moved = {k: LAUNCHES[k] - l0[k] for k in LAUNCHES if LAUNCHES[k] != l0[k]}
+        if moved:
+            raise AssertionError(f"{phase}: the host oracle of {step} launched {moved}")
+        return build_ms
+
+    def progress(step, **fields):
+        print(json.dumps({"daemon_fabric_step": step, "t_s": time.perf_counter() - t_phase,
+                          **fields}), file=sys.stderr, flush=True)
+
+    def lost(step, want):
+        if fabric_.neighbors_lost() != want:
+            raise AssertionError(f"{phase}: {fabric_.neighbors_lost()} neighbours lost after "
+                                 f"{step}, {want} expected")
+
+    try:
+        # 1. bring-up: every Fib holds every other daemon's loopback
+        l0, g0 = dict(LAUNCHES), gc_clock.read()
+        t0 = time.perf_counter()
+        fabric_.start()
+        late = fabric_.wait(names, fabric_.has_loopbacks, step_s)
+        if late:
+            raise AssertionError(f"{phase}: bring-up: {late} lack loopback routes")
+        bringup_s = time.perf_counter() - t0
+        bringup = {"seconds": bringup_s, "oracle_ms": oracle_step("bring-up"),
+                   "routes": len(fibs["bring-up"][names[0]][1]), "launches": launched_since(l0),
+                   "gc_ms": gc_clock.read()[0] - g0[0], "threads": threading.active_count()}
+        lost("bring-up", 0)
+        progress("bring-up", seconds=bringup_s)
+
+        # 2. the flood: the generator's LSDB set at one daemon's KvStore
+        topo = m.topologies.fat_tree_nodes(lsdb_nodes)
+        gen = m.LoadGenerator(topo, seed=PIPELINE_SEED)
+        kvs = gen.initial_key_vals()
+        n_nodes = len(topo.adj_dbs) + len(names)
+        n_prefixes = len({e.prefix for db in topo.prefix_dbs.values()
+                          for e in db.prefix_entries}) + len(names)
+        runs0 = {n: fabric_.on_decision(n, lambda d: d.counters["decision.route_build_runs"])
+                 for n in names}
+        l0, g0 = dict(LAUNCHES), gc_clock.read()
+        t0 = time.perf_counter()
+        inject.set_key_vals("0", m.KeySetParams(key_vals=kvs))
+        late = fabric_.wait_decisions(
+            lambda d: len(d.area_link_states["0"].get_adjacency_databases()) == n_nodes
+            and len(d.prefix_state.prefixes()) == n_prefixes
+            and d.counters["decision.route_build_runs"] > runs0[d.my_node_name], step_s)
+        if late:
+            raise AssertionError(f"{phase}: flood: {late} did not take the LSDB in")
+        flood_s = time.perf_counter() - t0
+        flood = {"seconds": flood_s, "keys": len(kvs), "nodes": n_nodes,
+                 "prefixes": n_prefixes, "oracle_ms": oracle_step("flood"),
+                 "routes": len(fibs["flood"][names[0]][1]),
+                 "launches": launched_since(l0),
+                 "gc_ms": gc_clock.read()[0] - g0[0]}
+        lost("flood", 0)
+        # the generated block is a component apart: its prefixes get no route
+        foreign = fabric_.foreign_routes()
+        if foreign:
+            raise AssertionError(f"{phase}: {foreign} Fib routes lead into the generated block")
+        progress("flood", seconds=flood_s)
+
+        # 3. events, one at a time, each until every Decision holds it
+        def holds(ev):
+            if ev.key.startswith("adj:"):
+                want = m.wire.loads(ev.payload, m.AdjacencyDatabase)
+                return lambda d: d.area_link_states["0"].get_adjacency_databases().get(
+                    ev.node) == want
+            want = {e.prefix for e in m.wire.loads(ev.payload, m.PrefixDatabase).prefix_entries}
+            return lambda d: {p for p, entries in d.prefix_state.prefixes().items()
+                              if (ev.node, "0") in entries} == want
+
+        event_rows = []
+        for step in range(events):
+            ev = gen.next_event()
+            value = m.Value(version=ev.version, originator_id=ev.node, value=ev.payload,
+                            ttl=m.TTL_INFINITY,
+                            hash=m.wire.generate_hash(ev.version, ev.node, ev.payload))
+            l0, g0 = dict(LAUNCHES), gc_clock.read()
+            t0 = time.perf_counter()
+            inject.set_key_vals("0", m.KeySetParams(key_vals={ev.key: value}))
+            late = fabric_.wait_decisions(holds(ev), step_s)
+            if late:
+                raise AssertionError(f"{phase}: event {step} ({ev.kind} {ev.key}) never "
+                                     f"reached the Decision of {late}")
+            event_ms = (time.perf_counter() - t0) * 1e3
+            event_rows.append({
+                "kind": ev.kind, "key": ev.key, "event_ms": event_ms,
+                "oracle_ms": oracle_step(f"event {step}"),
+                "launches": launched_since(l0),
+                "gc_ms": gc_clock.read()[0] - g0[0]})
+            lost(f"event {step}", 0)
+            progress(f"event {step}", ms=event_ms)
+
+        # 4. the cut: one rack uplink partitioned both ways
+        a, b = (FABRIC_PREFIX + s for s in cut)
+
+        def link_gone(d):
+            dbs = d.area_link_states["0"].get_adjacency_databases()
+            return not any(adj.other_node_name == y for x, y in ((a, b), (b, a))
+                           for adj in dbs[x].adjacencies)
+
+        before = fibs[f"event {events - 1}" if events else "flood"]
+        l0, g0 = dict(LAUNCHES), gc_clock.read()
+        t0 = time.perf_counter()
+        fabric_.cut(*cut)
+        late = fabric_.wait([a, b], lambda n: fabric_.nodes[n].spark.counters[
+            "spark.neighbor_down"] > 0, hold_s + step_s)
+        if late:
+            raise AssertionError(f"{phase}: the cut: {late} never lost the neighbour")
+        detect_ms = (time.perf_counter() - t0) * 1e3
+        late = fabric_.wait_decisions(link_gone, step_s)
+        if late:
+            raise AssertionError(f"{phase}: the cut never reached the Decision of {late}")
+        # until every Fib equals its oracle, the oracles' own build left out
+        oracle_ms = oracle_step("the cut")
+        reroute_ms = (time.perf_counter() - t0) * 1e3 - oracle_ms
+        affected = sorted(n for n in names if fibs["the cut"][n] != before[n])
+        reroute = {"cut": [a, b], "detect_ms": detect_ms, "reroute_ms": reroute_ms,
+                   "oracle_ms": oracle_ms, "affected": len(affected),
+                   "launches": launched_since(l0),
+                   "gc_ms": gc_clock.read()[0] - g0[0]}
+        lost("the cut", 2)
+        if not affected:
+            raise AssertionError(f"{phase}: the cut changed no daemon's routes")
+
+        moved = {k: reg.counter_get(k) - f0[k] for k in fallbacks if reg.counter_get(k) != f0[k]}
+        if moved:
+            raise AssertionError(f"{phase}: fallback counters moved: {moved}")
+        launches = dict(LAUNCHES)
+        if on_card and not launches["minplus"]:
+            raise AssertionError(f"{phase}: the daemons' Decisions launched no minplus")
+        # each Decision's solver stages its uploads through one pinned buffer
+        pinned = sum(
+            n.decision.spf_solver._snapshots.stager._buf.numel() * 4
+            for n in fabric_.nodes.values()
+            if n.decision.spf_solver._snapshots.stager._buf is not None) if on_card else None
+        threads = threading.active_count()
+        neighbors_lost = fabric_.neighbors_lost()
+    finally:
+        fabric_.stop()
+    times = [r["event_ms"] for r in event_rows]
+    line = {
+        "phase": phase, "daemons": len(names), "links": len(fabric_.links),
+        "fabric": fabric, "spark": spark, "lsdb_nodes": n_nodes,
+        "seed": PIPELINE_SEED, "inject": FABRIC_INJECT,
+        "bringup_s": bringup_s, "bringup": bringup, "flood_s": flood_s, "flood": flood,
+        "event_ms": {"p50": statistics.median(times) if times else None,
+                     "max": max(times) if times else None},
+        "events": event_rows, "reroute_ms": reroute_ms, "reroute": reroute,
+        "parity_with_host_oracle": True, "neighbors_lost": neighbors_lost,
+        "generated_prefixes_routed": foreign, "launches": launches, "threads": threads,
+        "gc_ms": gc_clock.read()[0], "gc_full_collections": gc_clock.read()[1],
+        "pinned_bytes": pinned,
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
+        "fallbacks": {k: reg.counter_get(k) - f0[k] for k in fallbacks},
+        "nvidia_smi": nvidia_smi_line() if on_card else None,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    gc.callbacks.remove(gc_clock._note)
+    emit(line)
+    return line, fibs, launches
+
+
+def daemon_fabric_process(start: float):
+    """``daemon_fabric_phase`` at full size with Decision on the card, in
+    a process of its own (the 24 daemons' threads and heaps stay apart
+    from the other phases'); ``start`` is the script's ``_START``.
+    Returns the phase's kernel launches."""
+    global _START
+    _START = start
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from openr_tpu_torch.kernels import _build
+
+    _build.library()
+    print(nvidia_smi_line(), flush=True)
+    _, _, launches = daemon_fabric_phase(port_modules(torch.device("cuda")), FABRIC,
+                                         FABRIC_LSDB_NODES, FABRIC_EVENTS, deployed_spark_config(),
+                                         FABRIC_CUT)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1162,6 +1670,11 @@ def main(argv=None) -> int:
         print("chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    # the profiler keeps CUPTI set up between sessions (this process's and,
+    # through the environment, its spawned phases'): by default each session
+    # tears CUPTI down and the next sets it up again, and sessions came back
+    # short of kernel records, some three and six times in a row
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import numpy as np
     import torch
 
@@ -2452,10 +2965,14 @@ def main(argv=None) -> int:
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         pipeline_small, pipeline_large = pool.apply(pipeline_process, (_START,))
 
+    # -- 16. a fabric of whole daemons, in a process of its own
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        fabric = pool.apply(daemon_fabric_process, (_START,))
+
     main_launches = {
         k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + ksp2_small[k]
         + ksp2_large[k] + ksp2_chunked[k] + decision_small[k] + decision_large[k]
-        + decision_faults[k] + pipeline_small[k] + pipeline_large[k]
+        + decision_faults[k] + pipeline_small[k] + pipeline_large[k] + fabric[k]
         for k in LAUNCHES
     }
 
@@ -2473,6 +2990,7 @@ def main(argv=None) -> int:
             "at_1008": {k: v for k, v in cells["1008"].items() if k != "bound_by"},
         }
 
+    emit({"phase": "profiler", **profiler_summary()})
     csrc = "openr_tpu_torch/csrc"
     print(smi, flush=True)
     emit({"kernels": [

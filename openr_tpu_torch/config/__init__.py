@@ -1,0 +1,1 @@
+"""config layer of the PyTorch/CUDA port (mirrors ``openr_tpu/config/``)."""

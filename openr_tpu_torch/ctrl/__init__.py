@@ -1,0 +1,1 @@
+"""ctrl layer of the PyTorch/CUDA port (mirrors ``openr_tpu/ctrl/``)."""

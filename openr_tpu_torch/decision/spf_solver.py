@@ -28,11 +28,12 @@ of a prefix the root advertises is reused across its drain or undrain
 dispatch do not). The "native" backend answers from the host C++ core
 (``graph/native_spf.py``), the degradation ladder's last rung in Decision;
 ``prewarm`` and ``speculate_views`` are Decision's publication-time hooks;
-a fresh device view solve crosses the fault seam ``decision.spf_solve``.
+a fresh device view solve crosses the fault seam ``decision.spf_solve``;
+a plugin may register a backend of its own (``register_spf_backend``).
 Left out for later slices: the fleet/state hooks of the resident cache
 (``export_resident_state``, ``fleet_preload_views``,
-``seed_resident_state``), the plugin backends (``register_spf_backend``),
-the view cache's size option and the multi-area world batch.
+``seed_resident_state``), the view cache's size option and the multi-area
+world batch.
 
 Behavioural parity with the reference ``openr/decision/Decision.cpp``
 SpfSolverImpl (buildRouteDb:569, createRouteForPrefix:402,
@@ -45,7 +46,7 @@ from __future__ import annotations
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -130,6 +131,32 @@ SPF_COUNTERS = get_registry().counter_dict(
 FAULT_SPF_SOLVE = register_fault_site("decision.spf_solve")
 
 SPF_BACKENDS = ("device", "host", "native")
+
+# Alternate solver backends registered by plugins (reference: the
+# pluginStart registration point, openr/plugin/Plugin.h:24-34). A factory
+# takes (link_state, root) and returns an object implementing the SpfView
+# query protocol: is_reachable / metric_to / next_hops_toward /
+# metric_between. A registered backend runs only where the caller names
+# it: the built-in names cannot be taken, and no rung of Decision's
+# ladder steps down to one.
+_SPF_BACKENDS: Dict[str, Callable[[LinkState, str], object]] = {}
+
+
+def register_spf_backend(name: str, factory) -> None:
+    """Register a custom SPF view backend usable as
+    ``SpfSolver(..., backend=name)``. Built-in names ("device", "native",
+    "host") cannot be overridden."""
+    assert name not in SPF_BACKENDS, name
+    _SPF_BACKENDS[name] = factory
+
+
+def unregister_spf_backend(name: str) -> None:
+    _SPF_BACKENDS.pop(name, None)
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in SPF_BACKENDS and backend not in _SPF_BACKENDS:
+        raise ValueError(f"unknown SPF backend {backend!r}")
 
 
 def get_spf_counters() -> Dict[str, int]:
@@ -667,8 +694,7 @@ class SpfSolver:
         backend: str = "device",
         device: DeviceLike = None,
     ):
-        if backend not in SPF_BACKENDS:
-            raise ValueError(f"unknown SPF backend {backend!r}")
+        _check_backend(backend)
         self.my_node_name = my_node_name
         self.enable_v4 = enable_v4
         self.compute_lfa_paths = compute_lfa_paths
@@ -788,8 +814,7 @@ class SpfSolver:
     def set_backend(self, backend: str) -> None:
         """Switch the solve backend. The view and route caches are not
         keyed by backend, so a switch drops them."""
-        if backend not in SPF_BACKENDS:
-            raise ValueError(f"unknown SPF backend {backend!r}")
+        _check_backend(backend)
         if backend == self.backend:
             return
         self.backend = backend
@@ -907,7 +932,12 @@ class SpfSolver:
                 # never fails (its rows already crossed), a fresh device
                 # solve can
                 fault_point(FAULT_SPF_SOLVE)
-            view = SpfView(ls, root, self.backend, self._snapshots, self._resident)
+            factory = _SPF_BACKENDS.get(self.backend)
+            view = (
+                factory(ls, root)
+                if factory is not None
+                else SpfView(ls, root, self.backend, self._snapshots, self._resident)
+            )
             per_ls[key] = view
         return view
 

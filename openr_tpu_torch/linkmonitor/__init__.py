@@ -1,0 +1,1 @@
+"""linkmonitor layer of the PyTorch/CUDA port (mirrors ``openr_tpu/linkmonitor/``)."""

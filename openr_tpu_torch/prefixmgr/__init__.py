@@ -1,0 +1,1 @@
+"""prefixmgr layer of the PyTorch/CUDA port (mirrors ``openr_tpu/prefixmgr/``)."""

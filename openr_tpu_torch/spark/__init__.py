@@ -1,0 +1,1 @@
+"""spark layer of the PyTorch/CUDA port (mirrors ``openr_tpu/spark/``)."""

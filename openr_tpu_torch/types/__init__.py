@@ -1,7 +1,7 @@
 """Typed message schema for openr-tpu (reference: openr/if/*.thrift).
 
-Port note: mirrors ``openr_tpu/types/__init__.py``. ``spark.py`` is left
-out: nothing on the route-build path reads the Spark hello types.
+Port note: mirrors ``openr_tpu/types/__init__.py``; the Spark types are
+imported from ``types/spark.py``, as in the reference.
 """
 
 from openr_tpu_torch.types.network import (

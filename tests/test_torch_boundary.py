@@ -195,3 +195,61 @@ def test_route_plane_modules_import_without_jax_or_openr_tpu():
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, (name, proc.stderr)
+
+
+DAEMON_MODULES = (
+    "openr_tpu_torch.types.spark",
+    "openr_tpu_torch.utils.stepdetector",
+    "openr_tpu_torch.utils.thrift_compact",
+    "openr_tpu_torch.spark.thrift_wire",
+    "openr_tpu_torch.spark.io_provider",
+    "openr_tpu_torch.spark.spark",
+    "openr_tpu_torch.config_store.persistent_store",
+    "openr_tpu_torch.allocators.range_allocator",
+    "openr_tpu_torch.platform.netlink",
+    "openr_tpu_torch.linkmonitor.link_monitor",
+    "openr_tpu_torch.prefixmgr.prefix_manager",
+    "openr_tpu_torch.allocators.prefix_allocator",
+    "openr_tpu_torch.plugin",
+    "openr_tpu_torch.config.bgp_config",
+    "openr_tpu_torch.config.config",
+    "openr_tpu_torch.ctrl.handler",
+    "openr_tpu_torch.daemon",
+)
+
+
+@pytest.mark.parametrize("name", DAEMON_MODULES)
+def test_daemon_modules_import_without_jax_or_openr_tpu(name):
+    """The daemon slice's modules (Spark and its wire, LinkMonitor, the
+    allocators, PrefixManager, config, the plugin hook, the ctrl handler,
+    ``OpenrNode``), each imported alone with JAX and ``openr_tpu``
+    refused."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = _BLOCKED_IMPORT.split("import openr_tpu_torch\n")[0] + (
+        f"import importlib; importlib.import_module({name!r})\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (name, proc.stderr)
+
+
+def test_daemon_raises_without_cuda_before_starting_a_thread(no_cuda):
+    import threading
+
+    from openr_tpu_torch.daemon import OpenrNode
+    from openr_tpu_torch.spark.io_provider import MockIoProvider
+
+    io = MockIoProvider()
+    try:
+        before = threading.active_count()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            OpenrNode("a", io)
+        assert threading.active_count() == before
+        node = OpenrNode("a", io, device="cpu")
+        assert node.device == torch.device("cpu")
+        assert node.decision.spf_solver.device == torch.device("cpu")
+        node.start()
+        node.stop()  # ends every module's threads, the queue readers' too
+    finally:
+        io.stop()
