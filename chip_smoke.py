@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's route build, route sweep, Decision module, route plane, daemon fabric and daemon process on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's route build, route sweep, route engine, Decision module, route plane, daemon fabric and daemon process on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -50,7 +50,7 @@ Phases, one JSON line each (``"phase": ...``):
    read after it; the fallback count must stay at 0. The LFA build must
    re-derive every route.
 5. ``sparse``: the same on the 10 000-node fabric (sliced-ELL regime,
-   resident bands). Each build also reports its deltas of
+   resident bands), with one remote event. Each build also reports its deltas of
    ``decision.ell_full_compiles``, ``ell_patches``, ``ell_warm_solves``
    and ``ell_cold_solves``, the host-to-device bytes the solver staged
    (``h2d_bytes``, by kind) and its warm solve's hops; every build after
@@ -76,13 +76,52 @@ Phases, one JSON line each (``"phase": ...``):
    oracle there is the backends' agreement by name and each sample's
    route table against ``run_spf``. It also prints the grouped graph's
    ``structure_report``.
+7a. ``engine-1008``: the network-wide route engine
+   (``ops/route_engine.py``) on a fresh link state of the 1008-node fabric,
+   shared by three engines: the ELL ``RouteSweepEngine`` and the
+   ``GroupedRouteSweepEngine`` under each contraction kernel (samples
+   ``rsw-0-0``, ``fsw-0-0``, ``ssw-0-0``). The events, each to every engine
+   in turn: three bumps of ``fsw-0-0``'s first metric (``2 + step % 5``), a
+   remote bump (``rsw-61-0``), a drain and an undrain of ``fsw-1-0``, the
+   link ``rsw-1-0``--``fsw-1-0`` pulled both ways and restored, a window of
+   three metric events (``churn_window``), three events with
+   ``defer_consume`` and a ``flush()``, a ``churn_burst`` of three, a
+   speculation that hits and one that another event cancels. After each,
+   a cold ``RouteSweeper.sweep`` on the card over a fresh
+   ``compile_out_ell`` of the same link state must equal every engine by
+   node name (digests, next-hop totals, sample metrics and next hops),
+   each sample's ``routes_from`` must equal ``run_spf``'s, the engines must
+   agree, and each engine's moved names must be the destinations whose
+   row changed since the previous oracle. Each event reports, per engine,
+   the path it took (bucket k, frontier, full width, cold), the affected
+   and changed rows, the readback bytes, its host ms (ending in the
+   consume), its relax hops, its ``ops.host_dispatches``/
+   ``blocking_syncs``/``async_reaps``, the frontier's rows, cells and
+   jumps, and ``gc_ms``; one more event per engine is profiled (busy,
+   idle share, heaviest ops, the relax kernel's device time and records).
+   Then the ladder: ``route_engine.dispatch`` armed once (the cold rung),
+   ``dispatch`` and ``cold_build`` (the host rung, equal to the oracle),
+   then unarmed events probe back through the cold rung to the warm one;
+   ``route_engine.host_fallbacks`` may rise only in the armed step. Each
+   engine must launch its relax kernel and no other.
+7b. ``engine-10k``: the same on the 10 000-node fabric (remote
+   ``rsw-623-0``), without the ladder.
+7c. ``sweep-100k``, in a spawned process: the ELL sweep of
+   ``fat_tree_nodes(100000)`` (n_pad 100096, block 1024, 98 blocks) through
+   ``RouteSweeper``, its three sample route tables against ``run_spf`` and
+   64 seeded destinations' digests and next-hop totals against the numpy
+   replica (``ops/host_sweep.py``), those host oracles computed in
+   spawned workers while the card works; ``rev_band_relax`` at its
+   out-bands (7488 rows of k 8 become 74 988, and a band of k 8192)
+   against the plain version, timed. The engine does not run there: its
+   resident DR would be 40 GB.
 8. ``ksp2-1008``: KSP2_ED_ECMP route builds from ``rsw-0-0`` on the
    1008-node fabric with every prefix KSP2 over SR-MPLS (1007
    destinations), through the incremental KSP2 engine
    (``decision/ksp2_engine.py``, with its fast path: every
    destination's edge mask resident and re-solved in each event's fused
    dispatch): an initial build, churn events that bump ``fsw-0-0``'s
-   first adjacency metric, then 3 remote events that bump the last pod's
+   first adjacency metric, then 1 remote event that bumps the last pod's
    first rack switch. Every route database must equal the host Dijkstra
    solver's, which runs on its own copy of the link-state and prefix
    databases (the kth-path cache lives on the ``LinkState``: a shared
@@ -99,8 +138,8 @@ Phases, one JSON line each (``"phase": ...``):
    views' host-SPF fallbacks 0, a remote event must sync incrementally
    and reuse KSP2 routes, and ``ell_band_relax`` and
    ``ell_band_relax_masked`` must launch.
-9. ``ksp2-10k``: the same on the 10 000-node fabric with 256 evenly
-   sampled KSP2 prefixes (the stride of ``benchmarks/bench_scale.py``'s
+9. ``ksp2-10k``: the same on the 10 000-node fabric, one remote event,
+   with 256 evenly sampled KSP2 prefixes (the stride of ``benchmarks/bench_scale.py``'s
    ``ksp2_churn_bench``), the rest SP_ECMP: the engine without its fast
    path (255 resident masks would pass the mask budget), the
    all-sources relax at S = 10112.
@@ -139,8 +178,8 @@ Phases, one JSON line each (``"phase": ...``):
    databases, the ladder must stay on its warm rung (no
    ``decision.fallbacks``, ``degradations`` or ``ladder_exhausted``) and
    ``minplus`` must have launched.
-12. ``decision-10k``: the same on the 10 000-node fabric, 3 bench and 3
-   remote events (``rsw-623-0``); also every rebuild after the first
+12. ``decision-10k``: the same on the 10 000-node fabric, 3 bench events
+   and 1 remote one (``rsw-623-0``); also every rebuild after the first
    patches the resident bands (no ``decision.ell_full_compiles``), the
    publications prewarm them (``decision.ell_prewarms`` > 0), and
    ``ell_band_relax`` launches; ``ops.spec_*`` are reported as read.
@@ -239,7 +278,9 @@ Phases, one JSON line each (``"phase": ...``):
    ``process.rss_peak_bytes`` counter. After
    ``SIGTERM`` it must exit 0 within 30 s.
 
-Phases 14 and 15 run in a process of their own (``pipeline_process``,
+Phase 7c runs in a process of its own (``sweep_100k_process``), so the
+100 000-node link state leaves with it. Phases 14 and 15 run in another
+(``pipeline_process``,
 started with ``spawn`` and joined): it holds only the route plane, as a
 daemon's does. The earlier phases keep six copies of the two networks
 alive, and a full garbage collection's pause grows with the heap. Phase
@@ -258,6 +299,9 @@ version on slices of 1024 rows. That of the route sweep's kernels (``rev_band_re
 ``batched_minplus``, ``batched_minplus_t``) runs at both sweeps' shapes:
 one relax step of a 1024-destination block of the 10 000-node sweep and
 of a 256-destination block of the 1008-node one; that of
+``rev_band_relax`` and ``batched_minplus(_t)`` also run at the route
+engine's shapes over the 10 000-node graphs: churn buckets of 32 and 1024
+rows with scattered, repeated destinations, and the full width (10112);
 ``ell_band_relax_masked`` at both KSP2 cells' chunks (S = 1024 over the
 1008-node in-bands, S = 256 over the 10 000-node ones), with bit-packed
 masks, beside two bounds: the packed mask's and a byte mask's; that of
@@ -271,11 +315,12 @@ Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
 exits nonzero before doing anything. The sizes are fixed: the 1008-node
 fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
-with KSP2 5 and 3, and 2 with the chunked dispatch; through Decision 10
-and 3) and a 10 000-node one (3 events and 3 remote ones; with KSP2 2 and
-3; through Decision 3 and 3; under load, the windows above; 24 daemons,
-10 events; a daemon process, 10 and 3 events); only the seed of the
-random kernel inputs can be set.
+with KSP2 5 and 1, and 2 with the chunked dispatch; through Decision 10
+and 3; the route engine's script) and a 10 000-node one (3 events and 1
+remote one; with KSP2 2 and 1; through Decision 3 and 1; the route
+engine's script; under load, the windows above; 24 daemons, 10 events; a
+daemon process, 10 and 3 events), and the 100 000-node sweep; only the
+seed of the random kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -308,8 +353,14 @@ SPARSE_NODES = 10000
 DENSE_EVENTS = 10
 SPARSE_EVENTS = 3
 # remote events after the churn events of each route-build phase: a bump of
-# the first adjacency of the last pod's first rack switch, far from the root
+# the first adjacency of the last pod's first rack switch, far from the root.
+# The 10 000-node route builds (sparse, ksp2-10k) take one: each build there
+# pays its host oracle (the KSP2 one 30-40 s at 10 000 nodes), and the
+# script has to make room for the route engine's phases inside its time
+# limit
 REMOTE_EVENTS = 3
+SPARSE_REMOTE_EVENTS = 1
+KSP2_SPARSE_REMOTE_EVENTS = 1
 # the resident bands' counters the sparse phase reports per build
 ELL_KEYS = ("ell_full_compiles", "ell_patches", "ell_warm_solves", "ell_cold_solves")
 REPS = 30
@@ -317,6 +368,32 @@ REPS = 30
 # scale bench's 1008-node and 10 000-node settings)
 DENSE_SWEEP_BLOCK = 256
 SPARSE_SWEEP_BLOCK = 1024
+# the route sweep at the north star's size (sweep-100k, a spawned process):
+# fat_tree_nodes(SWEEP_100K_NODES), SWEEP_100K_BLOCK destinations a block,
+# SWEEP_100K_CHECKED seeded destinations held against the numpy replica
+SWEEP_100K_NODES = 100000
+SWEEP_100K_BLOCK = 1024
+SWEEP_100K_CHECKED = 64
+SWEEP_100K_SEED = 20260805
+# calls a profiler session times at 100 000 nodes: sessions of 30 calls of
+# a 0.4 ms band kept 20 records five times running on an H100
+SWEEP_100K_REPS = 10
+# processes that run the phase's host oracles (a run_spf each, the replica)
+# beside the card's work: 47 and 17 s of host time at 100 000 nodes
+SWEEP_100K_WORKERS = 4
+# the route engine's phases (engine-1008, engine-10k): the samples of its
+# three engines, the link pulled both ways, the burst's three nodes (their
+# affected sets apart), and the registry counters each event reports
+ENGINE_SAMPLES = ("rsw-0-0", "fsw-0-0", "ssw-0-0")
+ENGINE_LINK = ("rsw-1-0", "fsw-1-0")
+ENGINE_BURST = ("rsw-2-0", "rsw-3-0", "rsw-4-0")
+ENGINE_COUNTERS = ("ops.host_dispatches", "ops.blocking_syncs", "ops.async_reaps",
+                   "ops.burst_cancels", "ops.spec_dispatches", "ops.spec_hits",
+                   "ops.spec_cancels", "ops.spec_skips", "ops.frontier_fallbacks",
+                   "route_engine.incremental_events", "route_engine.full_refreshes",
+                   "route_engine.frontier_resolves", "route_engine.cold_builds",
+                   "route_engine.host_fallbacks", "route_engine.coalesced_events",
+                   "route_engine.structural_events")
 # KSP2 cells: churn events on the 1008-node fabric (every prefix KSP2) and
 # on the 10 000-node one, where KSP2_SAMPLED_DSTS evenly sampled prefixes
 # are KSP2 (the realistic per-prefix opt-in at that scale)
@@ -2079,6 +2156,885 @@ def daemon_process_process(start: float):
     return [daemon_process_phase(**leg) for leg in DAEMON_LEGS]
 
 
+def sweep_100k_process(start: float):
+    """``sweep-100k`` at full size on the card, in a process of its own so
+    the 100 000-node LinkState leaves with it; ``start`` is the script's
+    ``_START``. Returns ``sweep_huge_phase``'s ``(launches, kernel row)``."""
+    global _START
+    _START = start
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    out = sweep_huge_phase(torch.device("cuda"), SWEEP_100K_NODES, SWEEP_100K_BLOCK,
+                           SWEEP_100K_CHECKED, SWEEP_100K_WORKERS)
+    emit({"phase": "profiler", "process": "sweep-100k", **profiler_summary()})
+    return out
+
+
+def _huge_link_state(nodes):
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.models import topologies
+
+    topo = topologies.fat_tree_nodes(nodes)
+    ls = LinkState(area=topo.area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    return ls
+
+
+def _huge_tables_worker(nodes, names):
+    """A worker of ``sweep_huge_phase``: its own link state, then
+    ``run_spf`` from each of ``names`` as plain data: destination ->
+    (metric, next-hop names)."""
+    ls = _huge_link_state(nodes)
+    return {nm: {dst: (r.metric, set(r.next_hops)) for dst, r in ls.run_spf(nm).items()
+                 if dst != nm} for nm in names}
+
+
+def _huge_replica_worker(nodes, checked, seed):
+    """A worker of ``sweep_huge_phase``: its own link state and out-ELL
+    graph (the same compile as the phase's), then ``checked`` seeded
+    destinations and the numpy replica's digests and next-hop totals of
+    those rows."""
+    import numpy as np
+
+    from openr_tpu_torch.ops import host_sweep, route_sweep
+
+    graph = route_sweep.compile_out_ell(_huge_link_state(nodes))
+    rng = np.random.default_rng(seed)
+    t_ids = np.sort(rng.choice(graph.n, size=checked, replace=False)).astype(np.int32)
+    ovh = np.asarray(graph.overloaded, dtype=bool)
+    d_rows = host_sweep._block_fixed_point(graph, ovh, t_ids)
+    nh = host_sweep._block_nh_counts(graph, ovh, d_rows, t_ids)
+    digests = route_sweep.host_digest(d_rows, nh, route_sweep.canonical_pos_weights(graph))
+    return t_ids, digests, nh.sum(axis=1, dtype=np.int32)
+
+
+def _huge_card_work(dev, graph, samples, block, rng, clock, phase):
+    """The card's part of ``sweep_huge_phase``: ``rev_band_relax`` at the
+    graph's out-bands for the first block against its plain version
+    (``rev_relax_row``, timed on the card), then the sweep. Returns
+    ``(launches, kernel row, result, sweep fields)``."""
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch.kernels import LAUNCHES, _build, reset_launches
+    from openr_tpu_torch.ops import route_sweep
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    max_err = [0]
+
+    def compare(name, got, want, what):
+        sync()
+        err = int((got.long() - want.long()).abs().max().item())
+        max_err[0] = max(max_err[0], err)
+        if err:
+            raise AssertionError(f"{phase}: {name} differs from its plain version at {what}")
+
+    if on_card:
+        _build.library()
+    kernel_row = rev_relax_row(dev, graph, np.arange(block, dtype=np.int32), rng, compare,
+                               phase, SWEEP_100K_REPS, band_reps=SWEEP_100K_REPS)
+    kernel_row["max_abs_err"] = max_err[0]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # the sweep through the entry point a user calls
+    sweeper = route_sweep.RouteSweeper(graph, samples, device=dev)
+    reset_launches()
+    gc0 = clock.read()[0]
+    sync()
+    t0 = time.perf_counter()
+    result = sweeper.sweep(block=block)
+    sync()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(LAUNCHES)
+    sweep_gc_ms = clock.read()[0] - gc0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    if on_card and launches["rev_band_relax"] == 0:
+        raise AssertionError(f"{phase}: the sweep launched no rev_band_relax")
+    stray = {k: v for k, v in launches.items() if k != "rev_band_relax" and v}
+    if stray:
+        raise AssertionError(f"{phase}: the sweep launched {stray}")
+    return launches, kernel_row, result, {
+        "sweep_ms": sweep_ms, "sweep_gc_ms": sweep_gc_ms, "max_memory_allocated": peak,
+        "block_hops": sweeper.block_hops[: -(-graph.n_pad // block)], "sweeper": sweeper,
+    }
+
+
+def sweep_huge_phase(dev, nodes, block, checked, workers, phase="sweep-100k"):
+    """``sweep-100k``: the ELL all-sources route sweep of the north star's
+    size (``fat_tree_nodes(100000)``, ``BASELINE.json`` configs[4]) on
+    ``dev``, ``block`` destinations a block. The route engine does not run
+    here: its resident DR would be 100096^2 int32, 40 GB
+    (``ENGINE_MAX_NODES``). First ``rev_band_relax`` at this graph's
+    out-bands and block against its plain version (each band with two
+    overload masks, and one step; the wide band's k of 8192 among them),
+    timed on the card; then the sweep through ``RouteSweeper``, one sample
+    route table per tier against ``run_spf``, and ``checked`` seeded
+    destinations' digests and next-hop totals against the port's numpy
+    replica (``ops/host_sweep.py``) of those rows; one more block
+    profiled. Returns ``(launches, kernel row)``. The sizes are arguments
+    so a rehearsal runs it small on the CPU. The host oracles
+    (``run_spf``, the replica) run in ``workers`` spawned processes
+    started first, each building its own link state, while this process
+    builds its own and the card works."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch.ops import route_sweep
+
+    samples = list(ENGINE_SAMPLES)
+    t_oracle = time.perf_counter()
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    table_futures = [pool.submit(_huge_tables_worker, nodes, [nm]) for nm in samples]
+    replica_future = pool.submit(_huge_replica_worker, nodes, checked, SWEEP_100K_SEED)
+    try:
+        rng = np.random.default_rng(SWEEP_100K_SEED)
+        clock = GcClock()
+        t0 = time.monotonic()
+        ls = _huge_link_state(nodes)
+        setup_s = time.monotonic() - t0
+        t0 = time.perf_counter()
+        graph = route_sweep.compile_out_ell(ls)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        launches, kernel_row, result, sweep = _huge_card_work(
+            dev, graph, samples, block, rng, clock, phase)
+        # one sample route table per tier against the host Dijkstra, and
+        # the seeded destinations against the numpy replica of those rows
+        t0 = time.perf_counter()
+        tables = {}
+        for future in table_futures:
+            tables.update(future.result())
+        t_ids, digests, totals = replica_future.result()
+        oracle_wait_ms = (time.perf_counter() - t0) * 1e3
+        oracle_ms = (time.perf_counter() - t_oracle) * 1e3
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for nm in samples:
+        if result.routes_from(nm) != tables[nm]:
+            raise AssertionError(f"{phase}: route table of {nm} differs from run_spf")
+    if not (np.array_equal(digests, result.digests[t_ids])
+            and np.array_equal(totals, result.nh_totals[t_ids])):
+        raise AssertionError(f"{phase}: digests or next-hop totals differ from host_sweep")
+    n_blocks = -(-graph.n_pad // block)
+    sweeper = sweep.pop("sweeper")
+    profiled_block = {}
+    if dev.type == "cuda":
+        # one more block under the profiler: busy time, idle share, kernel
+        ids = torch.arange(block, dtype=torch.int32, device=dev)
+        sweeper.solve_block(ids).cpu()
+        stats, _, wall = profiled(torch, lambda: sweeper.solve_block(ids).cpu(),
+                                  lambda st, _: lacking(st, KERNEL_KEYS["rev_band_relax"]))
+        busy = device_us(stats, "a call") / 1e3
+        profiled_block = {
+            "profiled_block_ms": wall, "block_device_busy_ms": busy,
+            "block_device_idle_share": 1 - busy / wall,
+            "block_kernel_ms": device_us(stats, KERNEL_KEYS["rev_band_relax"]) / 1e3,
+            "block_top_device_ms": top_device_ms(stats),
+        }
+    emit({
+        "phase": phase, "nodes": graph.n, "n_pad": graph.n_pad, "block": block,
+        "blocks": n_blocks, "samples": samples,
+        "parity_with_host_oracle": "sample route tables (run_spf) and "
+        f"{checked} destinations' digests and next-hop totals (host_sweep)",
+        "setup_s": setup_s, "compile_ms": compile_ms,
+        "ell_bands": [[bd.rows, bd.k] for bd in graph.bands],
+        **sweep, "oracle_workers": workers, "oracle_ms": oracle_ms,
+        "oracle_wait_ms": oracle_wait_ms, "launches": launches, **profiled_block,
+    })
+    return launches, kernel_row
+
+
+def rev_relax_row(dev, graph, t_ids, rng, compare, what, reps, band_reps=0):
+    """``rev_band_relax`` at ``graph``'s out-bands for the destination
+    rows ``t_ids`` (int32 numpy [B]) against its plain version exactly,
+    ``compare(name, got, want, what)`` raising on a difference: the rows
+    two relax hops from the unit init (finite and INF distances mixed),
+    each band under the graph's overload mask and under a random one
+    onto whose nodes every fourth destination is moved (the v == t
+    exception), then one whole relax step. On the card the step is timed
+    over ``reps`` calls (profiler device ms of the kernel and of the
+    plain version, CUDA-event ms of both), and with ``band_reps`` each
+    band too. Returns the row: shape, each band's launch plan (and
+    times), the step's times and its bound."""
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch.ops import route_sweep
+    from openr_tpu_torch.ops.minplus import INF
+    from openr_tpu_torch.ops.rev_relax import launch_plan, rev_band_relax, rev_band_relax_plain
+
+    on_card = dev.type == "cuda"
+    key = KERNEL_KEYS["rev_band_relax"]
+    rb = len(t_ids)
+    v_t = tuple(torch.from_numpy(v).to(dev) for v in graph.src)
+    w_t = tuple(torch.from_numpy(w).to(dev) for w in graph.w)
+    ov = torch.from_numpy(graph.overloaded).to(dev)
+    tt = torch.from_numpy(t_ids).to(dev)
+    dr = torch.full((rb, graph.n_pad), INF, dtype=torch.int32, device=dev)
+    dr[torch.arange(rb, device=dev), tt.long()] = 0
+    for _ in range(2):
+        dr = route_sweep._rev_relax(dr, graph.bands, v_t, w_t, ov, tt)
+    ov_np = rng.random(graph.n_pad) < 0.05
+    t_moved = t_ids.copy()
+    t_moved[::4] = rng.choice(np.flatnonzero(ov_np), size=t_moved[::4].shape)
+    masks = ((ov, tt), (torch.from_numpy(ov_np).to(dev), torch.from_numpy(t_moved).to(dev)))
+    out = torch.empty_like(dr)
+    bands, pos = [], 0
+    for band, v_b, w_b in zip(graph.bands, v_t, w_t):
+        for ovm, t_m in masks:
+            compare("rev_band_relax", rev_band_relax(dr, v_b, w_b, t_m, ovm, pos, out),
+                    rev_band_relax_plain(dr, v_b, w_b, t_m, ovm, pos), f"{what} out-band {band}")
+        plan = launch_plan(rb, band.rows, band.k)
+        row = {"rows": band.rows, "k": band.k,
+               "plan": {"body": "wide" if plan.wide else "narrow", "chunk": plan.chunk,
+                        "grid": list(plan.grid)},
+               "least_ms": band_least_ms(rb, band.rows, band.k)}
+        if on_card and band_reps:
+            row["kernel_ms"] = device_ms(
+                torch, lambda: rev_band_relax(dr, v_b, w_b, tt, ov, pos, out), band_reps, key,
+                records=1)
+            row["plain_ms"] = device_ms(
+                torch, lambda: rev_band_relax_plain(dr, v_b, w_b, tt, ov, pos), band_reps)
+        bands.append(row)
+        pos += band.rows
+    del out, masks
+
+    def step_kernel():
+        return route_sweep._rev_relax(dr, graph.bands, v_t, w_t, ov, tt)
+
+    def step_plain():
+        res = torch.empty_like(dr)
+        at = 0
+        for band, v_b, w_b in zip(graph.bands, v_t, w_t):
+            res[:, at : at + band.rows] = rev_band_relax_plain(dr, v_b, w_b, tt, ov, at)
+            at += band.rows
+        res[:, at:] = dr[:, at:]
+        return res
+
+    compare("rev_band_relax", step_kernel(), step_plain(), f"{what}: one reversed relax step")
+    slots = sum(band.rows * band.k for band in graph.bands)
+    # each input read once: the destination rows, the band slots (v + w),
+    # the overload mask, the destination ids; each output written once:
+    # the band columns. One add and one min per gathered slot and row.
+    bound, by = bound_ms(4 * rb * graph.n_pad + 8 * slots + graph.n_pad + 4 * rb
+                         + 4 * rb * graph.n, 2 * rb * slots)
+    row = {"shape": {"B": rb, "n_pad": graph.n_pad, "distinct_t": int(len(np.unique(t_ids))),
+                     "bands": [[bd.rows, bd.k] for bd in graph.bands]},
+           "bands": bands, "bound_ms": bound, "bound_by": by}
+    if on_card:
+        row.update({
+            "kernel_ms": device_ms(torch, step_kernel, reps, key,
+                                   parts_ms=sum(b.get("kernel_ms", 0.0) for b in bands),
+                                   records=len(graph.bands)),
+            "plain_ms": device_ms(torch, step_plain, reps),
+            "call_ms": time_ms(torch, step_kernel, reps),
+            "plain_call_ms": time_ms(torch, step_plain, reps, warmup=1),
+        })
+    return row
+
+
+def grouped_rows(dev, graph, t_ids, compare, what, reps, seg_reps=0):
+    """``batched_minplus`` and ``batched_minplus_t`` at ``graph``'s
+    segments for the destination rows ``t_ids`` (int32 numpy [B]): the
+    segments' masked source tables of those rows, two grouped relax hops
+    from the unit init, in each kernel's layout, each segment against the
+    plain version exactly (``compare`` as for ``rev_relax_row``). On the
+    card one step (every segment) is timed over ``reps`` calls (profiler
+    device ms of the kernel and of the plain version, CUDA-event ms of
+    both), and with ``seg_reps`` each segment too. Returns ``{kernel:
+    row}``: shape, each segment's launch plan (and time), the step's times
+    and its bound."""
+    import torch
+
+    from openr_tpu_torch.ops import spf_grouped
+    from openr_tpu_torch.ops.grouped_minplus import (
+        batched_minplus,
+        batched_minplus_plain,
+        batched_minplus_t,
+        batched_minplus_t_plain,
+        minplus_plan,
+        minplus_t_plan,
+    )
+    from openr_tpu_torch.ops.minplus import INF
+
+    on_card = dev.type == "cuda"
+    rb = len(t_ids)
+    g_meta = spf_grouped.band_meta(graph)
+    g_src, g_w = spf_grouped.device_tensors(graph, dev)
+    g_ov = torch.from_numpy(graph.overloaded).to(dev)
+    tt = torch.from_numpy(t_ids).to(dev)
+    dg = torch.full((rb, graph.n_pad), INF, dtype=torch.int32, device=dev)
+    dg[torch.arange(rb, device=dev), tt.long()] = 0
+    for _ in range(2):
+        dg = spf_grouped._grouped_relax(dg, g_meta, g_src, g_w, g_ov, tt, spf_grouped.IMPLS[0])
+    segs = []
+    for src, w in zip(g_src, g_w):
+        idx = src.long()
+        blocked = g_ov[idx][None] & (src[None] != tt[:, None, None])
+        gath = dg[:, idx].masked_fill(blocked, INF)  # [B, G, S]
+        segs.append((gath.permute(1, 0, 2).contiguous(),
+                     gath.permute(1, 2, 0).contiguous(), w))
+    del dg
+    shapes = [[int(w.shape[0]), rb, int(w.shape[1]), int(w.shape[2])] for _, _, w in segs]
+    # each input read once (the gathered table, the weights), each output
+    # written once; one add and one min per (g, b, s, r)
+    bound, by = bound_ms(sum(4 * (g_ * b_ * s_g + g_ * s_g * r_ + g_ * b_ * r_)
+                             for g_, b_, s_g, r_ in shapes),
+                         sum(2 * g_ * b_ * s_g * r_ for g_, b_, s_g, r_ in shapes))
+    rows = {}
+    for name, kern, plain, layout in (
+            ("batched_minplus", batched_minplus, batched_minplus_plain, 0),
+            ("batched_minplus_t", batched_minplus_t, batched_minplus_t_plain, 1)):
+        key = KERNEL_KEYS[name]
+        seg_rows = []
+        for seg, shape in zip(segs, shapes):
+            compare(name, kern(seg[layout], seg[2]), plain(seg[layout], seg[2]),
+                    f"{what} segment {shape}")
+            plan = (minplus_t_plan if layout else minplus_plan)(*shape)
+            # a split S adds the reduce kernel's record
+            row = {"shape": shape,
+                   "plan": {k: list(v) if k == "grid" else v
+                            for k, v in plan._asdict().items() if k != "scratch_shape"},
+                   "records": 1 + (plan.splits > 1)}
+            if on_card and seg_reps:
+                row["kernel_ms"] = device_ms(
+                    torch, lambda seg=seg: kern(seg[layout], seg[2]), seg_reps, key,
+                    records=row["records"])
+            seg_rows.append(row)
+
+        def step_kernel(kern=kern, layout=layout):
+            return [kern(seg[layout], seg[2]) for seg in segs]
+
+        def step_plain(plain=plain, layout=layout):
+            return [plain(seg[layout], seg[2]) for seg in segs]
+
+        row = {"shape": {"segments_GBSR": shapes}, "segments": seg_rows,
+               "bound_ms": bound, "bound_by": by}
+        if on_card:
+            row.update({
+                "kernel_ms": device_ms(torch, step_kernel, reps, key,
+                                       parts_ms=sum(r.get("kernel_ms", 0.0) for r in seg_rows),
+                                       records=sum(r["records"] for r in seg_rows)),
+                "plain_ms": device_ms(torch, step_plain, reps),
+                "call_ms": time_ms(torch, step_kernel, reps),
+                "plain_call_ms": time_ms(torch, step_plain, reps, warmup=1),
+            })
+        rows[name] = row
+    return rows
+
+
+def engine_kernel_shapes(dev, ls, rng, compare):
+    """``rev_band_relax`` and ``batched_minplus(_t)`` at the route engine's
+    shapes over ``ls``'s graphs (``rev_relax_row``, ``grouped_rows``):
+    churn buckets of 32 and 1024 destination rows with scattered, repeated
+    ids (the detection pads a bucket with its first affected id), and the
+    full width, B = n_pad (cold build, frontier re-solve, overflow chain).
+    ``compare(name, got, want, what)`` raises on a difference. Returns
+    ``{kernel: {cell: row}}``."""
+    import numpy as np
+
+    from openr_tpu_torch.ops import route_sweep, spf_grouped
+
+    eng_out = route_sweep.compile_out_ell(ls)
+    eng_grp = spf_grouped.compile_out_grouped(ls)
+    engine_kernel = {"rev_band_relax": {}, "batched_minplus": {}, "batched_minplus_t": {}}
+    for label, rb in (("b32", 32), ("b1024", min(1024, eng_out.n_pad)), ("full", eng_out.n_pad)):
+        if rb == eng_out.n_pad:
+            t_np = np.arange(rb, dtype=np.int32)
+        else:
+            t_np = rng.choice(eng_out.n, size=rb // 2, replace=False).astype(np.int32)
+            t_np = np.concatenate([t_np, np.repeat(t_np[:1], rb - len(t_np))])
+        reps = max(3, REPS // (1 + rb // 2048))
+        what = f"engine {label}"
+        engine_kernel["rev_band_relax"][label] = rev_relax_row(
+            dev, eng_out, t_np, rng, compare, what, reps)
+        for name, row in grouped_rows(dev, eng_grp, t_np, compare, what, reps).items():
+            engine_kernel[name][label] = row
+    return engine_kernel
+
+
+def engine_rows(result):
+    """A route product's rows in node-name order, independent of its
+    layout's node and slot numbering: ``(names, digests, next-hop totals,
+    sample metrics [n, S], next hops)``, the next hops as one dict a
+    sample, neighbour name -> bool column [n] (a column without a set
+    bit left out)."""
+    import numpy as np
+
+    graph = result.graph
+    names = np.asarray(graph.node_names[: graph.n])
+    order = np.argsort(names)
+    k = result.samp_v.shape[1]
+    slots = np.arange(k)
+    hops = []
+    for s in range(result.sample_masks.shape[1]):
+        words = result.sample_masks[order, s, :]
+        bits = ((words[:, slots // 32] >> (slots % 32).astype(np.uint32)) & 1).astype(bool)
+        cols = {}
+        for slot in np.flatnonzero(bits.any(axis=0)):
+            nbr = graph.node_names[int(result.samp_v[s, slot])]
+            cols[nbr] = cols[nbr] | bits[:, slot] if nbr in cols else bits[:, slot]
+        hops.append(cols)
+    return (names[order], result.digests[order], result.nh_totals[order],
+            result.sample_metrics[order], hops)
+
+
+def engine_rows_differ(a, b):
+    """Bool [n] in name order: the destinations whose rows differ between
+    two ``engine_rows`` of the same node set."""
+    import numpy as np
+
+    if not np.array_equal(a[0], b[0]):
+        raise AssertionError("the route products hold different node sets")
+    diff = (a[1] != b[1]) | (a[2] != b[2]) | (a[3] != b[3]).any(axis=1)
+    for ha, hb in zip(a[4], b[4]):
+        for nbr in set(ha) | set(hb):
+            none = np.zeros(len(a[0]), dtype=bool)
+            diff |= ha.get(nbr, none) != hb.get(nbr, none)
+    return diff
+
+
+def engine_phase(dev, phase, nodes, ladder, block, profile, gc_clock=None):
+    """``engine-<size>``: the network-wide route engine on ``dev``. One
+    fresh LinkState of ``fat_tree_nodes(nodes)`` is shared by three
+    engines: the ELL ``RouteSweepEngine`` and the
+    ``GroupedRouteSweepEngine`` under each contraction kernel, samples
+    ``ENGINE_SAMPLES``. The script's events go to every engine in turn,
+    and after each the oracle (a cold ``RouteSweeper.sweep`` on ``dev``
+    over a fresh ``compile_out_ell`` of the same LinkState, whose sample
+    route tables must equal ``run_spf``'s) must equal every engine row for
+    row by node name: digests, next-hop totals, sample metrics and next
+    hops (so each sample's ``routes_from`` is the oracle's); each engine's
+    moved names must be the destinations whose row changed since the
+    previous oracle. With ``ladder`` the
+    supervisor's rungs are walked under armed faults (cold, host, then
+    healed); ``route_engine.host_fallbacks`` may rise only there. With
+    ``profile`` one more event per engine runs under the profiler.
+    Returns the engines' kernel launches (the oracle's are not counted).
+    The sizes are arguments so a rehearsal runs it small on the CPU."""
+    from dataclasses import replace
+
+    import torch
+
+    from openr_tpu_torch.faults.injector import FaultSchedule, get_injector
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.kernels import LAUNCHES
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops import route_engine, route_sweep, spf_grouped
+    from openr_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    on_card = dev.type == "cuda"
+    clock = gc_clock or GcClock()
+    t_phase = time.monotonic()
+    topo = topologies.fat_tree_nodes(nodes)
+    ls = LinkState(area=topo.area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(topo.adj_dbs[name])
+    del topo
+    remote = remote_rsw(ls)
+    samples = list(ENGINE_SAMPLES)
+    setup_s = time.monotonic() - t_phase
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def oracle(routes=True):
+        """The cold sweep's rows; with ``routes`` its sample route tables
+        are held against ``run_spf``."""
+        t0 = time.perf_counter()
+        graph = route_sweep.compile_out_ell(ls)
+        sweeper = route_sweep.RouteSweeper(graph, samples, device=dev)
+        before = dict(LAUNCHES)
+        result = sweeper.sweep(block=block)
+        for k in LAUNCHES:
+            oracle_launches[k] += LAUNCHES[k] - before[k]
+        if routes:
+            for s in samples:
+                want = {dst: (r.metric, set(r.next_hops)) for dst, r in ls.run_spf(s).items()
+                        if dst != s}
+                if result.routes_from(s) != want:
+                    raise AssertionError(f"{phase}: the cold sweep's route table of {s} "
+                                         "differs from run_spf")
+        oracle_ms.append((time.perf_counter() - t0) * 1e3)
+        return engine_rows(result)
+
+    oracle_launches = {k: 0 for k in LAUNCHES}
+    oracle_ms = []
+    kinds = [("ell", "rev_band_relax")] + [(f"grouped/{impl}", impl)
+                                           for impl in spf_grouped.IMPLS]
+    engines = {}
+    launches = {k: 0 for k in LAUNCHES}
+    per_engine = {label: {"launches": {k: 0 for k in LAUNCHES}} for label, _ in kinds}
+    for label, kernel in kinds:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(LAUNCHES)
+        sync()
+        t0 = time.perf_counter()
+        if label == "ell":
+            eng = route_engine.RouteSweepEngine(ls, samples, device=dev)
+        else:
+            eng = route_engine.GroupedRouteSweepEngine(ls, samples, impl=kernel, device=dev)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k in LAUNCHES:
+            per_engine[label]["launches"][k] += got[k]
+            launches[k] += got[k]
+        engines[label] = eng
+        per_engine[label].update({
+            "cold_build_ms": ms, "cold_build_hops": eng.hops_log[-1],
+            "n_pad": eng.graph.n_pad,
+            "resident_bytes": sum(t.numel() * t.element_size()
+                                  for t in (eng._dr, eng._digests_dev, eng._packed_dev)),
+            "cold_build_max_memory_allocated":
+                torch.cuda.max_memory_allocated() if on_card else None,
+        })
+    prev = None
+
+    def changed(a, b):
+        return sorted(a[0][engine_rows_differ(a, b)])
+
+    def hold(tag, names_by_engine=None, expected=None):
+        """Every engine against the oracle of the current LinkState, row
+        for row by node name (so each sample's ``routes_from``, which
+        reads only those rows, equals the oracle's, which equals
+        ``run_spf``'s)."""
+        nonlocal prev
+        keys = oracle()
+        for label, eng in engines.items():
+            bad = engine_rows_differ(engine_rows(eng.result), keys)
+            if bad.any():
+                raise AssertionError(f"{phase} {tag}: the {label} engine differs from the "
+                                     f"cold sweep at {int(bad.sum())} destinations, first "
+                                     f"{list(keys[0][bad][:3])}")
+            if names_by_engine is not None:
+                want = expected if expected is not None else changed(keys, prev)
+                moved = names_by_engine[label]
+                if moved is not None and sorted(moved) != sorted(want):
+                    raise AssertionError(
+                        f"{phase} {tag}: {label} moved {len(moved)} destinations, the "
+                        f"oracle's rows changed at {len(want)}")
+        digests = {label: route_sweep.digests_by_name(eng.result)
+                   for label, eng in engines.items()}
+        if any(d != digests["ell"] for d in digests.values()):
+            raise AssertionError(f"{phase} {tag}: the engines disagree by name")
+        prev = keys
+        return keys
+
+    def counters():
+        return {k: reg.counter_get(k) for k in ENGINE_COUNTERS}
+
+    def drive(tag, label, fn):
+        """One engine's call: its record (path, rows, readback, ms, hops,
+        accounting, frontier, gc) and its result."""
+        eng = engines[label]
+        before = dict(LAUNCHES)
+        c0 = counters()
+        gc0 = clock.read()[0]
+        hops0 = len(eng.hops_log)
+        fr0 = (eng.frontier_resolves, eng.frontier_fallbacks)
+        sync()
+        t0 = time.perf_counter()
+        result = fn(eng)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k in LAUNCHES:
+            per_engine[label]["launches"][k] += got[k]
+            launches[k] += got[k]
+        c1 = counters()
+        rec = {
+            "path": eng.last_path, "k": eng.last_k if eng.last_path == "bucket" else None,
+            "affected": eng.last_affected, "changed": eng.last_delta_rows,
+            "readback_bytes": eng.last_readback_bytes, "ms": ms,
+            "hops": eng.hops_log[hops0:],
+            "counters": {k: c1[k] - c0[k] for k in ENGINE_COUNTERS if c1[k] != c0[k]},
+            "launches": {k: v for k, v in got.items() if v},
+            "gc_ms": clock.read()[0] - gc0,
+        }
+        if (eng.frontier_resolves, eng.frontier_fallbacks) != fr0:
+            rec["frontier"] = {"rows": eng.last_frontier_rows,
+                               "cells": eng.last_frontier_cells,
+                               "jumps": eng.last_frontier_jumps}
+        return rec, result
+
+    def names_of(result):
+        if result is None or isinstance(result, list):
+            return result
+        return result.names
+
+    def each(tag, fn, expected=None, check=True):
+        recs, moved = {}, {}
+        for label in engines:
+            rec, result = drive(tag, label, fn)
+            recs[label] = rec
+            moved[label] = names_of(result)
+        if check:
+            hold(tag, moved, expected)
+        events.append({"event": tag, "engines": recs})
+        return moved
+
+    def db_of(node):
+        return ls.get_adjacency_databases()[node]
+
+    def bumped(node, metric, i=0):
+        db = db_of(node)
+        adjs = list(db.adjacencies)
+        adjs[i] = replace(adjs[i], metric=metric)
+        return replace(db, adjacencies=tuple(adjs)), {node, adjs[i].other_node_name}
+
+    def bump(node, metric):
+        db, aff = bumped(node, metric)
+        ls.update_adjacency_database(db)
+        return aff
+
+    events = []
+    hold("cold builds")
+    fallbacks0 = reg.counter_get("route_engine.host_fallbacks")
+    # 1. three bumps of fsw-0-0's first metric (bench.py's event)
+    for step in range(3):
+        aff = bump("fsw-0-0", 2 + step % 5)
+        each(f"fsw-0-0 metric {2 + step % 5}", lambda e: e.churn(ls, aff))
+    # 2. a remote bump
+    aff = bump(remote, 3)
+    each(f"{remote} metric 3", lambda e: e.churn(ls, aff))
+    # 3. a drain, then an undrain, of fsw-1-0
+    for on in (True, False):
+        ls.update_adjacency_database(replace(db_of("fsw-1-0"), is_overloaded=on))
+        each(f"fsw-1-0 {'drain' if on else 'undrain'}",
+             lambda e: e.churn(ls, {"fsw-1-0"}))
+    # 4. the link rsw-1-0 -- fsw-1-0 pulled both ways, then restored
+    a, b = ENGINE_LINK
+    saved = {a: db_of(a), b: db_of(b)}
+    for x, y in ((a, b), (b, a)):
+        db = db_of(x)
+        ls.update_adjacency_database(replace(db, adjacencies=tuple(
+            adj for adj in db.adjacencies if adj.other_node_name != y)))
+    each(f"link {a}-{b} down", lambda e: e.churn(ls, {a, b}))
+    for x in (a, b):
+        ls.update_adjacency_database(saved[x])
+    each(f"link {a}-{b} up", lambda e: e.churn(ls, {a, b}))
+    # 5. a window of three metric events through churn_window
+    window = [bump("fsw-0-0", 7), bump(remote, 5), bump("fsw-2-0", 4)]
+    each("window of 3", lambda e: e.churn_window(ls, window))
+    # 6. three events with defer_consume, then flush(): each event's
+    # moved names (known once consumed) against its own oracle
+    deferred, handles = [], {label: [] for label in engines}
+    for i, (node, metric) in enumerate((("fsw-0-0", 3), (remote, 6), ("fsw-2-0", 5))):
+        aff = bump(node, metric)
+        recs = {}
+        for label in engines:
+            rec, pending = drive(f"deferred {i}", label,
+                                 lambda e: e.churn(ls, aff, defer_consume=True))
+            handles[label].append(pending)
+            recs[label] = rec
+        keys_i = oracle(routes=False)
+        deferred.append(changed(keys_i, prev))
+        prev = keys_i
+        events.append({"event": f"deferred {i} ({node} metric {metric})", "engines": recs})
+    recs = {}
+    for label in engines:
+        rec, _ = drive("flush", label, lambda e: e.flush())
+        recs[label] = rec
+        for i, p in enumerate(handles[label]):
+            if p is None or sorted(p.names) != deferred[i]:
+                raise AssertionError(f"{phase} deferred {i}: the {label} engine's moved "
+                                     "names differ from the oracle's changed rows")
+    hold("flush")
+    events.append({"event": "flush", "engines": recs})
+    # 7. a churn_burst of three events on three nodes apart; each
+    # window's changed rows from an oracle of the state it leaves
+    burst_nodes = ENGINE_BURST
+    pre = {node: db_of(node) for node in burst_nodes}
+    burst = [bumped(node, 8 + i) for i, node in enumerate(burst_nodes)]
+    union = set()
+    for db, _aff in burst:
+        ls.update_adjacency_database(db)
+        keys_i = oracle(routes=False)
+        union |= set(changed(keys_i, prev))
+        prev = keys_i
+    for node in burst_nodes:
+        ls.update_adjacency_database(pre[node])
+    keys_0 = oracle(routes=False)
+    prev = keys_0
+    net = set(changed(keys_i, keys_0))
+
+    def apply_burst(db, aff):
+        def apply():
+            ls.update_adjacency_database(db)
+            return aff
+        return apply
+
+    c0 = reg.counter_get("ops.burst_cancels")
+    recs, moved = {}, {}
+    for label in engines:
+        rec, result = drive("burst", label,
+                            lambda e: e.churn_burst(ls, [apply_burst(*x) for x in burst]))
+        recs[label] = rec
+        moved[label] = names_of(result)
+    cancels = reg.counter_get("ops.burst_cancels") - c0
+    events.append({"event": "burst of 3", "engines": recs, "burst_cancels": cancels})
+    for label, got in moved.items():
+        want = net if recs[label]["counters"].get("ops.burst_cancels") else union
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{phase} burst: the {label} engine moved {len(got)} "
+                                 f"destinations, the oracle's windows changed {len(want)}")
+    hold("burst")
+    # 8. a speculation that hits (a bump of an edge no shortest path
+    # takes any more: few rows), and one that another event cancels
+    aff = bump(remote, 9)
+    spec = {}
+
+    def speculate_then_window(e):
+        spec[e] = e.speculate_churn(ls, [aff])
+        return e.churn_window(ls, [aff])
+
+    s0 = {k: reg.counter_get(k) for k in ("ops.spec_hits", "ops.spec_cancels")}
+    each("speculation hit", speculate_then_window)
+    hits = reg.counter_get("ops.spec_hits") - s0["ops.spec_hits"]
+    aff1 = bump("fsw-2-0", 6)
+    staged = {label: eng.speculate_churn(ls, [aff1]) for label, eng in engines.items()}
+    aff2 = bump(remote, 10)
+    each("speculation cancelled", lambda e: e.churn_window(ls, [aff1, aff2]))
+    cancelled = reg.counter_get("ops.spec_cancels") - s0["ops.spec_cancels"]
+    if hits != len(engines) or cancelled != sum(staged.values()):
+        raise AssertionError(f"{phase}: speculation hits {hits}, cancels {cancelled} "
+                             f"(staged {staged})")
+    if reg.counter_get("route_engine.host_fallbacks") != fallbacks0:
+        raise AssertionError(f"{phase}: route_engine.host_fallbacks rose outside the "
+                             "armed ladder step")
+    # one more event per engine under the profiler: the card's busy time,
+    # its idle share, the heaviest ops and the relax kernel's own time
+    profiled_events = {}
+    if profile and on_card:
+        for label, kernel in kinds:
+            eng = engines[label]
+            bumps = []
+
+            def prepare(attempt, bumps=bumps):
+                bumps.append(bump("fsw-0-0", 20 + len(bumps)))
+
+            def run(eng=eng, bumps=bumps):
+                before = dict(LAUNCHES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.churn(ls, bumps[-1])
+                torch.cuda.synchronize()
+                return ({k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                        (time.perf_counter() - t0) * 1e3)
+
+            stats, (got, ms), wall = profiled(
+                torch, run, lambda st, res, kernel=kernel: lacking(
+                    st, KERNEL_KEYS[kernel], records=res[0][kernel]),
+                prepare=prepare)
+            for k in LAUNCHES:
+                per_engine[label]["launches"][k] += got[k]
+                launches[k] += got[k]
+            busy = device_us(stats, "a call") / 1e3
+            profiled_events[label] = {
+                "event_ms": ms, "path": eng.last_path, "launches": {k: v for k, v in got.items() if v},
+                "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+                "kernel_device_ms": device_us(stats, KERNEL_KEYS[kernel]) / 1e3,
+                "kernel_records": kernel_records(stats, KERNEL_KEYS[kernel]),
+                "top_device_ms": top_device_ms(stats),
+            }
+        hold("profiled events")
+    # the ladder (its own step): a dispatch fault lands on the cold
+    # rung; dispatch and cold-build faults on the host rung (the host
+    # numpy product, equal to the oracle); then unarmed events probe back
+    # through the cold rung to the warm one
+    ladder_steps = []
+    if ladder:
+        inj = get_injector()
+        arms = (("cold rung", ("route_engine.dispatch",)),
+                ("host rung", ("route_engine.dispatch", "route_engine.cold_build")))
+        for i, (tag, sites) in enumerate(arms):
+            aff = bump(remote, 11 + i)
+            recs = {}
+            f0 = reg.counter_get("route_engine.host_fallbacks")
+            for label in engines:
+                for site in sites:
+                    inj.arm(site, FaultSchedule.fail_once())
+                try:
+                    rec, result = drive(tag, label, lambda e: e.churn(ls, aff))
+                finally:
+                    inj.reset()
+                if result is not None:
+                    raise AssertionError(f"{phase} {tag}: the {label} engine stayed warm")
+                recs[label] = rec
+            rose = reg.counter_get("route_engine.host_fallbacks") - f0
+            if rose != (len(engines) if tag == "host rung" else 0):
+                raise AssertionError(f"{phase} {tag}: route_engine.host_fallbacks rose {rose}")
+            hold(tag)
+            ladder_steps.append({"step": tag, "engines": recs, "host_fallbacks": rose})
+        # the breaker reopens on the wall clock: wait for its probe
+        deadline = time.monotonic() + 10
+        while not all(e.supervisor.breaker.can_try_now() for e in engines.values()):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{phase}: the ladder's breaker did not reopen")
+            time.sleep(0.05)
+        f0 = reg.counter_get("route_engine.host_fallbacks")
+        for i, tag in enumerate(("healed: probe", "healed: warm")):
+            aff = bump(remote, 13 + i)
+            moved = each(tag, lambda e: e.churn(ls, aff), check=i == 1)
+            if i == 0:
+                hold(tag)
+            paths = {label: rec["path"] for label, rec in events[-1]["engines"].items()}
+            ladder_steps.append({"step": tag, "paths": paths,
+                                 "warm": all(m is not None for m in moved.values())})
+        if reg.counter_get("route_engine.host_fallbacks") != f0:
+            raise AssertionError(f"{phase}: route_engine.host_fallbacks rose after the ladder")
+        if not ladder_steps[-1]["warm"]:
+            raise AssertionError(f"{phase}: the engines did not heal to the warm rung")
+    for label, kernel in kinds:
+        got = per_engine[label]["launches"]
+        if on_card and got[kernel] == 0:
+            raise AssertionError(f"{phase}: the {label} engine launched no {kernel}")
+        stray = {k: v for k, v in got.items() if k != kernel and v}
+        if stray:
+            raise AssertionError(f"{phase}: the {label} engine launched {stray}")
+    by_path = {}
+    for ev in events:
+        if ev["event"] == "flush":
+            continue
+        for label, rec in ev["engines"].items():
+            key = f"{label} {rec['path']}" + (f" k={rec['k']}" if rec.get("k") else "")
+            by_path.setdefault(key, []).append(rec["ms"])
+    for label, eng in engines.items():
+        per_engine[label].update({
+            "cold_builds": eng.cold_builds, "incremental_events": eng.incremental_events,
+            "full_refreshes": eng.full_refreshes, "frontier_resolves": eng.frontier_resolves,
+            "frontier_fallbacks": eng.frontier_fallbacks,
+            "structural_events": eng.structural_events,
+            "coalesced_events": eng.coalesced_events, "host_fallbacks": eng.host_fallbacks,
+            "profiled_event": profiled_events.get(label),
+        })
+    emit({
+        "phase": phase, "nodes": nodes, "samples": samples, "remote_node": remote,
+        "setup_s": setup_s, "parity": "every event == cold sweep and run_spf; engines agree",
+        "engines": per_engine, "events": events, "ladder": ladder_steps,
+        "ms_by_path": by_path, "oracle_ms": oracle_ms,
+        "oracle_launches": {k: v for k, v in oracle_launches.items() if v},
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
+        "launches": launches, "seconds": time.monotonic() - t_phase,
+    })
+    del engines
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random kernel inputs")
@@ -2132,12 +3088,9 @@ def main(argv=None) -> int:
         batched_minplus_plain,
         batched_minplus_t,
         batched_minplus_t_plain,
-        minplus_plan,
-        minplus_t_plan,
     )
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
     from openr_tpu_torch.ops.minplus import minplus_plan as dense_plan
-    from openr_tpu_torch.ops.rev_relax import launch_plan as rev_launch_plan
     from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
     from openr_tpu_torch.types.lsdb import PrefixForwardingAlgorithm
 
@@ -2550,87 +3503,20 @@ def main(argv=None) -> int:
         emit({"phase": "kernels", "kernel": "ell_band_relax_masked", "cell": f"ksp2-{label}",
               "match": True, "checked_shapes": [list(x) for x in masked_ragged], **row})
 
-    # rev_band_relax at each route sweep's out-bands and block (the
-    # 10 000-node fabric with 1024 destinations, the 1008-node one with
-    # 256): the block of the first destinations, two relax hops from the
-    # unit init (finite and INF distances mixed); then the same bands with
-    # a random overload mask whose nodes some destinations hit
-    sweep_cells = (("10k", sparse_ls, SPARSE_SWEEP_BLOCK),
-                   ("1008", dense_ls, DENSE_SWEEP_BLOCK))
+    # rev_band_relax and batched_minplus(_t) at each route sweep's graphs
+    # and block (the 10 000-node fabric with 1024 destinations, the
+    # 1008-node one with 256): the block of the first destinations, each
+    # band and segment timed too
     rev_kernel = {}
-    for label, ls, rb in sweep_cells:
-        out_graph = route_sweep.compile_out_ell(ls)
-        rv_t = tuple(torch.from_numpy(v).to(dev) for v in out_graph.src)
-        rw_t = tuple(torch.from_numpy(w).to(dev) for w in out_graph.w)
-        r_ov = torch.from_numpy(out_graph.overloaded).to(dev)
-        t_blk = torch.arange(rb, dtype=torch.int32, device=dev)
-        dr = torch.full((rb, out_graph.n_pad), INF, dtype=torch.int32, device=dev)
-        dr[torch.arange(rb, device=dev), t_blk.long()] = 0
-        for _ in range(2):
-            dr = route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
-        ov_np = rng.random(out_graph.n_pad) < 0.05
-        t_np = np.arange(rb, dtype=np.int32)
-        t_np[::4] = rng.choice(np.flatnonzero(ov_np), size=t_np[::4].shape)
-        masks = [(r_ov, t_blk),
-                 (torch.from_numpy(ov_np).to(dev), torch.from_numpy(t_np).to(dev))]
-        rev_rows = []
-        pos = 0
-        band_out = torch.empty_like(dr)
-        for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
-            for ovm, tt in masks:
-                compare("rev_band_relax",
-                        rev_band_relax(dr, v_b, w_b, tt, ovm, pos, band_out),
-                        rev_band_relax_plain(dr, v_b, w_b, tt, ovm, pos),
-                        f"sweep-{label} out-band {band}")
-            plan = rev_launch_plan(rb, band.rows, band.k)
-            rev_rows.append({
-                "rows": band.rows, "k": band.k,
-                "plan": {"body": "wide" if plan.wide else "narrow",
-                         "chunk": plan.chunk, "grid": list(plan.grid)},
-                "kernel_ms": device_ms(
-                    torch, lambda: rev_band_relax(dr, v_b, w_b, t_blk, r_ov, pos, band_out),
-                    REPS, KERNEL_KEYS["rev_band_relax"], records=1),
-                "plain_ms": device_ms(
-                    torch, lambda: rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, pos),
-                    REPS),
-            })
-            pos += band.rows
-
-        def rev_step_plain():
-            out = torch.empty_like(dr)
-            at = 0
-            for band, v_b, w_b in zip(out_graph.bands, rv_t, rw_t):
-                out[:, at : at + band.rows] = rev_band_relax_plain(dr, v_b, w_b, t_blk, r_ov, at)
-                at += band.rows
-            out[:, at:] = dr[:, at:]
-            return out
-
-        def rev_step_kernel():
-            return route_sweep._rev_relax(dr, out_graph.bands, rv_t, rw_t, r_ov, t_blk)
-
-        compare("rev_band_relax", rev_step_kernel(), rev_step_plain(),
-                f"sweep-{label}: one reversed relax step over all out-bands")
-        rslots = sum(band.rows * band.k for band in out_graph.bands)
-        # each input read once: the destination rows, the band slots (v + w),
-        # the overload mask, the destination ids; each output written once:
-        # the band columns. One add and one min per gathered slot and row.
-        rev_bound, rev_by = bound_ms(
-            4 * rb * out_graph.n_pad + 8 * rslots + out_graph.n_pad + 4 * rb
-            + 4 * rb * out_graph.n,
-            2 * rb * rslots,
-        )
-        rev_kernel[label] = {
-            "shape": {"B": rb, "n_pad": out_graph.n_pad,
-                      "bands": [[bd.rows, bd.k] for bd in out_graph.bands]},
-            "bands": rev_rows,
-            "kernel_ms": device_ms(torch, rev_step_kernel, REPS, KERNEL_KEYS["rev_band_relax"],
-                                   parts_ms=sum(row["kernel_ms"] for row in rev_rows),
-                                   records=len(out_graph.bands)),
-            "plain_ms": device_ms(torch, rev_step_plain, REPS),
-            "call_ms": time_ms(torch, rev_step_kernel, REPS),
-            "plain_call_ms": time_ms(torch, rev_step_plain, REPS),
-            "bound_ms": rev_bound, "bound_by": rev_by,
-        }
+    grouped_kernel = {"batched_minplus": {}, "batched_minplus_t": {}}
+    for label, ls, rb in (("10k", sparse_ls, SPARSE_SWEEP_BLOCK),
+                          ("1008", dense_ls, DENSE_SWEEP_BLOCK)):
+        t_blk = np.arange(rb, dtype=np.int32)
+        rev_kernel[label] = rev_relax_row(dev, route_sweep.compile_out_ell(ls), t_blk, rng,
+                                          compare, f"sweep-{label}", REPS, band_reps=REPS)
+        for name, row in grouped_rows(dev, spf_grouped.compile_out_grouped(ls), t_blk,
+                                      compare, f"sweep-{label}", REPS, seg_reps=REPS).items():
+            grouped_kernel[name][label] = row
     # ragged: B = 1, B off the destination run, rows below a block, k of 1
     # and slots staged as 8, 16 and 32, wide bands from 33 slots; half the
     # destinations overloaded nodes, half overloaded nodes that the band's
@@ -2661,74 +3547,10 @@ def main(argv=None) -> int:
         emit({"phase": "kernels", "kernel": "rev_band_relax", "cell": f"sweep-{label}",
               "match": True, "checked_shapes": [list(x) for x in rev_ragged], **row})
 
-    # batched_minplus(_t) at each grouped sweep's segments and block: the
-    # masked source tables of the block's destinations, two grouped relax
-    # hops from the unit init, in each kernel's layout
     grouped_ops = {
-        "batched_minplus": (batched_minplus, batched_minplus_plain, 0,
-                            KERNEL_KEYS["batched_minplus"]),
-        "batched_minplus_t": (batched_minplus_t, batched_minplus_t_plain, 1,
-                              KERNEL_KEYS["batched_minplus_t"]),
+        "batched_minplus": (batched_minplus, batched_minplus_plain, 0),
+        "batched_minplus_t": (batched_minplus_t, batched_minplus_t_plain, 1),
     }
-    grouped_kernel = {name: {} for name in grouped_ops}
-    for label, ls, rb in sweep_cells:
-        grp_graph = spf_grouped.compile_out_grouped(ls)
-        g_meta = spf_grouped.band_meta(grp_graph)
-        g_src, g_w = spf_grouped.device_tensors(grp_graph, dev)
-        g_ov = torch.from_numpy(grp_graph.overloaded).to(dev)
-        t_blk = torch.arange(rb, dtype=torch.int32, device=dev)
-        dg = torch.full((rb, grp_graph.n_pad), INF, dtype=torch.int32, device=dev)
-        dg[torch.arange(rb, device=dev), t_blk.long()] = 0
-        for _ in range(2):
-            dg = spf_grouped._grouped_relax(
-                dg, g_meta, g_src, g_w, g_ov, t_blk, spf_grouped.IMPLS[0]
-            )
-        segs = []
-        for src, w in zip(g_src, g_w):
-            idx = src.long()
-            blocked = g_ov[idx][None] & (src[None] != t_blk[:, None, None])
-            gath = dg[:, idx].masked_fill(blocked, INF)  # [B, G, S]
-            segs.append((gath.permute(1, 0, 2).contiguous(),
-                         gath.permute(1, 2, 0).contiguous(), w))
-        grouped_shapes = [[int(w.shape[0]), rb, int(w.shape[1]), int(w.shape[2])]
-                          for _, _, w in segs]
-        g_bytes = sum(4 * (g_ * b_ * s_g + g_ * s_g * r_ + g_ * b_ * r_)
-                      for g_, b_, s_g, r_ in grouped_shapes)
-        g_ops = sum(2 * g_ * b_ * s_g * r_ for g_, b_, s_g, r_ in grouped_shapes)
-        grp_bound, grp_by = bound_ms(g_bytes, g_ops)
-        for name, (kern, plain, layout, key) in grouped_ops.items():
-            seg_rows = []
-            for seg, shape in zip(segs, grouped_shapes):
-                compare(name, kern(seg[layout], seg[2]), plain(seg[layout], seg[2]),
-                        f"sweep-{label} segment {shape}")
-                row = {"shape": shape}
-                plan = (minplus_t_plan if layout else minplus_plan)(*shape)
-                row["plan"] = {k: list(v) if k == "grid" else v
-                               for k, v in plan._asdict().items() if k != "scratch_shape"}
-                # a split S adds the reduce kernel's record
-                row["records"] = 1 + (plan.splits > 1)
-                row["kernel_ms"] = device_ms(
-                    torch, lambda seg=seg: kern(seg[layout], seg[2]), REPS, key,
-                    records=row["records"])
-                seg_rows.append(row)
-
-            def step_kernel(kern=kern, layout=layout):
-                return [kern(seg[layout], seg[2]) for seg in segs]
-
-            def step_plain(plain=plain, layout=layout):
-                return [plain(seg[layout], seg[2]) for seg in segs]
-
-            grouped_kernel[name][label] = {
-                "shape": {"segments_GBSR": grouped_shapes},
-                "segments": seg_rows,
-                "kernel_ms": device_ms(torch, step_kernel, REPS, key,
-                                       parts_ms=sum(row["kernel_ms"] for row in seg_rows),
-                                       records=sum(row["records"] for row in seg_rows)),
-                "plain_ms": device_ms(torch, step_plain, REPS),
-                "call_ms": time_ms(torch, step_kernel, REPS),
-                "plain_call_ms": time_ms(torch, step_plain, REPS),
-                "bound_ms": grp_bound, "bound_by": grp_by,
-            }
     # ragged: S past the Pallas s-block cap of 512, S split on and off, R
     # past one R-tile, B off 32, single elements
     grouped_ragged = [(3, 5, 7, 9), (7, 19, 3, 1), (2, 8, 600, 3), (3, 9, 1030, 5),
@@ -2742,7 +3564,7 @@ def main(argv=None) -> int:
         for i, (r_, b_) in enumerate(
             (r_, b_) for r_ in (1, 5, 16, 17, 624, 700) for b_ in (1, 33, 1100))
     ]
-    for name, (kern, plain, layout, _) in grouped_ops.items():
+    for name, (kern, plain, layout) in grouped_ops.items():
         checked = grouped_ragged_rows if name == "batched_minplus" else grouped_ragged
         for g_, b_, s_g, r_ in checked:
             gath = rand_int((g_, s_g, b_) if layout else (g_, b_, s_g), 0.3)
@@ -2752,16 +3574,22 @@ def main(argv=None) -> int:
             emit({"phase": "kernels", "kernel": name, "cell": f"sweep-{label}",
                   "match": True, "checked_shapes": [list(x) for x in checked],
                   **row})
+    # the route engine's shapes over the 10 000-node graphs
+    engine_kernel = engine_kernel_shapes(dev, sparse_ls, rng, compare)
+    for name, cells in engine_kernel.items():
+        emit({"phase": "kernels", "kernel": name, "cell": "engine-10k", "match": True,
+              "shapes": cells})
+    torch.cuda.empty_cache()
     odd = rand_int((3 * 70 * 8 + 1,), 0.3)[1:].view(3, 70, 8)
     w = rand_int((3, 8, 12), 0.3)
     compare("batched_minplus", batched_minplus(odd, w), batched_minplus_plain(odd, w),
             "gath off a 16-byte boundary")
 
     # -- 4./5. the main path: route builds through the kernels ---------------
-    def drive(phase, ls, ps, events, nodes):
+    def drive(phase, ls, ps, events, nodes, remote_events):
         """Initial build + ``events`` churn builds from ``root`` (bench.py's
         event, a bump of ``fsw-0-0``, a neighbour of the root), then
-        REMOTE_EVENTS remote events (a bump of the first adjacency of the
+        ``remote_events`` remote events (a bump of the first adjacency of the
         last pod's first rack switch), then one more churn build under the
         profiler for the card's busy share; then one build with LFA on,
         whose loop-free alternates read the neighbours' distance rows of
@@ -2866,7 +3694,7 @@ def main(argv=None) -> int:
         ]
         remotes = [
             one_build(f"remote {i}", lambda i=i: bump_metric(ls, remote, 3 + i))
-            for i in range(REMOTE_EVENTS)
+            for i in range(remote_events)
         ]
         stats, (got, launched, wall_ms), _ = profiled(
             torch, churn_build(torch, device_solver, areas, ps, root, LAUNCHES),
@@ -2928,10 +3756,11 @@ def main(argv=None) -> int:
         })
         return launches
 
-    dense = drive("dense", dense_ls, dense_ps, DENSE_EVENTS, n_dense)
+    dense = drive("dense", dense_ls, dense_ps, DENSE_EVENTS, n_dense, REMOTE_EVENTS)
     if dense["minplus"] == 0:
         raise AssertionError("dense route builds launched no minplus kernel")
-    sparse = drive("sparse", sparse_ls, sparse_ps, SPARSE_EVENTS, n_sparse)
+    sparse = drive("sparse", sparse_ls, sparse_ps, SPARSE_EVENTS, n_sparse,
+                   SPARSE_REMOTE_EVENTS)
     if sparse["ell_band_relax"] == 0:
         raise AssertionError("sparse route builds launched no ell_band_relax kernel")
 
@@ -3063,11 +3892,26 @@ def main(argv=None) -> int:
     sweep_small = sweep_phase("sweep-1008", dense_ls, DENSE_SWEEP_BLOCK, True)
     sweep_large = sweep_phase("sweep-10k", sparse_ls, SPARSE_SWEEP_BLOCK, False)
 
+    # -- the route engine, then the route sweep at 100 000 nodes ------------
+    engine_small = engine_phase(dev, "engine-1008", DENSE_NODES, True, DENSE_SWEEP_BLOCK,
+                                True, gc_clock)
+    engine_large = engine_phase(dev, "engine-10k", SPARSE_NODES, False, SPARSE_SWEEP_BLOCK,
+                                True, gc_clock)
+    gc.collect()
+    torch.cuda.empty_cache()
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    # not a multiprocessing.Pool: its workers are daemonic and may not start
+    # the phase's host-oracle workers
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        sweep_huge, rev_100k = pool.submit(sweep_100k_process, _START).result()
+
     # -- 8./9. the main path: KSP2 route builds through the engine --------
-    def ksp2_engine_drive(phase, worlds, events):
+    def ksp2_engine_drive(phase, worlds, events, remote_events):
         """The KSP2 engine (the default up to ksp2_engine.ENGINE_MAX_NODES
         nodes) on a KSP2 network from ``root``: an initial build,
-        ``events`` bench events (a bump of ``fsw-0-0``), REMOTE_EVENTS
+        ``events`` bench events (a bump of ``fsw-0-0``), ``remote_events``
         remote ones (a bump of the last pod's first rack switch), each
         held against the host Dijkstra solver on its own copy of the
         databases, and after each the engine's resident all-sources
@@ -3171,7 +4015,7 @@ def main(argv=None) -> int:
             SPF_COUNTERS[name] = 0
         builds = [one_build(step, None if step == 0 else bump("fsw-0-0", 2 + (step - 1) % 5))
                   for step in range(events + 1)]
-        remotes = [one_build(f"remote {i}", bump(remote, 3 + i)) for i in range(REMOTE_EVENTS)]
+        remotes = [one_build(f"remote {i}", bump(remote, 3 + i)) for i in range(remote_events)]
         profiles = {}
         for label, node, metric in (("bench", "fsw-0-0", 9), ("remote", remote, 20)):
             stats, (got, launched, wall_ms), _ = profiled(
@@ -3362,8 +4206,9 @@ def main(argv=None) -> int:
         })
         return launches
 
-    ksp2_small = ksp2_engine_drive("ksp2-1008", ksp2_dense, KSP2_DENSE_EVENTS)
-    ksp2_large = ksp2_engine_drive("ksp2-10k", ksp2_sparse, KSP2_SPARSE_EVENTS)
+    ksp2_small = ksp2_engine_drive("ksp2-1008", ksp2_dense, KSP2_DENSE_EVENTS, REMOTE_EVENTS)
+    ksp2_large = ksp2_engine_drive("ksp2-10k", ksp2_sparse, KSP2_SPARSE_EVENTS,
+                                   KSP2_SPARSE_REMOTE_EVENTS)
     engine_max = ksp2_engine.ENGINE_MAX_NODES
     ksp2_engine.ENGINE_MAX_NODES = 0
     try:
@@ -3378,8 +4223,6 @@ def main(argv=None) -> int:
         gc_clock)
 
     # -- 14-15. the route plane under sustained load, in a process of its own
-    import multiprocessing
-
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         pipeline_small, pipeline_large = pool.apply(pipeline_process, (_START,))
 
@@ -3392,7 +4235,8 @@ def main(argv=None) -> int:
         pool.apply(daemon_process_process, (_START,))
 
     main_launches = {
-        k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + ksp2_small[k]
+        k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + engine_small[k]
+        + engine_large[k] + sweep_huge[k] + ksp2_small[k]
         + ksp2_large[k] + ksp2_chunked[k] + decision_small[k] + decision_large[k]
         + decision_faults[k] + pipeline_small[k] + pipeline_large[k] + fabric[k]
         for k in LAUNCHES
@@ -3457,13 +4301,15 @@ def main(argv=None) -> int:
         {"name": "rev_band_relax", "route": "cuda", "source": f"{csrc}/rev_relax.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:248",
          "launches": main_launches["rev_band_relax"],
-         "max_abs_err": max_err["rev_band_relax"],
-         **sweep_row(rev_kernel), "match": True},
+         "max_abs_err": max(max_err["rev_band_relax"], rev_100k["max_abs_err"]),
+         **sweep_row(rev_kernel), "match": True,
+         "engine_10k": engine_kernel["rev_band_relax"], "at_100k": rev_100k},
     ] + [
         {"name": name, "route": "cuda", "source": f"{csrc}/grouped_minplus.cu",
          "replaces": replaces,
          "launches": main_launches[name], "max_abs_err": max_err[name],
-         **sweep_row(grouped_kernel[name]), "match": True}
+         **sweep_row(grouped_kernel[name]), "match": True,
+         "engine_10k": engine_kernel[name]}
         for name, replaces in (
             ("batched_minplus", "openr_tpu/ops/pallas_grouped.py:247"),
             ("batched_minplus_t", "openr_tpu/ops/pallas_grouped.py:203"),

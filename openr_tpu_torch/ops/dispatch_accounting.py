@@ -8,10 +8,24 @@ card on that path reports here:
   calls it beside the kernel's ``LAUNCHES`` count): ``ops.host_dispatches``;
 - ``sync_flag(flag)`` — ``bool()`` of a device scalar, the relax loops'
   per-hop convergence test: one ``ops.blocking_syncs``;
-- ``reap_read(t)`` — a tensor read back to host memory as numpy by a
-  blocking ``.cpu()``: one ``ops.blocking_syncs``;
+- ``kick_async(t)`` — stage a readback: a ``non_blocking`` copy into
+  pinned host memory with a CUDA event at its end (``ops.staging.
+  Readback``), returned as the handle to reap; not a host touch;
+- ``reap_read(x, kicked=...)`` — materialize a readback as numpy. A
+  handle from ``kick_async`` with ``kicked=True`` waits on its event and
+  counts one ``ops.async_reaps``; anything else is a blocking sync (a
+  tensor by ``.cpu()``, or a ``kick_async`` handle waited on at once,
+  which reads through pinned memory): one ``ops.blocking_syncs``;
 - ``note_blocking_sync()`` — any other blocking device-to-host sync, such
   as the wait in ``ops.staging.Readback.reap``.
+
+``pipeline_drain(tag)`` brackets one pipelined burst of event windows
+(the route engine's ``churn_burst``): every ``event_window`` inside it
+joins it, and its retirement feeds ``ops.touches_per_drain`` and
+``ops.windows_per_drain``. ``note_window``, ``note_pipelined_dispatch``
+and ``note_overlapped_reap`` witness the burst's folded windows, its
+submits while an earlier window's reap is in flight, and the reaps
+drained inside a successor's window.
 
 ``event_window(tag)`` brackets one event (Decision's ``decision.rebuild``):
 consecutive dispatches collapse into one submit phase and consecutive syncs
@@ -42,18 +56,23 @@ class EventWindow:
     """Phase accounting for one event window."""
 
     __slots__ = (
-        "tag", "dispatches", "blocking_syncs",
-        "submit_phases", "read_phases", "_last", "t0",
+        "tag", "dispatches", "blocking_syncs", "async_reaps",
+        "submit_phases", "read_phases", "_last", "t0", "windows", "drain",
     )
 
-    def __init__(self, tag: str):
+    def __init__(self, tag: str, drain: bool = False):
         self.tag = tag
         self.dispatches = 0
         self.blocking_syncs = 0
+        self.async_reaps = 0
         self.submit_phases = 0
         self.read_phases = 0
         self._last: Optional[str] = None
         self.t0 = time.perf_counter()
+        # logical event windows folded into this one (joins bump it);
+        # a pipeline_drain bracket also feeds the per-drain histograms
+        self.windows = 1
+        self.drain = drain
 
     def _mark(self, phase: str) -> None:
         if self._last != phase:
@@ -80,6 +99,10 @@ def _retire(w: EventWindow) -> None:
     reg = get_registry()
     reg.observe("ops.host_touches", float(w.touches))
     reg.observe(f"ops.host_touches.{w.tag}", float(w.touches))
+    if w.drain:
+        reg.counter_bump("ops.pipeline_drains")
+        reg.observe("ops.touches_per_drain", float(w.touches))
+        reg.observe("ops.windows_per_drain", float(w.windows))
     wall_ms = (time.perf_counter() - w.t0) * 1000.0
     get_flight_recorder().on_window(w.tag, wall_ms, w)
 
@@ -93,6 +116,7 @@ def event_window(tag: str = "event") -> Iterator[EventWindow]:
     if stack is None:
         stack = _TLS.stack = []
     if stack:
+        stack[-1].windows += 1
         yield stack[-1]
         return
     w = EventWindow(tag)
@@ -102,6 +126,49 @@ def event_window(tag: str = "event") -> Iterator[EventWindow]:
     finally:
         stack.pop()
         _retire(w)
+
+
+@contextmanager
+def pipeline_drain(tag: str = "drain") -> Iterator[EventWindow]:
+    """Bracket one pipelined burst of event windows: a drain-flagged
+    window that every ``event_window`` inside it joins. Joining an
+    already-active window degrades to that window."""
+    stack = getattr(_TLS, "stack", None)
+    if stack is None:
+        stack = _TLS.stack = []
+    if stack:
+        yield stack[-1]
+        return
+    w = EventWindow(tag, drain=True)
+    w.windows = 0  # only joined event windows count toward the burst
+    stack.append(w)
+    try:
+        yield w
+    finally:
+        stack.pop()
+        _retire(w)
+
+
+def note_window(n: int = 1) -> None:
+    """Count ``n`` logical event windows folded into the active window
+    or drain without opening a join. No-op outside a window."""
+    w = current_window()
+    if w is not None:
+        w.windows += n
+
+
+def note_pipelined_dispatch(depth: int = 2) -> None:
+    """Witness a dispatch submitted while an earlier window's reap was
+    still in flight; ``depth`` windows are then in flight."""
+    reg = get_registry()
+    reg.counter_bump("ops.pipelined_dispatches")
+    reg.observe("ops.pipeline_depth", float(depth))
+
+
+def note_overlapped_reap() -> None:
+    """Witness an earlier window's staged reap drained inside a
+    successor window."""
+    get_registry().counter_bump("ops.overlapped_reaps")
 
 
 def count_dispatch(n: int = 1) -> None:
@@ -130,11 +197,37 @@ def sync_flag(flag) -> bool:
     return bool(flag)
 
 
-def reap_read(arr):
-    """Materialize one readback on host as a numpy array by a blocking
-    ``.cpu()``, counted as one blocking sync; a host array passes as it
-    is."""
+def kick_async(arr):
+    """Stage a device-to-host copy of tensor ``arr`` and return its
+    handle (an ``ops.staging.Readback``: on the card a ``non_blocking``
+    copy into pinned host memory and a CUDA event, never a pageable
+    ``.cpu()``); reap it with ``reap_read(handle, kicked=True)``. Not a
+    host touch. A host (numpy) array passes through as it is."""
+    if not hasattr(arr, "detach"):
+        return arr
+    from openr_tpu_torch.ops.staging import Readback
+
+    return Readback(arr)
+
+
+def reap_read(arr, kicked: bool = False):
+    """Materialize one readback on host as a numpy array. A
+    ``kick_async`` handle with ``kicked=True`` waits for its staged copy
+    to land: one ``ops.async_reaps``. Anything else is a blocking sync
+    (a tensor by a blocking ``.cpu()``): one ``ops.blocking_syncs``. A
+    host array passes as it is."""
+    from openr_tpu_torch.ops.staging import Readback
+
+    w = current_window()
+    if kicked and isinstance(arr, Readback):
+        get_registry().counter_bump("ops.async_reaps")
+        if w is not None:
+            w.async_reaps += 1
+            w._mark("read")
+        return arr.wait()
     note_blocking_sync()
+    if isinstance(arr, Readback):
+        return arr.wait()
     if hasattr(arr, "detach"):
         return arr.detach().cpu().numpy()
     return arr

@@ -10,9 +10,12 @@ column layout, ``_unpack_blocks``, ``assemble_result``, ``digests_by_name``,
 goes through ``ops.rev_relax.rev_band_relax`` (the hand-written CUDA kernel
 on the card, its plain torch version on the CPU), writing its column slice
 of one output. The JAX ``lax.while_loop`` becomes a Python loop with one
-host sync per hop; the hops of each block are kept on the sweeper. Not
-ported yet: ``_cone_expand`` (the churn engine's frontier) and the
-sharded sweeps.
+host sync per hop, counted in ``ops.blocking_syncs`` through
+``dispatch_accounting.sync_flag``; the hops of each block are kept on the
+sweeper. ``_cone_expand`` is the churn engine's frontier kernel
+(``ops/route_engine.py``): plain torch ops, its growth walked over blocks
+of destination rows so that the ``[rows, band rows, k]`` gathers of a
+full-width cone stay bounded. Not ported yet: the sharded sweeps.
 
 The sweep relaxes the REVERSED graph (an out-edge ELL: row s holds
 ``(v, w(s -> v))`` for every forward edge), so row t of a block is a
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.rev_relax import rev_band_relax
 from openr_tpu_torch.ops.spf_sparse import (
@@ -98,7 +102,7 @@ def _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=None):
     in, and the int32 min-relaxation's unique fixed point keeps the
     result bit-identical to the cold solve. The loop stops when a hop
     changes nothing or after ``n`` hops, like the reference's
-    ``while_loop``; each hop costs one host sync."""
+    ``while_loop``; each hop costs one host sync (``da.sync_flag``)."""
     b = t_ids.shape[0]
     dev = t_ids.device
     dr = torch.full((b, n), INF, dtype=torch.int32, device=dev)
@@ -109,11 +113,110 @@ def _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=None):
     while hops < n:
         nxt = _rev_relax(dr, bands, v_t, w_t, overloaded, t_ids)
         hops += 1
-        changed = bool((nxt < dr).any())
+        changed = da.sync_flag((nxt < dr).any())
         dr = nxt
         if not changed:
             break
     return dr, hops
+
+
+# destination rows a full-width gather (the cone's growth, the engine's
+# route extraction) takes at once: [ROW_BLOCK, band rows, k] int32 is
+# 245 MB over the 10 000-node fabric's widest band, where the whole
+# 10112 rows would be 2.4 GB. Rows never interact, so the blocks give
+# the same bits as one pass.
+ROW_BLOCK = 1024
+
+
+def _cone_expand(sel_dr, bands, v_t, w_t, e_u, e_v, e_w_old, e_w_new,
+                 max_jumps, cell_limit=None, row_block=ROW_BLOCK):
+    """Affected-cone mask for a weight-increase delta (the frontier
+    kernel). Given resident distance rows ``sel_dr`` [B, N] and the
+    PRE-patch bands, mark every cell whose tight shortest path crosses
+    an increased edge: the cells whose distance may RISE, which a warm
+    seed must reset. Seed: cells u where an increased edge
+    (u -> v, w_old) was tight; each jump adds cell j when a raw-tight
+    band slot of j (old weights, old distances) reaches a cone cell,
+    until the cone stops growing. Tightness on RAW weights only
+    over-approximates (extra resets stay bit-identical by the
+    unique-fixed-point squeeze); INF cells never rise and are left out.
+
+    Returns ``(cone [B, N] bool, rows, cells, jumps, converged)``:
+    ``rows`` (int32 device scalar) counts rows with a nonempty cone,
+    ``cells`` (float32 device scalar, as the reference's sum, so the
+    threshold policy takes the same branch) the cone's population,
+    ``jumps`` (int) the jumps taken, ``converged`` (bool device scalar)
+    False when ``max_jumps`` cut the expansion off or the cone overflowed
+    ``cell_limit`` (a float32 device scalar): the cone is then an
+    under-approximation and the caller falls back to a coarser reset.
+    Each jump's continue test is one host sync (``da.sync_flag``)."""
+
+    def joins(d_blk, c_blk, joined_blk):
+        pos = 0
+        for band, v_b, w_b in zip(bands, v_t, w_t):
+            idx = v_b.long()
+            d_band = d_blk[:, pos : pos + band.rows]  # [b, rows]
+            total = (d_blk[:, idx] + w_b[None]).clamp_max_(INF)
+            tight = (
+                (total == d_band[:, :, None])
+                & (d_band < INF)[:, :, None]
+                & (w_b < INF)[None]
+            )  # [b, rows, k]
+            joined_blk[:, pos : pos + band.rows] = (tight & c_blk[:, idx]).any(2)
+            pos += band.rows
+
+    return expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit,
+                       row_block, joins)
+
+
+def expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit, row_block,
+                joins):
+    """The cone expansion both backends share: the seed, the counters and
+    the jump loop; ``joins(d_blk, c_blk, joined_blk)`` is the backend's
+    growth over one block of rows, writing into ``joined_blk`` the cells
+    a tight slot joins to the cone ``c_blk``."""
+    live = sel_dr < INF
+    eu, ev = e_u.long(), e_v.long()
+    inc_e = (e_w_new > e_w_old) & (e_w_old < INF)
+    seed_tight = (
+        (sel_dr[:, eu] == (e_w_old[None] + sel_dr[:, ev]).clamp_max(INF))
+        & inc_e[None]
+        & live[:, eu]
+    )  # [B, E]
+    hits = torch.zeros(sel_dr.shape, dtype=torch.int32, device=sel_dr.device)
+    hits.index_add_(1, eu, seed_tight.to(torch.int32))
+    cone = hits > 0
+    del hits
+
+    def count(c):
+        rows = c.any(1).sum(dtype=torch.int32)
+        # float32: the population can pass int32 at 100k nodes; a policy
+        # threshold tolerates the rounding
+        return rows, c.sum(dtype=torch.float32)
+
+    def grow(c):
+        joined = torch.zeros_like(c)
+        for a in range(0, c.shape[0], row_block):
+            joins(sel_dr[a : a + row_block], c[a : a + row_block],
+                  joined[a : a + row_block])
+        return c | joined
+
+    rows, cells = count(cone)
+    grew = cells > 0
+    jumps = 0
+    while jumps < max_jumps:
+        go = grew if cell_limit is None else grew & (cells <= cell_limit)
+        if not da.sync_flag(go):
+            break
+        nxt = grow(cone)
+        grew = (nxt & ~cone).any()
+        rows, cells = count(nxt)
+        cone = nxt
+        jumps += 1
+    converged = ~grew
+    if cell_limit is not None:
+        converged = converged & (cells <= cell_limit)
+    return cone, rows, cells, jumps, converged
 
 
 def _blocked(overloaded, v, t_ids) -> torch.Tensor:
@@ -463,7 +566,7 @@ class RouteSweeper:
                 )
             id_blocks.append((start, _as_device_ids(ids, self.device)))
         for start, ids in id_blocks:
-            packed = self.solve_block(ids).cpu().numpy()
+            packed = da.reap_read(da.kick_async(self.solve_block(ids)))
             take = min(block, n - start)
             dg, nt, sm, sk = _unpack_blocks(packed[:take], s, kw)
             digests[start : start + take] = dg

@@ -12,8 +12,13 @@ hand-written kernels of ``ops.grouped_minplus`` (``batched_minplus`` or
 ``batched_minplus_t``, chosen by the ``impl`` argument; on the CPU their
 plain torch versions). The reference's environment selector and its
 ``jnp`` formulation have no counterpart: no torch-op formulation is a
-choice on the card. Not ported yet: ``_grouped_cone_expand``,
-``slot_table``, ``grouped_patch`` and the sharded sweeps.
+choice on the card. The churn engine's pieces (``ops/route_engine.py``'s
+grouped engine) are here too: the warm seed of ``_grouped_fixed_point``
+(``init=``), ``_grouped_cone_expand`` (plain torch ops, walked over blocks
+of destination rows as ``route_sweep._cone_expand`` is), ``slot_table``
+and ``grouped_patch`` (host numpy, copied). Each hop's and each cone
+jump's convergence test is one host sync, counted through
+``dispatch_accounting.sync_flag``. Not ported yet: the sharded sweeps.
 
 In a multi-tier fabric, nodes overwhelmingly share in-neighbour sets:
 nodes sharing a source set form a complete bipartite block with their
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops import route_sweep as rs
 from openr_tpu_torch.ops.grouped_minplus import batched_minplus, batched_minplus_t
 from openr_tpu_torch.ops.minplus import INF
@@ -340,19 +346,27 @@ def _grouped_relax(d, meta, srcs_t, ws_t, overloaded, t_ids, impl):
     return out
 
 
-def _grouped_fixed_point(meta, srcs_t, ws_t, overloaded, ids, n, reverse, impl):
+def _grouped_fixed_point(meta, srcs_t, ws_t, overloaded, ids, n, reverse, impl,
+                         init=None):
     """``(distance rows [B, n], hops)`` from the unit init.
     ``reverse=False``: rows are SOURCES (forward all-sources; the init
     is one unmasked relax so an overloaded source still originates).
     ``reverse=True``: rows are DESTINATIONS (route-sweep orientation;
-    the per-row mask needs no init special case). One host sync per
-    hop; at most ``n`` hops. The reference's warm seed (``init=``) is
-    the churn engine's, not ported yet."""
+    the per-row mask needs no init special case). ``init`` (reverse
+    only) warm-seeds the rows with a pointwise upper bound on the fixed
+    point; the unit anchor is min-ed in, and the unique fixed point
+    keeps the result bit-identical to the cold solve. One host sync per
+    hop (``da.sync_flag``); at most ``n`` hops."""
     b = ids.shape[0]
     dev = ids.device
     d = torch.full((b, n), INF, dtype=torch.int32, device=dev)
     d[torch.arange(b, device=dev), ids.long()] = 0
-    if not reverse:
+    if reverse:
+        if init is not None:
+            d = torch.minimum(init, d)
+    else:
+        if init is not None:
+            raise ValueError("the warm seed is a reverse-sweep contract")
         d = _grouped_relax(
             d, meta, srcs_t, ws_t, torch.zeros_like(overloaded), None, impl
         )
@@ -361,7 +375,7 @@ def _grouped_fixed_point(meta, srcs_t, ws_t, overloaded, ids, n, reverse, impl):
     while hops < n:
         nxt = _grouped_relax(d, meta, srcs_t, ws_t, overloaded, t_ids, impl)
         hops += 1
-        changed = bool((nxt < d).any())
+        changed = da.sync_flag((nxt < d).any())
         d = nxt
         if not changed:
             break
@@ -433,6 +447,48 @@ def _grouped_nh_counts(dr, meta, srcs_t, ws_t, overloaded, t_ids) -> torch.Tenso
     return out
 
 
+def _grouped_cone_expand(sel_dr, meta, srcs_t, ws_t, e_u, e_v, e_w_old,
+                         e_w_new, max_jumps, cell_limit=None,
+                         row_block=rs.ROW_BLOCK):
+    """Affected-cone mask for a weight-increase delta over the GROUPED
+    segment slabs: ``route_sweep._cone_expand``'s seed, growth and
+    counters (``route_sweep.expand_cone``), walking each band's
+    ``[G, S, R]`` segments instead of ELL slots. Cell j joins when a
+    raw-tight segment slot of j (old weights, resident distances) reaches
+    a cone cell; axis-2 segments transpose onto the band grid as in
+    ``_grouped_relax``. Returns ``(cone, rows, cells, jumps, converged)``
+    with ``_cone_expand``'s contract."""
+
+    def joins(d_blk, c_blk, joined_blk):
+        b = d_blk.shape[0]
+        pos = 0
+        si = 0
+        for band in meta:
+            rows = band.g1 * band.g2
+            acc = joined_blk[:, pos : pos + rows]
+            d_grid = d_blk[:, pos : pos + rows].reshape(b, band.g1, band.g2)
+            for axis in band.seg_axes:
+                src = srcs_t[si]
+                w = ws_t[si]
+                si += 1
+                d_g = d_grid if axis == 1 else d_grid.transpose(1, 2)  # [b, G, R]
+                idx = src.long()
+                total = (d_blk[:, idx][:, :, :, None] + w[None]).clamp_max_(INF)
+                tight = (
+                    (total == d_g[:, :, None, :])
+                    & (d_g < INF)[:, :, None, :]
+                    & (w < INF)[None]
+                )  # [b, G, S, R]
+                j = (tight & c_blk[:, idx][:, :, :, None]).any(2)  # [b, G, R]
+                if axis == 2:
+                    j = j.transpose(1, 2)
+                acc |= j.reshape(b, rows)
+            pos += rows
+
+    return rs.expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit,
+                          row_block, joins)
+
+
 def _grouped_route_block_body(srcs_t, ws_t, overloaded, t_ids, samp_ids,
                               samp_v, samp_w, pos_w, meta, n, impl):
     """Grouped twin of ``route_sweep._route_block_body``: the same packed
@@ -483,6 +539,94 @@ class GroupedRouteSweeper(rs.RouteSweeper):
         )
         self.block_hops.append(hops)
         return packed
+
+
+# ---- incremental weight patching ---------------------------------------------
+
+
+def slot_table(graph: GroupedGraph) -> Dict[int, List[Tuple]]:
+    """node id -> [(segment flat index, g, s, r, src id)] for every REAL
+    edge slot of the node's band row, in ``device_tensors`` order.
+
+    Taken at compile time (a real slot has w < INF in the fresh layout),
+    so a slot that a later patch removes (set to INF) stays in the table
+    and is restorable; the inert self-pad slots are never in it, so a
+    patch cannot double-count a pad whose id is also a real neighbour
+    (next-hop counts sum over slots)."""
+    out: Dict[int, List[Tuple]] = {}
+    si = 0
+    for band in graph.bands:
+        for seg in band.segments:
+            gg, ss, rr = np.nonzero(seg.w < INF)
+            if seg.axis == 1:
+                nodes = band.start + gg * band.g2 + rr
+            else:
+                nodes = band.start + rr * band.g2 + gg
+            sids = seg.src[gg, ss]
+            for x in range(len(gg)):
+                out.setdefault(int(nodes[x]), []).append(
+                    (si, int(gg[x]), int(ss[x]), int(rr[x]), int(sids[x]))
+                )
+            si += 1
+    return out
+
+
+def grouped_patch(graph: GroupedGraph, ls, affected, slots: Dict[int, List[Tuple]]):
+    """In-place weight patch for churn on an existing grouped layout:
+    ``(patched GroupedGraph, {segment flat index: [(g, s, r, new_w)]})``,
+    or None when the event breaks the layout's structure (the node set
+    changed, or a node gained a neighbour its slot signature does not
+    carry: a new adjacency needs a recompile).
+
+    Metric changes and edge REMOVALS (slot set to INF, inert in every
+    relaxation) patch in place: node ids are untouched, so a resident DR
+    keyed by them stays valid, and a removed slot is restored by a later
+    patch when the edge returns. The patched layout may differ from a
+    fresh compile's, but is exact as a relaxation structure."""
+    edges_of = _in_edges if graph.direction == "in" else _out_edges
+    names = tuple(sorted(ls.get_adjacency_databases().keys()))
+    if len(names) != graph.n or any(nm not in graph.node_index for nm in names):
+        # node set changed, a same-count swap included
+        return None
+    updates: Dict[int, List[Tuple[int, int, int, int]]] = {}
+    overloaded = graph.overloaded.copy()
+    for nm in affected:
+        i = graph.node_index.get(nm)
+        if i is None:
+            return None
+        new_edges = edges_of(ls, nm, graph.node_index)
+        my_slots = slots.get(i, [])
+        slot_srcs = {sid for (_si, _g, _s, _r, sid) in my_slots}
+        if set(new_edges) - slot_srcs:
+            return None  # new neighbour: structure change
+        for (si, g, s, r, sid) in my_slots:
+            # real metrics arrive capped at INF - 1 by edges_of; INF is
+            # the removed/pad sentinel. The one update list feeds both
+            # the host copy and the device scatter
+            updates.setdefault(si, []).append((g, s, r, int(new_edges.get(sid, INF))))
+        overloaded[i] = ls.is_node_overloaded(nm)
+    seg_list: List[Segment] = []
+    for band in graph.bands:
+        seg_list.extend(band.segments)
+    patched_segs = list(seg_list)
+    for si, ups in updates.items():
+        w = seg_list[si].w.copy()
+        for (g, s, r, wv) in ups:
+            w[g, s, r] = wv
+        patched_segs[si] = Segment(axis=seg_list[si].axis, src=seg_list[si].src, w=w)
+    bands: List[GridBand] = []
+    si = 0
+    for band in graph.bands:
+        k = len(band.segments)
+        bands.append(GridBand(start=band.start, g1=band.g1, g2=band.g2,
+                              segments=tuple(patched_segs[si : si + k])))
+        si += k
+    patched = GroupedGraph(
+        node_names=graph.node_names, node_index=graph.node_index,
+        n=graph.n, n_pad=graph.n_pad, bands=tuple(bands),
+        overloaded=overloaded, direction=graph.direction,
+    )
+    return patched, updates
 
 
 def structure_report(graph: GroupedGraph) -> dict:

@@ -93,6 +93,11 @@ class Readback:
         shares the pinned tensor's memory and keeps it alive. Counted as
         one blocking sync (``ops.blocking_syncs``)."""
         da.note_blocking_sync()
+        return self.wait()
+
+    def wait(self) -> np.ndarray:
+        """The host copy once it has landed, uncounted: the dispatch
+        accounting's ``reap_read`` counts a staged reap itself."""
         if self._done is not None:
             self._done.synchronize()
             self._done = None

@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_without_jax_or_openr_tpu():
     # the KSP2 ones among them
     names = proc.stdout.strip().splitlines()[-1].split()
     assert len(names) > 20
-    assert {"openr_tpu_torch.decision.ksp2_engine", "openr_tpu_torch.ops.ell_relax"} <= set(names)
+    assert {"openr_tpu_torch.decision.ksp2_engine", "openr_tpu_torch.ops.ell_relax",
+            "openr_tpu_torch.ops.route_engine", "openr_tpu_torch.ops.host_sweep"} <= set(names)
 
 
 @pytest.fixture
