@@ -121,10 +121,10 @@ Phases, one JSON line each (``"phase": ...``):
    (``decision/ksp2_engine.py``, with its fast path: every
    destination's edge mask resident and re-solved in each event's fused
    dispatch): an initial build, churn events that bump ``fsw-0-0``'s
-   first adjacency metric, then 1 remote event that bumps the last pod's
-   first rack switch. Every route database must equal the host Dijkstra
-   solver's, which runs on its own copy of the link-state and prefix
-   databases (the kth-path cache lives on the ``LinkState``: a shared
+   first adjacency metric, then 3 remote events (1 at 10 000 nodes) that
+   bump the last pod's first rack switch. Every route database must equal
+   the host Dijkstra solver's, which runs on its own copy of the
+   link-state and prefix databases (the kth-path cache lives on the ``LinkState``: a shared
    one would hand it the device's second paths), and after each event
    the engine's resident all-sources matrix must equal a cold
    ``ell_distances_from_sources`` on the card. Each build reports cold
@@ -133,7 +133,8 @@ Phases, one JSON line each (``"phase": ...``):
    or off, the speculative rows changed, the engine's host-clock parts
    (``SpfSolver.ksp2_stats``), the ms the host spent in Python's
    garbage collector (``gc_ms``) and the rest (``assembly_ms``). One
-   more bench and one more remote build are profiled, as in ``dense``.
+   more bench and one more remote build are profiled, as in ``dense``
+   (at 10 000 nodes the bench build alone).
    The KSP2 device batches must be > 0, its host fallbacks and the
    views' host-SPF fallbacks 0, a remote event must sync incrementally
    and reuse KSP2 routes, and ``ell_band_relax`` and
@@ -287,6 +288,21 @@ alive, and a full garbage collection's pause grows with the heap. Phase
 16 runs in another (``daemon_fabric_process``), and phase 17's driving
 side in a third (``daemon_process_process``).
 
+A ``committed`` line follows each phase whose path dispatches through the
+executable cache or runs the budgeted relax loops (``dense``, ``sparse``,
+the sweeps, the engines, the KSP2 phases, ``daemon-fabric``): the cache's
+captures, hits, fallbacks (any fails the phase) and evictions over the
+phase, blocking syncs per event, its keys and the bytes of its shared
+input and output buffers and graph pool, the card's peak memory over the
+phase, and by tag the bytes a replay copies in and out, costed at the
+card's measured copy rate. The cache is never cleared between phases:
+its least-recently-used bound holds it. An engine phase's line also
+carries its warm deferred events, cached and with the bodies called
+directly: touches, blocking syncs, ms, bit-equality, and the card's
+allocated bytes after each. ``autotune`` lines follow ``kernels``: each
+family and shape on the path, each candidate plan's CUDA-event ms, and
+the winner (applied only under ``"auto"``).
+
 Every phase line carries ``t_s``, the seconds since the script started.
 Each profiler session idles a margin inside its window before and after
 what it measures, doubled after a short session (``profiled``); a
@@ -315,9 +331,9 @@ Any mismatch or error raises: the exit code is then nonzero and the last
 line is not printed. Without CUDA, or outside a checkout, the script
 exits nonzero before doing anything. The sizes are fixed: the 1008-node
 fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
-with KSP2 5 and 1, and 2 with the chunked dispatch; through Decision 10
+with KSP2 3 and 3, and 2 with the chunked dispatch; through Decision 10
 and 3; the route engine's script) and a 10 000-node one (3 events and 1
-remote one; with KSP2 2 and 1; through Decision 3 and 1; the route
+remote one; with KSP2 1 and 1; through Decision 3 and 1; the route
 engine's script; under load, the windows above; 24 daemons, 10 events; a
 daemon process, 10 and 3 events), and the 100 000-node sweep; only the
 seed of the random kernel inputs can be set.
@@ -326,6 +342,7 @@ seed of the random kernel inputs can be set.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -397,8 +414,8 @@ ENGINE_COUNTERS = ("ops.host_dispatches", "ops.blocking_syncs", "ops.async_reaps
 # KSP2 cells: churn events on the 1008-node fabric (every prefix KSP2) and
 # on the 10 000-node one, where KSP2_SAMPLED_DSTS evenly sampled prefixes
 # are KSP2 (the realistic per-prefix opt-in at that scale)
-KSP2_DENSE_EVENTS = 5
-KSP2_SPARSE_EVENTS = 2
+KSP2_DENSE_EVENTS = 3
+KSP2_SPARSE_EVENTS = 1
 KSP2_SAMPLED_DSTS = 256
 # the chunked KSP2 dispatch (engine off) stays driven on the 1008-node
 # fabric for this many churn events
@@ -1789,9 +1806,11 @@ def daemon_fabric_process(start: float):
 
     _build.library()
     print(nvidia_smi_line(), flush=True)
+    aot0 = aot_snapshot()
     _, _, launches = daemon_fabric_phase(port_modules(torch.device("cuda")), FABRIC,
                                          FABRIC_LSDB_NODES, FABRIC_EVENTS, deployed_spark_config(),
                                          FABRIC_CUT)
+    committed_line("daemon-fabric", aot0, events=FABRIC_EVENTS)
     return launches
 
 
@@ -2165,8 +2184,10 @@ def sweep_100k_process(start: float):
     sys.path.insert(0, str(ROOT))
     import torch
 
+    aot0 = aot_snapshot()
     out = sweep_huge_phase(torch.device("cuda"), SWEEP_100K_NODES, SWEEP_100K_BLOCK,
                            SWEEP_100K_CHECKED, SWEEP_100K_WORKERS)
+    committed_line("sweep-100k", aot0)
     emit({"phase": "profiler", "process": "sweep-100k", **profiler_summary()})
     return out
 
@@ -2220,6 +2241,7 @@ def _huge_card_work(dev, graph, samples, block, rng, clock, phase):
 
     from openr_tpu_torch.kernels import LAUNCHES, _build, reset_launches
     from openr_tpu_torch.ops import route_sweep
+    from openr_tpu_torch.telemetry import get_registry
 
     on_card = dev.type == "cuda"
 
@@ -2248,11 +2270,13 @@ def _huge_card_work(dev, graph, samples, block, rng, clock, phase):
     sweeper = route_sweep.RouteSweeper(graph, samples, device=dev)
     reset_launches()
     gc0 = clock.read()[0]
+    syncs0 = get_registry().counter_get("ops.blocking_syncs")
     sync()
     t0 = time.perf_counter()
     result = sweeper.sweep(block=block)
     sync()
     sweep_ms = (time.perf_counter() - t0) * 1e3
+    sweep_syncs = get_registry().counter_get("ops.blocking_syncs") - syncs0
     launches = dict(LAUNCHES)
     sweep_gc_ms = clock.read()[0] - gc0
     peak = torch.cuda.max_memory_allocated() if on_card else None
@@ -2264,6 +2288,8 @@ def _huge_card_work(dev, graph, samples, block, rng, clock, phase):
     return launches, kernel_row, result, {
         "sweep_ms": sweep_ms, "sweep_gc_ms": sweep_gc_ms, "max_memory_allocated": peak,
         "block_hops": sweeper.block_hops[: -(-graph.n_pad // block)], "sweeper": sweeper,
+        "blocking_syncs": sweep_syncs,
+        "blocking_syncs_per_block": sweep_syncs / -(-graph.n_pad // block),
     }
 
 
@@ -2604,6 +2630,308 @@ def engine_rows_differ(a, b):
     return diff
 
 
+def autotune_lines(dev, rng, compare, minplus_shapes, ell_geometries):
+    """One ``autotune`` line a family and shape on the main path: every
+    candidate launch plan of the kernels (``ops/autotune.py``) checked
+    against the plain version on random operands of that shape (through
+    ``compare``), then measured by a fresh tuner (CUDA events, the best of
+    three after a warm-up): each candidate's ms and the winner. Nothing is
+    persisted; the main path runs the plans it runs without "auto"."""
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch.ops import autotune, spf_grouped
+    from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_plain
+    from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
+    from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
+
+    def rand(shape, hi, p_inf=0.3):
+        x = torch.from_numpy(rng.integers(0, hi, size=shape, dtype=np.int32)).to(dev)
+        return torch.where(torch.from_numpy(rng.random(shape) < p_inf).to(dev), INF, x)
+
+    tuner = autotune.Autotuner(persist=False)
+    saved = autotune.get_autotuner()
+    autotune.set_autotuner(tuner)
+    lines = []
+    try:
+        for s_, n_ in minplus_shapes:
+            a, b = rand((s_, n_), 50), rand((n_, n_), 50)
+            want = minplus_plain(a, b)
+            for name in autotune._candidates("minplus", dev):
+                with autotune.using("minplus", name):
+                    compare("minplus", minplus(a, b), want, f"autotune {name} {s_}x{n_}")
+            winner = autotune.resolve_minplus((s_, n_), dev)
+            lines.append(("minplus", f"{s_}x{n_}", winner))
+        for n_, k_ in ell_geometries:
+            # the check's band: the plain versions gather [64, rows, k]
+            rows = min(n_, 256)
+            d = rand((64, n_), 1000)
+            src = torch.from_numpy(rng.integers(0, n_, size=(rows, k_), dtype=np.int32)).to(dev)
+            w = rand((rows, k_), 20)
+            ov = torch.from_numpy(rng.random(n_) < 0.05).to(dev)
+            t_ids = torch.from_numpy(rng.integers(0, n_, size=64, dtype=np.int32)).to(dev)
+            want_f = ell_band_relax_plain(d, src, w, ov, 0)
+            want_r = rev_band_relax_plain(d, src, w, t_ids, ov, 0)
+            for name in autotune._candidates("ell_relax", dev):
+                out = torch.empty_like(d)
+                with autotune.using("ell_relax", name):
+                    compare("ell_band_relax", ell_band_relax(d, src, w, ov, 0, out=out),
+                            want_f, f"autotune {name} {n_}x{k_}")
+                    compare("rev_band_relax", rev_band_relax(d, src, w, t_ids, ov, 0, out=out),
+                            want_r, f"autotune {name} {n_}x{k_}")
+            winner = autotune.resolve_ell_relax((n_, k_), dev)
+            lines.append(("ell_relax", f"{n_}x{k_}", winner))
+        winner = autotune.resolve_grouped(spf_grouped._AUTO_PROBE_SHAPE, dev)
+        lines.append(("grouped_minplus", "x".join(map(str, spf_grouped._AUTO_PROBE_SHAPE)),
+                      winner))
+    finally:
+        autotune.set_autotuner(saved)
+    timings = tuner.timings()
+    platform = autotune.platform_name(dev)
+    for family, shape, winner in lines:
+        emit({"autotune": family, "shape": shape, "winner": winner,
+              "default": autotune._DEFAULT[family],
+              "ms": timings.get(f"{platform}:{family}:{shape}", {})})
+    return lines
+
+
+def ksp2_committed(ls, engine, state):
+    """One fused dispatch of a KSP2 engine's (``ell_all_view_rows``, or
+    ``_masked`` on the fast path) on its resident state, warm (no increase
+    edge), through the executable cache twice and with its body called
+    directly once: the ms of each and whether all three are bit-equal
+    (raises if not). Its launches are taken back out of the counts."""
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch.decision.ksp2_engine import ENGINE_ROW_BUDGET
+    from openr_tpu_torch.kernels import LAUNCHES
+    from openr_tpu_torch.ops import aot_cache, spf_sparse
+
+    graph = state.graph
+    view = spf_sparse.ell_source_batch(graph, ls, engine.src_name)
+    srcs, w_sv = spf_sparse._batch_host_args(graph, view)
+    ep = np.asarray([engine.sid], np.int32)
+    saved = dict(LAUNCHES)
+    runs = []
+    for how in ("cached", "cached", "direct"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with aot_cache.direct() if how == "direct" else contextlib.nullcontext():
+            if engine.masks_t is not None:
+                d_all, dm, back, hops = spf_sparse.ell_all_view_rows_masked(
+                    state, srcs, w_sv, ep, engine.d_prev_dev, engine.masks_t, engine.dm_dev,
+                    engine.sid, ENGINE_ROW_BUDGET, inc=[])
+            else:
+                d_all, back, hops = spf_sparse.ell_all_view_rows(
+                    state, srcs, w_sv, ep, engine.d_prev_dev, inc=[])
+            packed = back.reap()
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3, d_all, packed, hops))
+    LAUNCHES.update(saved)
+    equal = all(torch.equal(r[1], runs[0][1]) and np.array_equal(r[2], runs[0][2])
+                and r[3] == runs[0][3] for r in runs)
+    if not equal:
+        raise AssertionError("the cached and direct KSP2 dispatches differ")
+    return {"dispatch": "ell_all_view_rows_masked" if engine.masks_t is not None
+            else "ell_all_view_rows", "first_cached_ms": runs[0][0],
+            "cached_ms": runs[1][0], "direct_ms": runs[2][0], "hops": runs[0][3],
+            "bit_equal": equal}
+
+
+# warm events of a phase's committed check: metric bumps of the remote
+# rack switch's first uplink (off every shortest path after the first, so
+# bucketed), each deferred in an event window, then flushed
+COMMITTED_EVENTS = 5
+COMMITTED_WARMUP = 2
+# drained and undrained after them (the overflow path at 10 000 nodes)
+COMMITTED_WIDE_NODE = "fsw-2-0"
+
+
+def aot_snapshot():
+    """The executable cache's counters and the dispatch accounting's, for
+    a ``committed`` line's deltas; the card's peak memory starts over, so
+    the line's ``max_memory_allocated`` is its phase's."""
+    import torch
+
+    from openr_tpu_torch.telemetry import get_registry
+
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    reg = get_registry()
+    return {k: reg.counter_get(k) for k in (
+        "ops.aot_compiles", "ops.aot_hits", "ops.aot_fallbacks", "ops.aot_evictions",
+        "ops.blocking_syncs",
+        "ops.async_reaps", "ops.host_dispatches", "route_engine.budget_retries")}
+
+
+_COPY_RATE = []
+
+
+def copy_rate():
+    """Bytes a millisecond one device-to-device copy moves on the card
+    (read and write counted), the best of 5 copies of 256 MiB timed with
+    CUDA events: the rate a replay's copies of its inputs and outputs are
+    costed at. Measured once a process."""
+    import torch
+
+    if not _COPY_RATE:
+        src = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+        dst = torch.empty_like(src)
+        best = None
+        for _ in range(6):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src)
+            b.record()
+            b.synchronize()
+            ms = a.elapsed_time(b)
+            best = ms if best is None else min(best, ms)
+        _COPY_RATE.append(2 * src.numel() * src.element_size() / best)
+        del src, dst
+    return _COPY_RATE[0]
+
+
+def committed_line(phase, before, events=None, **extra):
+    """Emit the ``committed`` line of ``phase``: the executable cache's
+    counter deltas since ``before`` (``aot_snapshot``; the cache is not
+    cleared between phases, so its keys and buffers carry over, bounded
+    by its LRU), the blocking syncs per event when ``events`` is known,
+    the graph pool's and the shared input and output buffers' bytes, the
+    card's peak memory over the phase, and by tag the bytes a replay
+    copies in and out with their cost at the card's measured copy rate
+    (``copy_rate``); raises when a capture fell back
+    (``ops.aot_fallbacks`` rose)."""
+    import torch
+
+    from openr_tpu_torch.ops.aot_cache import get_aot_cache
+
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None
+    after = aot_snapshot()
+    delta = {k: after[k] - before[k] for k in after}
+    stats = get_aot_cache().stats()
+    rate = copy_rate() if torch.cuda.is_available() and stats["copies"] else None
+    copies = {
+        tag: dict(c, copy_ms_from_rate=(2 * (c["in_bytes"] + c["out_bytes"]) / rate
+                                        if rate else None))
+        for tag, c in sorted(stats["copies"].items())
+    }
+    line = {
+        "committed": phase, "aot_compiles": delta["ops.aot_compiles"],
+        "aot_hits": delta["ops.aot_hits"], "aot_fallbacks": delta["ops.aot_fallbacks"],
+        "aot_evictions": delta["ops.aot_evictions"],
+        "blocking_syncs": delta["ops.blocking_syncs"], "async_reaps": delta["ops.async_reaps"],
+        "host_dispatches": delta["ops.host_dispatches"],
+        "budget_retries": delta["route_engine.budget_retries"],
+        "cache_entries": stats["entries"], "pool_bytes": stats["pool_bytes"],
+        "input_bytes": stats["input_bytes"], "output_bytes": stats["output_bytes"],
+        "poisoned": stats["poisoned"], "max_memory_allocated": peak,
+        "copy_bytes_per_ms": rate, "copies": copies,
+    }
+    if events:
+        line["events"] = events
+        line["blocking_syncs_per_event"] = delta["ops.blocking_syncs"] / events
+    line.update(extra)
+    emit(line)
+    if delta["ops.aot_fallbacks"]:
+        raise AssertionError(f"{phase}: {delta['ops.aot_fallbacks']} dispatches fell back "
+                             "from the executable cache")
+    return line
+
+
+def engine_committed(dev, phase, ls, samples, engines, bump, node, drain,
+                     events=COMMITTED_EVENTS, warmup=COMMITTED_WARMUP):
+    """The committed-dispatch check of an engine phase: beside each cached
+    engine of ``engines`` a twin built with its bodies called directly
+    (``aot_cache.direct``) on the same LinkState; ``warmup`` then
+    ``events`` bumps of ``node`` (``bump(node, metric)`` -> affected),
+    each through both engines deferred (``defer_consume=True``) and then
+    flushed; then a drain and an undrain of ``COMMITTED_WIDE_NODE``
+    (``drain(node, on)`` -> affected), which take the overflow path at
+    10 000 nodes, so its full-width bodies run replayed and called
+    directly. Per measured event and engine: the path, the deferred call's
+    touches and blocking syncs in its event window, the ms of call and
+    flush (the card synchronised) cached and direct, whether the two
+    engines' rows are bit-equal, and after the cached call the card's
+    allocated bytes and the cache's keys (memory held across events).
+    Raises when the rows differ, or when a warm bucketed event took more
+    than two touches or any blocking sync."""
+    import torch
+
+    from openr_tpu_torch.ops import aot_cache, route_engine
+    from openr_tpu_torch.ops import dispatch_accounting as da
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    twins = {}
+    with aot_cache.direct():
+        for label, eng in engines.items():
+            if isinstance(eng, route_engine.GroupedRouteSweepEngine):
+                twins[label] = route_engine.GroupedRouteSweepEngine(ls, samples, impl=eng.impl,
+                                                                    device=dev)
+            else:
+                twins[label] = route_engine.RouteSweepEngine(ls, samples, device=dev)
+    for label, eng in engines.items():
+        eng.flush()
+    recs = []
+    script = [(f"{node} metric {30 + i}", lambda i=i: bump(node, 30 + i))
+              for i in range(warmup + events)]
+    script += [(f"{COMMITTED_WIDE_NODE} {tag}", lambda on=on: drain(COMMITTED_WIDE_NODE, on))
+               for tag, on in (("drain", True), ("undrain", False))]
+    for i, (event, make) in enumerate(script):
+        aff = make()
+        rec = {"event": event, "engines": {}}
+        for label, eng in engines.items():
+            got = {}
+            for how, e in (("cached", eng), ("direct", twins[label])):
+                sync()
+                t0 = time.perf_counter()
+                if how == "direct":
+                    with aot_cache.direct(), da.event_window("committed") as win:
+                        e.churn(ls, aff, defer_consume=True)
+                    with aot_cache.direct():
+                        e.flush()
+                else:
+                    with da.event_window("committed") as win:
+                        e.churn(ls, aff, defer_consume=True)
+                    e.flush()
+                sync()
+                got[how] = {"ms": (time.perf_counter() - t0) * 1e3,
+                            "touches": win.touches, "blocking_syncs": win.blocking_syncs,
+                            "path": e.last_path,
+                            "k": e.last_k if e.last_path == "bucket" else None,
+                            "memory_allocated": (torch.cuda.memory_allocated()
+                                                 if on_card else None),
+                            "cache_entries": aot_cache.get_aot_cache().stats()["entries"]}
+            equal = not engine_rows_differ(engine_rows(eng.result),
+                                           engine_rows(twins[label].result)).any()
+            if not equal:
+                raise AssertionError(f"{phase} committed: the cached and direct {label} "
+                                     f"engines differ after {rec['event']}")
+            c = got["cached"]
+            if warmup <= i < warmup + events and c["path"] == "bucket" and (
+                    c["touches"] > 2 or c["blocking_syncs"]):
+                raise AssertionError(f"{phase} committed: a warm bucketed {label} event "
+                                     f"took {c['touches']} touches, {c['blocking_syncs']} "
+                                     "blocking syncs")
+            rec["engines"][label] = {"path": c["path"], "k": c["k"],
+                                     "touches": c["touches"],
+                                     "blocking_syncs": c["blocking_syncs"],
+                                     "cached_ms": c["ms"], "direct_ms": got["direct"]["ms"],
+                                     "direct_touches": got["direct"]["touches"],
+                                     "bit_equal": equal,
+                                     "memory_allocated": c["memory_allocated"],
+                                     "cache_entries": c["cache_entries"]}
+        if i >= warmup:
+            recs.append(rec)
+    del twins
+    return recs
+
+
 def engine_phase(dev, phase, nodes, ladder, block, profile, gc_clock=None):
     """``engine-<size>``: the network-wide route engine on ``dev``. One
     fresh LinkState of ``fat_tree_nodes(nodes)`` is shared by three
@@ -2637,6 +2965,7 @@ def engine_phase(dev, phase, nodes, ladder, block, profile, gc_clock=None):
     on_card = dev.type == "cuda"
     clock = gc_clock or GcClock()
     t_phase = time.monotonic()
+    aot0 = aot_snapshot()
     topo = topologies.fat_tree_nodes(nodes)
     ls = LinkState(area=topo.area)
     for name in sorted(topo.adj_dbs):
@@ -3020,8 +3349,16 @@ def engine_phase(dev, phase, nodes, ladder, block, profile, gc_clock=None):
             "frontier_fallbacks": eng.frontier_fallbacks,
             "structural_events": eng.structural_events,
             "coalesced_events": eng.coalesced_events, "host_fallbacks": eng.host_fallbacks,
+            "budgets": {tag: list(b) for tag, b in sorted(eng._budgets.items())},
             "profiled_event": profiled_events.get(label),
         })
+    def drain(node, on):
+        ls.update_adjacency_database(replace(db_of(node), is_overloaded=on))
+        return {node}
+
+    committed = engine_committed(dev, phase, ls, samples, engines, bump, remote, drain)
+    committed_line(phase, aot0, events=len(events) + len(committed),
+                   warm_events=committed)
     emit({
         "phase": phase, "nodes": nodes, "samples": samples, "remote_node": remote,
         "setup_s": setup_s, "parity": "every event == cold sweep and run_spf; engines agree",
@@ -3032,6 +3369,8 @@ def engine_phase(dev, phase, nodes, ladder, block, profile, gc_clock=None):
         "launches": launches, "seconds": time.monotonic() - t_phase,
     })
     del engines
+    if on_card:
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -3092,9 +3431,11 @@ def main(argv=None) -> int:
     from openr_tpu_torch.ops.minplus import INF, minplus, minplus_plain
     from openr_tpu_torch.ops.minplus import minplus_plan as dense_plan
     from openr_tpu_torch.ops.rev_relax import rev_band_relax, rev_band_relax_plain
+    from openr_tpu_torch.telemetry import get_registry
     from openr_tpu_torch.types.lsdb import PrefixForwardingAlgorithm
 
     KSP2_ED_ECMP = PrefixForwardingAlgorithm.KSP2_ED_ECMP
+    reg = get_registry()
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -3584,6 +3925,13 @@ def main(argv=None) -> int:
     w = rand_int((3, 8, 12), 0.3)
     compare("batched_minplus", batched_minplus(odd, w), batched_minplus_plain(odd, w),
             "gath off a 16-byte boundary")
+    # the autotuner's candidates at the main path's shapes: each plan
+    # variant held against the plain version, its CUDA-event ms and the
+    # winner (the counts are zeroed before every phase below)
+    autotune_lines(dev, rng, compare, [(s_, n_), (64, n_)], [
+        (g.n_pad, max(bd.k for bd in g.bands))
+        for g in (spf_sparse.compile_ell(dense_ls), graph,
+                  route_sweep.compile_out_ell(sparse_ls))])
 
     # -- 4./5. the main path: route builds through the kernels ---------------
     def drive(phase, ls, ps, events, nodes, remote_events):
@@ -3661,6 +4009,7 @@ def main(argv=None) -> int:
             c1 = get_spf_counters()
             rec = {
                 "ms": (t2 - t0) * 1e3, "view_ms": (t1 - t0) * 1e3,
+                "blocking_syncs": c1["ops.blocking_syncs"] - c0["ops.blocking_syncs"],
                 "assembly_ms": (t2 - t1) * 1e3,
                 "prefixes_rederived": rederived[0] - r0,
                 "label_routes_rederived": relabeled[0] - l0,
@@ -3756,11 +4105,15 @@ def main(argv=None) -> int:
         })
         return launches
 
+    aot0 = aot_snapshot()
     dense = drive("dense", dense_ls, dense_ps, DENSE_EVENTS, n_dense, REMOTE_EVENTS)
+    committed_line("dense", aot0)
     if dense["minplus"] == 0:
         raise AssertionError("dense route builds launched no minplus kernel")
+    aot0 = aot_snapshot()
     sparse = drive("sparse", sparse_ls, sparse_ps, SPARSE_EVENTS, n_sparse,
                    SPARSE_REMOTE_EVENTS)
+    committed_line("sparse", aot0)
     if sparse["ell_band_relax"] == 0:
         raise AssertionError("sparse route builds launched no ell_band_relax kernel")
 
@@ -3817,14 +4170,18 @@ def main(argv=None) -> int:
         phase_launches = dict(LAUNCHES)
         report = {}
         by_name = {}
+        aot0 = aot_snapshot()
+        sweep_committed = {}
         for label, make in backends:
             sweeper = make()
             before = dict(LAUNCHES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            syncs0 = reg.counter_get("ops.blocking_syncs")
             result = sweeper.sweep(block=block)
             torch.cuda.synchronize()
             sweep_ms = (time.perf_counter() - t0) * 1e3
+            sweep_syncs = reg.counter_get("ops.blocking_syncs") - syncs0
             launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             for k in LAUNCHES:
                 phase_launches[k] += launches[k]
@@ -3862,9 +4219,14 @@ def main(argv=None) -> int:
                 lambda st, _: lacking(st, KERNEL_KEYS[kernel]))
             busy = device_us(stats, "a call") / 1e3
             block_kernel_ms = device_us(stats, KERNEL_KEYS[kernel]) / 1e3
+            n_blocks = len(result.digests) // block + (len(result.digests) % block > 0)
+            sweep_committed[label] = {
+                "sweep_ms": sweep_ms, "blocks": n_blocks, "blocking_syncs": sweep_syncs,
+                "blocking_syncs_per_block": sweep_syncs / n_blocks,
+                "hops_per_block": sum(sweeper.block_hops[:n_blocks]) / n_blocks,
+            }
             report[label] = {
-                "sweep_ms": sweep_ms, "blocks": len(result.digests) // block
-                + (len(result.digests) % block > 0),
+                "sweep_ms": sweep_ms, "blocks": n_blocks,
                 "block_hops": sweeper.block_hops[: -(-ell_graph.n_pad // block)],
                 "launches": launches,
                 "profiled_block_ms": block_wall, "block_device_busy_ms": busy,
@@ -3887,6 +4249,7 @@ def main(argv=None) -> int:
             "structure_report": spf_grouped.structure_report(grp_graph),
             "backends": report, "launches": phase_launches,
         })
+        committed_line(phase, aot0, sweeps=sweep_committed)
         return phase_launches
 
     sweep_small = sweep_phase("sweep-1008", dense_ls, DENSE_SWEEP_BLOCK, True)
@@ -4013,11 +4376,15 @@ def main(argv=None) -> int:
         reset_launches()
         for name in SPF_COUNTERS:
             SPF_COUNTERS[name] = 0
+        aot0 = aot_snapshot()
         builds = [one_build(step, None if step == 0 else bump("fsw-0-0", 2 + (step - 1) % 5))
                   for step in range(events + 1)]
         remotes = [one_build(f"remote {i}", bump(remote, 3 + i)) for i in range(remote_events)]
         profiles = {}
-        for label, node, metric in (("bench", "fsw-0-0", 9), ("remote", remote, 20)):
+        # at 10 000 nodes the bench build alone: a profiled build there is
+        # one more host oracle of the sampled KSP2 prefixes (about 40 s)
+        for label, node, metric in (("bench", "fsw-0-0", 9), ("remote", remote, 20))[
+                : 2 if nodes <= SPARSE_NODE_THRESHOLD else 1]:
             stats, (got, launched, wall_ms), _ = profiled(
                 torch, churn_build(torch, device_solver, areas, ps, root, LAUNCHES),
                 lambda st, res: build_lacking(st, res[1], least_launch_ms),
@@ -4064,6 +4431,9 @@ def main(argv=None) -> int:
             "unicast_routes": len(got.unicast_routes),
             "mpls_routes": len(got.mpls_routes),
         })
+        committed_line(phase, aot0, events=len(builds) + len(remotes) + len(profiles),
+                       dispatch=ksp2_committed(ls, device_solver._ksp2_engines[ls],
+                                               device_solver._resident._cache[ls][1]))
         return launches
 
     def ksp2_chunked_drive(phase, worlds, events):
@@ -4140,7 +4510,10 @@ def main(argv=None) -> int:
                 stats[k] for k in KSP2_PARTS)
             build["gc_ms"] = gc1[0] - gc0[0]
             build["gc_full_collections"] = gc1[1] - gc0[1]
-            build["hops"] = launches["ell_band_relax_masked"] / (n_bands * stats["chunks"]) - 1
+            # relax steps a chunk's masked solve launched: its hop budget
+            # (ops/relax_loop.py), one more on a dispatch that captured
+            build["relax_steps"] = (
+                launches["ell_band_relax_masked"] / (n_bands * stats["chunks"]) - 1)
             build["chunks"] = stats["chunks"]
             build["mask_bytes"] = stats["mask_bytes"]
             build["bool_mask_bytes"] = stats["chunks"] * chunk_cells
@@ -4212,8 +4585,10 @@ def main(argv=None) -> int:
     engine_max = ksp2_engine.ENGINE_MAX_NODES
     ksp2_engine.ENGINE_MAX_NODES = 0
     try:
+        aot0 = aot_snapshot()
         ksp2_chunked = ksp2_chunked_drive("ksp2-1008-chunked", ksp2_dense_chunked,
                                           KSP2_CHUNKED_EVENTS)
+        committed_line("ksp2-1008-chunked", aot0, events=KSP2_CHUNKED_EVENTS + 2)
     finally:
         ksp2_engine.ENGINE_MAX_NODES = engine_max
 

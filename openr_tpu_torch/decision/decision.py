@@ -34,8 +34,10 @@ propagates out of ``rebuild_routes``, so the host never computes the
 routes in place of a card that failed. Each
 ``decision.rebuild`` span carries the dispatch accounting's true counts
 (``host_touches``, ``host_dispatches``, ``blocking_syncs``): the port's
-relax loops sync once a hop, so the reference's two touches a window do
-not hold here. Left out for a later slice: the crash-safe state plane
+eager relax loops read their convergence flag once a chunk of hops
+(``ops/relax_loop.py``) and the KSP2 dispatches once a dispatch, so a
+rebuild reports its true counts; the reference's two touches a window
+hold for the route engine's warm events. Left out for a later slice: the crash-safe state plane
 (the ``state_plane`` argument, the flight journal anchored on it,
 ``checkpoint_state`` and ``warm_boot``), the integrity plane (the
 auditor's post-converge hook and the quarantine test beside the staleness

@@ -165,7 +165,9 @@ def get_spf_counters() -> Dict[str, int]:
     one merged view."""
     out = dict(SPF_COUNTERS)
     reg = get_registry()
-    for k in ("ops.host_dispatches", "ops.blocking_syncs"):
+    # the committed-dispatch accounting and the executable cache's counters
+    for k in ("ops.host_dispatches", "ops.blocking_syncs", "ops.async_reaps",
+              "ops.aot_compiles", "ops.aot_hits", "ops.aot_fallbacks"):
         out[k] = reg.counter_get(k)
     for k, v in spf_sparse.ELL_COUNTERS.items():
         out["decision." + k] = v

@@ -27,16 +27,28 @@ and ``note_overlapped_reap`` witness the burst's folded windows, its
 submits while an earlier window's reap is in flight, and the reaps
 drained inside a successor's window.
 
-``event_window(tag)`` brackets one event (Decision's ``decision.rebuild``):
-consecutive dispatches collapse into one submit phase and consecutive syncs
-into one read phase, so ``touches = submit_phases + read_phases`` is the
-number of times the host turned the card around. Per-window touches feed
-the ``ops.host_touches`` histogram; the counters accumulate globally,
-windowed or not. Re-entrant: an inner ``event_window`` joins the active
-one. The reference holds each window to two touches (one submit run, one
-read run); the port's relax loops sync once a hop, so its windows report
-their true counts and nothing asserts the reference's (holding it needs the
-whole window captured in a CUDA graph).
+``event_window(tag)`` brackets one event (Decision's ``decision.rebuild``,
+the route engine's ``churn``): consecutive dispatches collapse into one
+submit phase and consecutive syncs into one read phase, so ``touches =
+submit_phases + read_phases`` is the number of times the host turned the
+card around. Per-window touches feed the ``ops.host_touches`` histogram;
+the counters accumulate globally, windowed or not. Re-entrant: an inner
+``event_window`` joins the active one. ``attribute_stage`` folds a
+profiled dispatch's host and device ms into the active window, and a
+retired window hands its wall clock and device ms to the profiler
+(``Profiler.on_window``, the ``ops.host_overhead_ratio`` gauge).
+
+The relax loops keep their convergence flag and hop count on the card
+(``ops/relax_loop.py``): an eager loop reads them once a chunk of hops
+(``sync_count``), and an engine body dispatched through the executable
+cache (``ops/aot_cache.py``) carries them in the meta row it already reads
+back, so a warm engine event holds the reference's two touches (one submit
+run, one read run) and, deferred, no blocking sync.
+
+``capturing()`` brackets a capture of the executable cache: inside it
+``count_dispatch`` records into the capture's tally instead of the counters
+(the cache adds the tally on every replay), and any host sync raises
+``HostSyncInCapture``: a captured body never turns the card around.
 """
 
 from __future__ import annotations
@@ -44,10 +56,11 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 from openr_tpu_torch.telemetry import get_registry
 from openr_tpu_torch.telemetry.flight import get_flight_recorder
+from openr_tpu_torch.telemetry.profiler import get_profiler
 
 _TLS = threading.local()
 
@@ -57,7 +70,8 @@ class EventWindow:
 
     __slots__ = (
         "tag", "dispatches", "blocking_syncs", "async_reaps",
-        "submit_phases", "read_phases", "_last", "t0", "windows", "drain",
+        "submit_phases", "read_phases", "_last", "t0", "device_ms", "stages",
+        "windows", "drain",
     )
 
     def __init__(self, tag: str, drain: bool = False):
@@ -69,6 +83,10 @@ class EventWindow:
         self.read_phases = 0
         self._last: Optional[str] = None
         self.t0 = time.perf_counter()
+        # device-time attribution (fed by attribute_stage): total device
+        # ms inside this window and per-tag [calls, host ms, device ms]
+        self.device_ms = 0.0
+        self.stages: Dict[str, List[float]] = {}
         # logical event windows folded into this one (joins bump it);
         # a pipeline_drain bracket also feeds the per-drain histograms
         self.windows = 1
@@ -93,7 +111,7 @@ def current_window() -> Optional[EventWindow]:
 
 
 def _retire(w: EventWindow) -> None:
-    """Observe a popped window and hand it to the flight recorder. Runs
+    """Observe a popped window and hand it to the profiling plane. Runs
     OUTSIDE the window (stack already popped), so a deferred post-mortem
     dump is safe here."""
     reg = get_registry()
@@ -105,6 +123,7 @@ def _retire(w: EventWindow) -> None:
         reg.observe("ops.windows_per_drain", float(w.windows))
     wall_ms = (time.perf_counter() - w.t0) * 1000.0
     get_flight_recorder().on_window(w.tag, wall_ms, w)
+    get_profiler().on_window(w.tag, wall_ms, w.device_ms)
 
 
 @contextmanager
@@ -171,8 +190,64 @@ def note_overlapped_reap() -> None:
     get_registry().counter_bump("ops.overlapped_reaps")
 
 
+class HostSyncInCapture(RuntimeError):
+    """A host sync was asked for inside a capture of the executable cache."""
+
+
+class CaptureTally:
+    """What one capture saw: dispatches and kernel launches by name."""
+
+    __slots__ = ("dispatches", "launches")
+
+    def __init__(self) -> None:
+        self.dispatches = 0
+        self.launches: Dict[str, int] = {}
+
+
+def current_capture() -> Optional[CaptureTally]:
+    return getattr(_TLS, "capture", None)
+
+
+@contextmanager
+def capturing() -> Iterator[CaptureTally]:
+    """Bracket one capture on this thread; yields its tally."""
+    prev = current_capture()
+    tally = _TLS.capture = CaptureTally()
+    try:
+        yield tally
+    finally:
+        _TLS.capture = prev
+
+
+def _refuse_in_capture(what: str) -> None:
+    if current_capture() is not None:
+        raise HostSyncInCapture(f"{what} inside a capture")
+
+
+def attribute_stage(tag: str, host_ms: float, device_ms: float) -> None:
+    """Fold one profiled dispatch into the active window's device-time
+    attribution (no-op outside a window). Called by the executable cache
+    for every timed call; leaves the touch accounting as it is."""
+    w = current_window()
+    if w is None:
+        return
+    w.device_ms += device_ms
+    s = w.stages.get(tag)
+    if s is None:
+        w.stages[tag] = [1, host_ms, device_ms]
+    else:
+        s[0] += 1
+        s[1] += host_ms
+        s[2] += device_ms
+
+
 def count_dispatch(n: int = 1) -> None:
-    """Record n kernel launches (one submit phase while consecutive)."""
+    """Record n kernel launches (one submit phase while consecutive).
+    Inside a capture they go to the capture's tally instead."""
+    tally = current_capture()
+    if tally is not None:
+        tally.dispatches += n
+        return
     get_registry().counter_bump("ops.host_dispatches", n)
     w = current_window()
     if w is not None:
@@ -183,6 +258,7 @@ def count_dispatch(n: int = 1) -> None:
 def note_blocking_sync() -> None:
     """Count one blocking device->host sync (one read phase while
     consecutive)."""
+    _refuse_in_capture("a blocking sync")
     get_registry().counter_bump("ops.blocking_syncs")
     w = current_window()
     if w is not None:
@@ -191,10 +267,16 @@ def note_blocking_sync() -> None:
 
 
 def sync_flag(flag) -> bool:
-    """``bool(flag)`` of a device scalar, counted as one blocking sync:
-    the relax loops' per-hop convergence test."""
+    """``bool(flag)`` of a device scalar, counted as one blocking sync."""
     note_blocking_sync()
     return bool(flag)
+
+
+def sync_count(count) -> int:
+    """``int(count)`` of a device scalar, counted as one blocking sync: a
+    relax loop's changed-hop count, read once a chunk of hops."""
+    note_blocking_sync()
+    return int(count)
 
 
 def kick_async(arr):
@@ -203,6 +285,7 @@ def kick_async(arr):
     copy into pinned host memory and a CUDA event, never a pageable
     ``.cpu()``); reap it with ``reap_read(handle, kicked=True)``. Not a
     host touch. A host (numpy) array passes through as it is."""
+    _refuse_in_capture("a readback")
     if not hasattr(arr, "detach"):
         return arr
     from openr_tpu_torch.ops.staging import Readback
@@ -218,6 +301,7 @@ def reap_read(arr, kicked: bool = False):
     host array passes as it is."""
     from openr_tpu_torch.ops.staging import Readback
 
+    _refuse_in_capture("a readback")
     w = current_window()
     if kicked and isinstance(arr, Readback):
         get_registry().counter_bump("ops.async_reaps")

@@ -72,10 +72,12 @@ class EllPlan(NamedTuple):
     grid: Tuple[int, int]
 
 
-def launch_plan(s: int, rows: int, k: int) -> EllPlan:
+def launch_plan(s: int, rows: int, k: int, variant: str = "plan") -> EllPlan:
     """The launch of one band of ``rows`` band rows with ``k`` slots over
     ``s`` batch rows (both >= 1, ``s`` within the grid's y limit) by the
-    rule above the class."""
+    rule above the class. The autotuner's variants ``threadsX`` (family
+    "ell_relax") give a wide band's row X threads instead; its other
+    variants leave the plan as it is."""
     if s < 1 or rows < 1 or k < 0 or s > GRID_Y_MAX:
         raise ValueError(f"ell_band_relax plan: s={s}, rows={rows}, k={k}")
     if k < WIDE_K:
@@ -84,6 +86,8 @@ def launch_plan(s: int, rows: int, k: int) -> EllPlan:
     while (threads < WIDE_THREADS and s * rows * threads // 32 < TARGET_WARPS
            and k >= MIN_SLOTS * 2 * threads):
         threads *= 2
+    if variant.startswith("threads"):
+        threads = int(variant[7:])
     per = WIDE_THREADS // threads
     return EllPlan(True, threads, per, (-(-rows // per), s))
 
@@ -107,7 +111,9 @@ class MaskedPlan(NamedTuple):
 
 def masked_plan(s: int, rows: int, k: int) -> MaskedPlan:
     """The launch of one band of ``rows`` band rows with ``k`` slots over
-    ``s`` batch rows (both >= 1) by the rule above ``EllPlan``."""
+    ``s`` batch rows (both >= 1) by the rule above ``EllPlan``. The
+    autotuner's "ell_relax" variants are measured on ``ell_band_relax``
+    and ``rev_band_relax`` only, so this plan takes none of them."""
     if s < 1 or rows < 1 or k < 0:
         raise ValueError(f"ell_band_relax_masked plan: s={s}, rows={rows}, k={k}")
     if k < WIDE_K:
@@ -127,6 +133,15 @@ def masked_plan(s: int, rows: int, k: int) -> MaskedPlan:
         chunk //= 2
     return MaskedPlan(body, kmax, group, threads, per, chunk,
                       (tiles, min(-(-s // chunk), GRID_Y_MAX)))
+
+
+def _variant(name: str) -> str:
+    from openr_tpu_torch.ops.autotune import current_variant
+
+    got = current_variant("ell_relax")
+    if got == "plain":
+        raise ValueError(f"{name}: no kernel plan 'plain' on the card")
+    return got
 
 
 def mask_words(rows: int, k: int) -> int:
@@ -238,7 +253,8 @@ def ell_band_relax(
 
     CUDA tensors go through the hand-written kernel (launched on the
     current stream, not synchronised, as ``launch_plan`` says); CPU
-    tensors through ``ell_band_relax_plain``. Any other device raises."""
+    tensors through ``ell_band_relax_plain``. Any other device raises.
+    The plan follows the autotuner's ``current_variant("ell_relax")``."""
     rows = _check(d, src, w, overloaded, pos, out)
     view = out[:, pos : pos + rows]
     if d.device.type == "cpu":
@@ -259,7 +275,7 @@ def ell_band_relax(
     k = src.shape[1]
     if s == 0 or rows == 0:
         return view
-    plan = launch_plan(s, rows, k)
+    plan = launch_plan(s, rows, k, _variant("ell_band_relax"))
     lib = _build.library()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
@@ -354,6 +370,7 @@ def ell_band_relax_masked(
     k = src.shape[1]
     if s == 0 or rows == 0:
         return view
+    _variant("ell_band_relax_masked")  # refuses "plain" on the card
     plan = masked_plan(s, rows, k)
     lib = _build.library()
     with torch.cuda.device(d.device):

@@ -56,21 +56,31 @@ class MinplusPlan(NamedTuple):
     scratch_shape: Tuple[int, ...]
 
 
-def minplus_plan(s: int, k: int, n: int) -> MinplusPlan:
+# the autotuner's variants of the plan (ops/autotune.py, family
+# "minplus"): k_warps forced to 1, 2 or 4 with the plan's split rule, or
+# the plan's warps with K never split
+VARIANTS = ("plan", "warps1", "warps2", "warps4", "nosplit")
+
+
+def minplus_plan(s: int, k: int, n: int, variant: str = "plan") -> MinplusPlan:
     """The launch of ``[S, K] x [K, N] -> [S, N]`` (``s, n`` >= 1, ``k``
-    >= 0) by the rule above the class."""
+    >= 0) by the rule above the class, or by one of its ``VARIANTS``."""
     if s < 1 or n < 1 or k < 0:
         raise ValueError(f"minplus plan: S={s}, K={k}, N={n}")
+    if variant not in VARIANTS:
+        raise ValueError(f"minplus plan: no variant {variant!r}")
     k_warps = 1
     while k_warps < K_WARPS_MAX and 2 * k_warps * K_LANES_A_WARP * MIN_K_LANE <= k:
         k_warps *= 2
+    if variant.startswith("warps"):
+        k_warps = int(variant[5:])
     lanes = K_LANES_A_WARP * k_warps
     col_tiles = -(-n // COL_TILE)
     if col_tiles > GRID_X_MAX:
         raise ValueError(f"minplus: N={n} exceeds the grid")
     s_tiles = min(-(-s // S_TILE), GRID_YZ_MAX)
     splits = 1
-    if col_tiles * s_tiles < MIN_BLOCKS:
+    if variant != "nosplit" and col_tiles * s_tiles < MIN_BLOCKS:
         splits = max(1, min(-(-MIN_BLOCKS // (col_tiles * s_tiles)),
                             k // (lanes * MIN_K_LANE), GRID_YZ_MAX))
     k_chunk = -(-k // splits)
@@ -78,6 +88,15 @@ def minplus_plan(s: int, k: int, n: int) -> MinplusPlan:
         splits = -(-k // k_chunk)
     return MinplusPlan(k_warps, k_chunk, splits, (col_tiles, s_tiles, splits),
                        (splits, s, n) if splits > 1 else ())
+
+
+def _variant() -> str:
+    from openr_tpu_torch.ops.autotune import current_variant
+
+    got = current_variant("minplus")
+    if got not in VARIANTS:
+        raise ValueError(f"minplus: no kernel plan {got!r} on the card")
+    return got
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -110,9 +129,10 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``[S, K] x [K, N] -> [S, N]`` int32 over (min, +), saturating at INF.
 
     CUDA tensors go through the hand-written kernel (launched on the
-    current stream, not synchronised, as ``minplus_plan`` says; a split K
-    takes a scratch ``[splits, S, N]`` allocated here); CPU tensors
-    through ``minplus_plain``. Any other device raises."""
+    current stream, not synchronised, as ``minplus_plan`` says under the
+    autotuner's ``current_variant("minplus")``; a split K takes a scratch
+    ``[splits, S, N]`` allocated here); CPU tensors through
+    ``minplus_plain``. Any other device raises."""
     _check(a, b)
     if a.device.type == "cpu":
         return minplus_plain(a, b)
@@ -127,7 +147,7 @@ def minplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((s, n), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    plan = minplus_plan(s, k, n)
+    plan = minplus_plan(s, k, n, _variant())
     scratch = None
     if plan.scratch_shape:
         scratch = torch.empty(plan.scratch_shape, dtype=torch.int32, device=a.device)

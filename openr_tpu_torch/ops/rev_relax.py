@@ -48,12 +48,14 @@ class RevPlan(NamedTuple):
     grid: Tuple[int, int]
 
 
-def launch_plan(b: int, rows: int, k: int) -> RevPlan:
+def launch_plan(b: int, rows: int, k: int, variant: str = "plan") -> RevPlan:
     """The launch of one band of ``rows`` band rows with ``k`` slots over
     ``b`` destination rows (both >= 1): the longest power-of-two run up to
     ``MAX_CHUNK`` (1 for a wide band, which stages nothing) that
     leaves at least ``MIN_BLOCKS`` blocks, or a run of 1; never so short
-    that the runs overflow the grid's y limit."""
+    that the runs overflow the grid's y limit. The autotuner's variants
+    ``runX`` (family "ell_relax") set the run to X instead; its other
+    variants leave the plan as it is."""
     if b < 1 or rows < 1 or k < 0:
         raise ValueError(f"rev_band_relax plan: b={b}, rows={rows}, k={k}")
     wide = k >= WIDE_K
@@ -62,8 +64,19 @@ def launch_plan(b: int, rows: int, k: int) -> RevPlan:
     chunk = 1 if wide else MAX_CHUNK
     while chunk > 1 and tiles * -(-b // chunk) < MIN_BLOCKS:
         chunk //= 2
+    if variant.startswith("run"):
+        chunk = int(variant[3:])
     chunk = max(chunk, -(-b // GRID_Y_MAX))
     return RevPlan(wide, per, chunk, (tiles, -(-b // chunk)))
+
+
+def _ell_variant() -> str:
+    from openr_tpu_torch.ops.autotune import current_variant
+
+    got = current_variant("ell_relax")
+    if got == "plain":
+        raise ValueError("rev_band_relax: no kernel plan 'plain' on the card")
+    return got
 
 
 def _check(dr, v, w, t_ids, overloaded, pos, out) -> int:
@@ -149,7 +162,8 @@ def rev_band_relax(
 
     CUDA tensors go through the hand-written kernel (launched on the
     current stream, not synchronised, as ``launch_plan`` says); CPU
-    tensors through ``rev_band_relax_plain``. Any other device raises."""
+    tensors through ``rev_band_relax_plain``. Any other device raises.
+    The plan follows the autotuner's ``current_variant("ell_relax")``."""
     rows = _check(dr, v, w, t_ids, overloaded, pos, out)
     view = out[:, pos : pos + rows]
     if dr.device.type == "cpu":
@@ -171,7 +185,7 @@ def rev_band_relax(
     k = v.shape[1]
     if b == 0 or rows == 0:
         return view
-    plan = launch_plan(b, rows, k)
+    plan = launch_plan(b, rows, k, _ell_variant())
     lib = _build.library()
     with torch.cuda.device(dr.device):
         stream = torch.cuda.current_stream(dr.device).cuda_stream

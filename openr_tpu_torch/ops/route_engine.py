@@ -13,15 +13,31 @@ snapshot and rollback, and the supervised ladder warm -> recover -> cold
 -> host) and the grouped engine (``_grouped_full_resident``,
 ``_patch_segments``, ``_grouped_churn_step``, ``_grouped_frontier_probe``,
 ``_grouped_frontier_step``, ``_grouped_overflow_chain``,
-``GroupedRouteSweepEngine``). The reference's jitted bodies are plain
-functions here: every relax goes through the hand-written kernels
+``GroupedRouteSweepEngine``). The reference's jitted bodies are
+dispatched where the reference dispatches them: through the executable
+cache (``ops/aot_cache.py``: a captured CUDA graph on the card), by
+``spf_sparse.ell_dispatch`` for the ELL engine and ``aot_call`` for the
+grouped one. Every relax goes through the hand-written kernels
 (``rev_band_relax``; ``batched_minplus``/``_t`` for the grouped engine,
 named by ``impl`` as ``GroupedRouteSweeper`` takes it), and detection,
 cone expansion, scatter, extraction and compaction are torch ops.
 Full-width extraction runs over blocks of ``route_sweep.ROW_BLOCK``
-destination rows, bit-identical to one pass. Each hop and cone jump costs
-one host sync (counted in ``ops.blocking_syncs``), so the reference's two
-host touches a window do not hold here.
+destination rows, bit-identical to one pass.
+
+A body never syncs with the host: its fixed points run a budget of hops
+(``relax_loop``) and the bucketed step's cone a budget of jumps
+(``route_sweep.expand_cone``), and it reports ``[hops, converged, more
+jumps]`` in the meta row the event reads back anyway (a bucket's row 0,
+the overflow chain's policy row) or in a 3-int status beside its product.
+A body whose budget ran out is never committed: the host re-dispatches it
+with a larger budget (``_budgets``, kept per body, so a warm engine does
+not retry), as the bucket-retry ladder re-dispatches a larger bucket. The
+full-width cone (``_frontier_probe``, ahead of the overflow chain) runs
+``_CONE_CHUNK`` jumps a dispatch and resumes from its state until its
+flag drops: a full-width jump is dear, and none runs past the
+expansion's end. A warm bucketed event so holds the reference's
+contract: one submit run and one read run, and deferred, no blocking
+sync.
 
 Left out, each waiting on its item of ROADMAP Queue 1: the sharded bodies
 and the ``mesh=`` argument (item 10: the constructor refuses a mesh),
@@ -29,8 +45,7 @@ and the ``mesh=`` argument (item 10: the constructor refuses a mesh),
 state hooks (``audit_*``, ``quarantine``, ``integrity_heal``,
 ``corrupt_resident``, ``snapshot_resident_state``/
 ``rehydrate_resident_state``, the ``device.corrupt_resident`` seam and the
-auditor registration: item 9) and the ``ell_dispatch``/``aot_call``
-executable cache (item 7).
+auditor registration: item 9).
 
 Nothing resident is changed in place before an event commits: every
 dispatch returns fresh tensors (out-of-place ``index_copy``/``index_put``)
@@ -92,15 +107,17 @@ from openr_tpu_torch.faults.injector import (
 )
 from openr_tpu_torch.faults.supervisor import DegradationSupervisor
 from openr_tpu_torch.ops import dispatch_accounting as da
-from openr_tpu_torch.ops import host_sweep
+from openr_tpu_torch.ops import host_sweep, relax_loop
 from openr_tpu_torch.ops import route_sweep as rs
 from openr_tpu_torch.ops import spf_grouped as sg
+from openr_tpu_torch.ops.aot_cache import aot_call
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf_sparse import (
     TornStateError,
     _out_edges,
     band_patch_inputs,
     compile_ell,
+    ell_dispatch,
     ell_patch,
 )
 from openr_tpu_torch.ops.staging import UploadStager
@@ -127,6 +144,17 @@ _ROW_BUCKETS = (32, 128, 512, 1024)
 # the whole-row reset and the overflow path to the full-width refresh,
 # both still bit-identical (the cap only ever coarsens the reset)
 _FRONTIER_MAX_JUMPS = 16
+# cone jumps the bucketed step's first dispatch runs (doubled, up to the
+# cap, for a step whose expansion was still going; the engine keeps the
+# larger one)
+_JUMP_BUDGET = 4
+# cone jumps a full-width probe dispatch runs between two reads of its
+# flag, after a first dispatch of the seed alone (many overflow events
+# expand no jump): a full-width jump costs far more than the read and the
+# replay, and a jump run past the expansion's end is wasted work (on an
+# H100 at 10 000 nodes, one jump a dispatch took frontier events about
+# 30 ms under two)
+_CONE_CHUNK = 1
 # fraction of the [n, n] product past which a converged frontier still
 # takes the full-width refresh (constructor-overridable)
 _DEFAULT_FRONTIER_THRESHOLD = 0.5
@@ -170,17 +198,27 @@ def _pack_product(dr, nh_count, d_s, packed_mask, pos_w):
     return digests, rs._pack_block(digests, nh_count, d_s, packed_mask)
 
 
+def _status_row(hop_status, more=None) -> torch.Tensor:
+    """The int32 status ``[hops, converged, more jumps]`` of a budgeted
+    body from its fixed point's device ``(hops, converged)`` and its
+    cone's ``more`` flag (False without a cone)."""
+    hops, ok = hop_status
+    if more is None:
+        more = torch.zeros((), dtype=torch.bool, device=hops.device)
+    return torch.stack([hops.to(torch.int32), ok.to(torch.int32), more.to(torch.int32)])
+
+
 def _full_resident_sweep(v_t, w_t, overloaded, samp_ids, samp_v, samp_w, pos_w,
-                         bands, n):
-    """Cold build: solve every destination row and extract the route
-    product. Returns (DR, digests, packed, hops)."""
+                         bands, n, budget):
+    """Cold build: solve every destination row (``budget`` hops) and
+    extract the route product. Returns (DR, digests, packed, status)."""
     t_ids = torch.arange(n, dtype=torch.int32, device=overloaded.device)
-    dr, hops = rs._rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n)
+    dr, hs = rs._rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, budget=budget)
     digests, packed = _extract(
         dr, lambda rows, t: rs._nh_counts(rows, bands, v_t, w_t, overloaded, t),
         overloaded, t_ids, samp_ids, samp_v, samp_w, pos_w,
     )
-    return dr, digests, packed, hops
+    return dr, digests, packed, _status_row(hs)
 
 
 def _first_k(affected: torch.Tensor, k: int) -> torch.Tensor:
@@ -231,23 +269,26 @@ def _increase_rows(dr, e_u, e_v, e_w_old, e_w_new):
 
 
 def _resolve_and_pack(solve_rows, nh_counts, overloaded, ids, local_ids, count, dr,
-                      digests, packed_res, samp_ids, samp_v, samp_w, pos_w, n, k):
+                      digests, packed_res, samp_ids, samp_v, samp_w, pos_w, n, k,
+                      more=None):
     """Re-solve the affected rows, extract their route product, and
     scatter fresh rows/digests/product into NEW resident tensors (the
     inputs stay as they were). Returns (dr, digests, packed_res,
-    out [k+1, 1+W], hops):
+    out [k+1, 1+W]):
 
-      out row 0: [affected_count, changed_count, 0, ...] (the true
-        affected count drives the retry ladder);
+      out row 0: [affected_count, changed_count, hops, converged, more
+        jumps, 0, ...] (the true affected count drives the retry ladder,
+        the status the budget's: ``_status_row`` of the solve and of the
+        warm seed's cone flag ``more``);
       out rows 1..changed_count: [dest id, product] for the affected rows
         whose packed product CHANGED bit for bit against the resident
         one, compacted in row order; rows past changed_count are zero.
 
     Detection padding repeats the first affected id; those duplicates
     fall outside the ``arange(k) < count`` live window, so compacted ids
-    are unique. ``solve_rows(ids) -> ([k, n], hops)`` and
+    are unique. ``solve_rows(ids) -> ([k, n], (hops, converged))`` and
     ``nh_counts(rows, ids)`` are the relaxation backend's."""
-    rows, hops = solve_rows(ids)
+    rows, hs = solve_rows(ids)
     row_digests, product = _extract(
         rows, nh_counts, overloaded, ids, samp_ids, samp_v, samp_w, pos_w
     )
@@ -269,7 +310,8 @@ def _resolve_and_pack(solve_rows, nh_counts, overloaded, ids, local_ids, count, 
     out = out[: k + 1]
     out[0, 0] = count
     out[0, 1] = ch_count
-    return dr, digests, packed_res, out, hops
+    out[0, 2:5] = _status_row(hs, more)
+    return dr, digests, packed_res, out
 
 
 def _compact_changed_body(new_packed, prev_packed, n):
@@ -291,6 +333,20 @@ def _compact_changed_body(new_packed, prev_packed, n):
     return ch_count, out[:npad]
 
 
+def _pad_pow2(t: torch.Tensor, least: int = 8) -> torch.Tensor:
+    """``t`` [m, ...] grown to a power of two of rows (at least ``least``)
+    by repeating its first row: a scatter of repeated rows with equal
+    values writes the same result, and the padded lengths bound the
+    executable cache's keys (a key a distinct patch length otherwise)."""
+    m = t.shape[0]
+    size = least
+    while size < m:
+        size *= 2
+    if size == m or m == 0:
+        return t
+    return torch.cat([t, t[:1].expand(size - m, *t.shape[1:])])
+
+
 def _patch_bands(v_t, w_t, patch_ids_t, patch_v_t, patch_w_t):
     """The patched band rows scattered into NEW band tensors; a band with
     nothing to scatter (None) is passed through."""
@@ -306,32 +362,35 @@ def _patch_bands(v_t, w_t, patch_ids_t, patch_v_t, patch_w_t):
     return tuple(new_v), tuple(new_w)
 
 
-def _meta_row(rows, cells, jumps, ok):
-    """The float32 policy row ``[rows, cells, jumps, converged]`` (float32:
-    the cell count already is)."""
-    return torch.stack([
-        rows.to(torch.float32), cells,
-        torch.tensor(float(jumps), dtype=torch.float32, device=cells.device),
-        ok.to(torch.float32),
+def _meta_row(rows, cells, jumps, ok, status):
+    """The float32 policy row ``[rows, cells, jumps, converged]`` and the
+    body's ``status`` (``_status_row``) after it (float32: the cell count
+    already is; hops and jumps are exact in it)."""
+    return torch.cat([
+        torch.stack([rows.to(torch.float32), cells, jumps.to(torch.float32),
+                     ok.to(torch.float32)]),
+        status.to(torch.float32),
     ])
 
 
 def _churn_step(v_t, w_t, patch_ids_t, patch_v_t, patch_w_t, dr, digests, packed_res,
                 e_u, e_v, e_w_old, e_w_new, overloaded_new, samp_ids, samp_v, samp_w,
-                pos_w, bands, n, k):
+                pos_w, bands, n, k, budget, jumps):
     """The incremental dispatch: detection against the resident DR, band
-    row patch, affected-row re-solve and extraction. The resident inputs
-    are never written: the retry ladder re-dispatches at a larger bucket
-    against the same tensors. Returns (new_v, new_w, dr, digests,
-    packed_res, out, hops)."""
+    row patch, affected-row re-solve (``budget`` hops; the warm seed's
+    cone ``jumps``) and extraction. The resident inputs are never written:
+    the retry ladder re-dispatches at a larger bucket or budget against
+    the same tensors. Returns (new_v, new_w, dr, digests, packed_res,
+    out)."""
     count, local_ids, ids = _detect_rows(dr, e_u, e_v, e_w_old, e_w_new, k, 0)
     # warm seed: pre-patch rows with the increase-affected cone reset
     # cell by cell (rs._cone_expand over the pre-patch bands); past the
     # jump cap the cone under-approximates and the seed degrades to the
     # whole-row reset. Either way the re-solve is bit-identical.
     sel = dr[local_ids.long()]
-    cone, _rows, _cells, _jumps, cone_ok = rs._cone_expand(
+    cone, _rows, _cells, _jumps, cone_ok, more = rs._cone_expand(
         sel, bands, v_t, w_t, e_u, e_v, e_w_old, e_w_new, _FRONTIER_MAX_JUMPS,
+        jump_budget=jumps,
     )
     inc_row = _increase_rows(dr, e_u, e_v, e_w_old, e_w_new)
     warm0 = torch.where(
@@ -340,72 +399,86 @@ def _churn_step(v_t, w_t, patch_ids_t, patch_v_t, patch_w_t, dr, digests, packed
         torch.where(inc_row[local_ids.long()][:, None], INF, sel),
     )
     new_v, new_w = _patch_bands(v_t, w_t, patch_ids_t, patch_v_t, patch_w_t)
-    dr, digests, packed_res, out, hops = _resolve_and_pack(
-        lambda t: rs._rev_fixed_point(bands, new_v, new_w, overloaded_new, t, n, init=warm0),
+    dr, digests, packed_res, out = _resolve_and_pack(
+        lambda t: rs._rev_fixed_point(bands, new_v, new_w, overloaded_new, t, n, init=warm0,
+                                      budget=budget),
         lambda rows, t: rs._nh_counts(rows, bands, new_v, new_w, overloaded_new, t),
         overloaded_new, ids, local_ids, count,
-        dr, digests, packed_res, samp_ids, samp_v, samp_w, pos_w, n, k,
+        dr, digests, packed_res, samp_ids, samp_v, samp_w, pos_w, n, k, more,
     )
-    return new_v, new_w, dr, digests, packed_res, out, hops
+    return new_v, new_w, dr, digests, packed_res, out
 
 
-def _frontier_probe(v_t, w_t, dr, e_u, e_v, e_w_old, e_w_new, cell_limit, bands, n,
-                    max_jumps):
-    """Expand the increase-affected cone over the full resident DR and the
-    PRE-patch bands; returns (cone, meta [rows, cells, jumps,
-    converged] float32). ``cell_limit`` is a float32 device tensor of
-    shape [1]; the expansion stops early once the cone overflows it."""
-    cone, rows, cells, jumps, ok = rs._cone_expand(
-        dr, bands, v_t, w_t, e_u, e_v, e_w_old, e_w_new, max_jumps,
-        cell_limit=cell_limit[0],
-    )
-    return cone, _meta_row(rows, cells, jumps, ok)
+def _probe_meta(state, cell_limit):
+    """The float32 policy row of a probe chunk's state (``_meta_row``),
+    its status ``[1, 1, go]``: whether the expansion goes on."""
+    _cone, rows, cells, _grew, jumps, go = state
+    ones = torch.ones((), dtype=torch.int32, device=cells.device)
+    return _meta_row(rows, cells, jumps, rs.cone_converged(state, cell_limit),
+                     _status_row((ones, ones), go))
+
+
+def _frontier_probe(v_t, w_t, dr, e_u, e_v, e_w_old, e_w_new, cell_limit, state, bands, n,
+                    max_jumps, jumps):
+    """``jumps`` jumps of the increase-affected cone over the full
+    resident DR and the PRE-patch bands, from its seed (``state`` None) or
+    from the ``state`` of the previous chunk; returns the new state
+    (``route_sweep.cone_start``'s six tensors) and its meta row
+    (``_probe_meta``). ``cell_limit`` is a float32 device tensor of shape
+    [1]; the expansion stops once the cone overflows it."""
+    if state is None:
+        state = rs.cone_start(dr, e_u, e_v, e_w_old, e_w_new, cell_limit[0])
+    state = rs.cone_run(state, dr, rs.ell_joins(bands, v_t, w_t), jumps, max_jumps,
+                        cell_limit[0])
+    return (*state, _probe_meta(state, cell_limit[0]))
 
 
 def _frontier_step(v_t, w_t, cone, dr, overloaded, samp_ids, samp_v, samp_w, pos_w,
-                   bands, n):
-    """Full-width WARM fixed point over the PATCHED bands, seeded from the
-    resident DR with only the cone cells reset to INF; the same
-    extraction as the cold build. Returns (dr, digests, packed, hops)."""
+                   bands, n, budget):
+    """Full-width WARM fixed point (``budget`` hops) over the PATCHED
+    bands, seeded from the resident DR with only the cone cells reset to
+    INF; the same extraction as the cold build. Returns (dr, digests,
+    packed, status)."""
     t_ids = torch.arange(n, dtype=torch.int32, device=dr.device)
     warm0 = torch.where(cone, INF, dr)
-    dr2, hops = rs._rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=warm0)
+    dr2, hs = rs._rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=warm0,
+                                  budget=budget)
     digests, packed = _extract(
         dr2, lambda rows, t: rs._nh_counts(rows, bands, v_t, w_t, overloaded, t),
         overloaded, t_ids, samp_ids, samp_v, samp_w, pos_w,
     )
-    return dr2, digests, packed, hops
+    return dr2, digests, packed, _status_row(hs)
 
 
-def _overflow_chain(v_old_t, w_old_t, v_new_t, w_new_t, dr, packed_res,
-                    e_u, e_v, e_w_old, e_w_new, cell_limit, overloaded_new,
-                    samp_ids, samp_v, samp_w, pos_w, bands, n, n_real, max_jumps):
-    """The overflow decision chain with the policy decided on the card:
-    probe (pre-patch tensors), frontier-vs-full-width seed select (the
-    full-width refresh is the frontier re-solve with an all-True cone),
-    warm re-solve over the patched tensors, extraction and delta
-    compaction. Returns (dr, digests, packed, ch_count, comp, meta,
-    hops); the meta row is read later for the counters only."""
-    cone, rows, cells, jumps, ok = rs._cone_expand(
-        dr, bands, v_old_t, w_old_t, e_u, e_v, e_w_old, e_w_new, max_jumps,
-        cell_limit=cell_limit[0],
-    )
-    meta = _meta_row(rows, cells, jumps, ok)
+def _overflow_chain(v_new_t, w_new_t, dr, packed_res, cone, rows, cells, grew, jumps, go,
+                    cell_limit, overloaded_new, samp_ids, samp_v, samp_w, pos_w, bands, n,
+                    n_real, budget):
+    """The overflow decision chain with the policy decided on the card,
+    from the probe's cone state (``_frontier_probe``, pre-patch tensors):
+    frontier-vs-full-width seed select (the full-width refresh is the
+    frontier re-solve with an all-True cone), warm re-solve over the
+    patched tensors (``budget`` hops), extraction and delta compaction.
+    Returns (dr, digests, packed, ch_count, comp, meta): the meta row
+    (``_meta_row``) carries the policy's counters and the body's
+    status."""
+    state = (cone, rows, cells, grew, jumps, go)
+    ok = rs.cone_converged(state, cell_limit[0])
     use_frontier = ok & (cells <= cell_limit[0])
     eff_cone = cone | ~use_frontier
     t_ids = torch.arange(n, dtype=torch.int32, device=dr.device)
     warm0 = torch.where(eff_cone, INF, dr)
-    del cone, eff_cone
-    dr2, hops = rs._rev_fixed_point(
-        bands, v_new_t, w_new_t, overloaded_new, t_ids, n, init=warm0
+    del eff_cone
+    dr2, hs = rs._rev_fixed_point(
+        bands, v_new_t, w_new_t, overloaded_new, t_ids, n, init=warm0, budget=budget
     )
     del warm0
+    meta = _meta_row(rows, cells, jumps, ok, _status_row(hs))
     digests, packed = _extract(
         dr2, lambda r, t: rs._nh_counts(r, bands, v_new_t, w_new_t, overloaded_new, t),
         overloaded_new, t_ids, samp_ids, samp_v, samp_w, pos_w,
     )
     ch_count, comp = _compact_changed_body(packed, packed_res, n_real)
-    return dr2, digests, packed, ch_count, comp, meta, hops
+    return dr2, digests, packed, ch_count, comp, meta
 
 
 class _DeviceStateInvalid(RuntimeError):
@@ -423,16 +496,18 @@ class PendingDelta:
     returns the sorted moved destination names. The changed rows' copy
     (and a full-width event's count, and a fused overflow chain's meta
     row) is kicked at creation (``da.kick_async``: a pinned copy and a
-    CUDA event), so the consume normally finds the bytes landed."""
+    CUDA event), so the consume normally finds the bytes landed. A fused
+    overflow chain's meta row crossed before the commit (it carries the
+    body's status); its policy counters are settled at consume time."""
 
     __slots__ = (
         "_engine", "segs", "counts", "ch_counts", "k", "dslices",
         "fw_count", "consumed", "names", "delta_rows",
-        "readback_bytes", "overlap_ms", "meta_dev", "meta_limit",
+        "readback_bytes", "overlap_ms", "meta_host", "meta_limit",
     )
 
     def __init__(self, engine, segs, counts, ch_counts, k,
-                 fw_count=None, meta_dev=None, meta_limit=0.0):
+                 fw_count=None, meta_host=None, meta_limit=0.0):
         self._engine = engine
         self.segs = segs          # device [k+1, 1+W] (or [n_pad, 1+W]) arrays
         self.counts = counts      # affected counts
@@ -451,9 +526,9 @@ class PendingDelta:
         # their count has not crossed yet; it is kicked now and reaped at
         # consume time
         self.fw_count = da.kick_async(fw_count) if fw_count is not None else None
-        # fused-overflow-chain mode: the probe meta's policy
-        # classification is settled at consume time
-        self.meta_dev = da.kick_async(meta_dev) if meta_dev is not None else None
+        # fused-overflow-chain mode: the chain's meta row (read before the
+        # commit, for its status) is classified at consume time
+        self.meta_host = meta_host
         self.meta_limit = meta_limit
 
     def wait(self) -> List[str]:
@@ -529,6 +604,9 @@ class RouteSweepEngine:
         # relax hops of every fixed point the engine ran, in order (a
         # caller reads the tail an event added)
         self.hops_log: List[int] = []
+        # each body's (hop, cone jump) budget: grown when a dispatch ran
+        # out, so a warm engine dispatches each body once
+        self._budgets: Dict[str, Tuple[int, int]] = {}
         # the path the last warm event took: "bucket" (with last_k),
         # "frontier", "full_width", "fused_chain", "cold", "attribute"
         self.last_path = "cold"
@@ -565,15 +643,89 @@ class RouteSweepEngine:
         graph = compile_ell(ls, align=self._align, direction="out")
         return graph, rs.RouteSweeper(graph, self.sample_names, device=self.device)
 
+    # -- committed dispatch --------------------------------------------------
+
+    # the bodies' dispatch tags (the executable cache's keys)
+    _TAG_FULL = "ell_full_resident"
+    _TAG_BUCKET = "ell_churn_step"
+    _TAG_PROBE = "ell_frontier_probe"
+    _TAG_STEP = "ell_frontier_step"
+    _TAG_CHAIN = "ell_overflow_chain"
+    _PROBE_BODY = staticmethod(_frontier_probe)
+
+    def _dispatch(self, tag, fn, dyn_args, statics):
+        """Backend hook: one body through the executable cache (the
+        sliced-ELL plan variant resolved into its key)."""
+        return ell_dispatch(tag, fn, dyn_args, statics)
+
+    def _budget(self, tag: str) -> Tuple[int, int]:
+        h, j = self._budgets.get(tag, (relax_loop.HOP_CHUNK, _JUMP_BUDGET))
+        return min(h, self.graph.n_pad), j
+
+    def _needs_more(self, tag: str, status) -> bool:
+        """Fold one read status ``[hops, converged, more jumps]`` into
+        ``tag``'s budgets; True when the body ran out and must be
+        re-dispatched (nothing of it is committed)."""
+        h, j = self._budget(tag)
+        retry = False
+        if not int(status[1]):
+            h = relax_loop.next_budget(h, self.graph.n_pad)
+            retry = True
+        if int(status[2]):
+            j = min(2 * j, _FRONTIER_MAX_JUMPS)
+            retry = True
+        if retry:
+            self._budgets[tag] = (h, j)
+            get_registry().counter_bump("route_engine.budget_retries")
+        return retry
+
+    def _run_budgeted(self, tag, fn, dyn_args, statics, at):
+        """Dispatch a full-width body until its hop budget held: its output
+        ``at`` ends in the 3-int status; it is read (kicked, then reaped:
+        one read phase) after each dispatch. Returns ``(outputs, row)``,
+        ``row`` the host copy of output ``at``."""
+        while True:
+            h, _j = self._budget(tag)
+            out = self._dispatch(tag, fn, dyn_args, dict(statics, budget=h))
+            row = da.reap_read(da.kick_async(out[at]), kicked=True)
+            if not self._needs_more(tag, row[-3:]):
+                return out, row
+
+    def _probe_statics(self):
+        """Backend hook: the statics of the probe body beside its jump
+        cap and chunk."""
+        return dict(bands=self.graph.bands, n=self.graph.n_pad)
+
+    def _probe_cone(self, e_dev, lim):
+        """The increase cone over the full resident DR and the PRE-patch
+        tensors: its seed, then ``_CONE_CHUNK`` jumps a dispatch, the flag
+        read after each (kicked, then reaped): ``(state, host meta
+        row)``."""
+        sw = self.sweeper
+        state = None
+        while True:
+            *state, meta = self._dispatch(
+                self._TAG_PROBE, self._PROBE_BODY,
+                (sw.v_t, sw.w_t, self._dr, *e_dev, lim, state),
+                dict(self._probe_statics(), max_jumps=_FRONTIER_MAX_JUMPS,
+                     jumps=0 if state is None else _CONE_CHUNK),
+            )
+            state = tuple(state)
+            row = da.reap_read(da.kick_async(meta), kicked=True)
+            if not int(row[-1]):
+                return state, row
+
     def _full_resident(self, graph):
         """Backend hook: the cold full-product dispatch (DR and digests
         resident, the packed product back)."""
         sw = self.sweeper
-        dr, digests, packed, hops = _full_resident_sweep(
-            sw.v_t, sw.w_t, sw.overloaded, sw._samp_ids_dev, sw._samp_v_dev,
-            sw._samp_w_dev, sw._pos_w_dev, graph.bands, graph.n_pad,
+        (dr, digests, packed, _st), row = self._run_budgeted(
+            self._TAG_FULL, _full_resident_sweep,
+            (sw.v_t, sw.w_t, sw.overloaded, sw._samp_ids_dev, sw._samp_v_dev,
+             sw._samp_w_dev, sw._pos_w_dev),
+            dict(bands=graph.bands, n=graph.n_pad), at=3,
         )
-        self.hops_log.append(hops)
+        self.hops_log.append(int(row[0]))
         return dr, digests, packed
 
     @requires_drain("flush")
@@ -669,10 +821,14 @@ class RouteSweepEngine:
         in_v, in_w, patch_ids, patch_v, patch_w, _ = band_patch_inputs(
             self.sweeper.v_t, self.sweeper.w_t, patched, self._stager
         )
+
+        def pad(ts):
+            return tuple(None if t is None else _pad_pow2(t) for t in ts)
+
         return {
             "patched": patched,
             "in_v": in_v, "in_w": in_w,
-            "patch_ids": patch_ids, "patch_v": patch_v, "patch_w": patch_w,
+            "patch_ids": pad(patch_ids), "patch_v": pad(patch_v), "patch_w": pad(patch_w),
             "patched_bands": None,
         }
 
@@ -681,18 +837,20 @@ class RouteSweepEngine:
     def _run_bucket(self, ctx, k, e_dev, ov_new):
         """Backend hook: one detect+solve dispatch at bucket size k.
         Returns (segments, commit_state): segments are in-flight device
-        arrays [k+1, 1+W]; nothing is read back here."""
+        arrays [k+1, 1+W] whose row 0 carries the counts and the status;
+        nothing is read back here."""
         fault_point(FAULT_DISPATCH)
         fault_point(FAULT_DEVICE_LOST)
         graph = ctx["patched"]
         sw = self.sweeper
-        new_v, new_w, dr, digests, packed_res, packed_dev, hops = _churn_step(
-            ctx["in_v"], ctx["in_w"], ctx["patch_ids"], ctx["patch_v"], ctx["patch_w"],
-            self._dr, self._digests_dev, self._packed_dev, *e_dev, ov_new,
-            sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev,
-            graph.bands, graph.n_pad, k,
+        h, j = self._budget(self._TAG_BUCKET)
+        new_v, new_w, dr, digests, packed_res, packed_dev = self._dispatch(
+            self._TAG_BUCKET, _churn_step,
+            (ctx["in_v"], ctx["in_w"], ctx["patch_ids"], ctx["patch_v"], ctx["patch_w"],
+             self._dr, self._digests_dev, self._packed_dev, *e_dev, ov_new,
+             sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev),
+            dict(bands=graph.bands, n=graph.n_pad, k=k, budget=h, jumps=j),
         )
-        self.hops_log.append(hops)
         # the step already patched the bands: an overflow's
         # _apply_patch_resident adopts these
         ctx["patched_bands"] = (new_v, new_w)
@@ -775,7 +933,8 @@ class RouteSweepEngine:
         re-solve: compact the diff on the card and apply only the changed
         rows. With ``defer=True`` the changed count stays in flight
         (PendingDelta full-width mode)."""
-        ch_count, comp = _compact_changed_body(packed, self._packed_dev, self.graph.n)
+        ch_count, comp = aot_call("compact_changed", _compact_changed_body,
+                                  (packed, self._packed_dev), dict(n=self.graph.n))
         self._dr = dr
         self._digests_dev = digests
         self._packed_dev = packed
@@ -796,31 +955,31 @@ class RouteSweepEngine:
     def _dispatch_frontier_probe(self, ctx, e_dev, limit):
         """Backend hook: the affected-cone probe against the PRE-patch
         resident tensors (this runs before _apply_patch_resident).
-        Returns (cone, meta)."""
+        Returns (cone, the host meta row)."""
         lim = torch.tensor([limit], dtype=torch.float32, device=self.device)
-        return _frontier_probe(
-            self.sweeper.v_t, self.sweeper.w_t, self._dr, *e_dev, lim,
-            self.graph.bands, self.graph.n_pad, _FRONTIER_MAX_JUMPS,
-        )
+        state, row = self._probe_cone(e_dev, lim)
+        return state[0], row
 
     @solve_window
     def _frontier_resident(self, cone):
         """Backend hook: the masked full-width dispatch over the ALREADY
         patched resident tensors."""
         sw = self.sweeper
-        dr, digests, packed, hops = _frontier_step(
-            sw.v_t, sw.w_t, cone, self._dr, sw.overloaded, sw._samp_ids_dev,
-            sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev,
-            self.graph.bands, self.graph.n_pad,
+        (dr, digests, packed, _st), row = self._run_budgeted(
+            self._TAG_STEP, _frontier_step,
+            (sw.v_t, sw.w_t, cone, self._dr, sw.overloaded, sw._samp_ids_dev,
+             sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev),
+            dict(bands=self.graph.bands, n=self.graph.n_pad), at=3,
         )
-        self.hops_log.append(hops)
+        self.hops_log.append(int(row[0]))
         return dr, digests, packed
 
     @solve_window
     def _dispatch_overflow_chain(self, ctx, e_dev, ov_new, limit):
         """Backend hook: the overflow decision chain, or None when the
         event WIDENED the band layout (the split probe/branch path takes
-        that one). Returns (dr, digests, packed, ch_count, comp, meta)."""
+        that one). Returns (dr, digests, packed, ch_count, comp, the host
+        meta row)."""
         if ctx["patched"].bands != self.graph.bands:
             return None
         if ctx["patched_bands"] is None:
@@ -828,13 +987,16 @@ class RouteSweepEngine:
         new_v, new_w = ctx["patched_bands"]
         lim = torch.tensor([limit], dtype=torch.float32, device=self.device)
         sw = self.sweeper
-        *chain, hops = _overflow_chain(
-            sw.v_t, sw.w_t, new_v, new_w, self._dr, self._packed_dev, *e_dev, lim,
-            ov_new, sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev,
-            self.graph.bands, self.graph.n_pad, self.graph.n, _FRONTIER_MAX_JUMPS,
+        state, _probe = self._probe_cone(e_dev, lim)
+        (dr, digests, packed, ch_count, comp, _meta), row = self._run_budgeted(
+            self._TAG_CHAIN, _overflow_chain,
+            (new_v, new_w, self._dr, self._packed_dev, *state, lim, ov_new,
+             sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev),
+            dict(bands=self.graph.bands, n=self.graph.n_pad, n_real=self.graph.n),
+            at=5,
         )
-        self.hops_log.append(hops)
-        return tuple(chain)
+        self.hops_log.append(int(row[4]))
+        return dr, digests, packed, ch_count, comp, row
 
     def _note_frontier_meta(self, meta) -> Tuple[int, int, float, bool]:
         reg = get_registry()
@@ -874,8 +1036,8 @@ class RouteSweepEngine:
                                defer=False):
         """Commit tail of the overflow chain: adopt the patch and the
         chain product, then reap (or defer) the compacted delta and the
-        policy meta."""
-        dr, digests, packed, ch_count, comp, meta_dev = chain
+        policy meta (already on the host)."""
+        dr, digests, packed, ch_count, comp, meta = chain
         self._apply_patch_resident(ctx, ov_new)
         self._dr = dr
         self._digests_dev = digests
@@ -887,14 +1049,12 @@ class RouteSweepEngine:
         if defer:
             pending = PendingDelta(
                 self, [comp], [-1], [None], int(comp.shape[0]),
-                fw_count=ch_count, meta_dev=meta_dev, meta_limit=limit,
+                fw_count=ch_count, meta_host=meta, meta_limit=limit,
             )
             self._pending = pending
             return pending
-        count_kick = da.kick_async(ch_count)
-        meta_kick = da.kick_async(meta_dev)
-        self._note_overflow_meta(da.reap_read(meta_kick, kicked=True), limit)
-        m = int(da.reap_read(count_kick, kicked=True))
+        self._note_overflow_meta(meta, limit)
+        m = int(da.reap_read(da.kick_async(ch_count), kicked=True))
         return self._reap_full_width(comp, m)
 
     @committed_dispatch
@@ -941,7 +1101,6 @@ class RouteSweepEngine:
                     reg.counter_bump("route_engine.frontier_errors")
                 if probe is not None:
                     cone, meta = probe
-                    meta = da.reap_read(da.kick_async(meta), kicked=True)
                     rows, jumps, cells, converged = self._note_frontier_meta(meta)
                     if converged and cells <= limit:
                         path = "frontier"
@@ -1003,9 +1162,9 @@ class RouteSweepEngine:
         fault_point(FAULT_DEVICE_LOST)
         if overlap:
             da.note_overlapped_reap()
-        if p.meta_dev is not None:
-            self._note_overflow_meta(da.reap_read(p.meta_dev, kicked=True), p.meta_limit)
-            p.meta_dev = None
+        if p.meta_host is not None:
+            self._note_overflow_meta(p.meta_host, p.meta_limit)
+            p.meta_host = None
         tracer = get_tracer()
         span = tracer.span_active("ops.route_engine.delta_consume")
         reg = get_registry()
@@ -1088,13 +1247,24 @@ class RouteSweepEngine:
             return self.churn_coalesced(ls, affected_sets, defer_consume=defer_consume)
 
     def _stage_metas(self, segments):
-        """Kick every segment's 8-byte meta row [affected, changed]."""
-        return [da.kick_async(seg[0, :2]) for seg in segments]
+        """Kick every segment's 20-byte meta row [affected, changed, hops,
+        converged, more jumps]."""
+        return [da.kick_async(seg[0, :5]) for seg in segments]
 
     @staticmethod
     def _reap_metas(meta_rows):
+        """(affected counts, changed counts, statuses) of the staged rows."""
         metas = [da.reap_read(m, kicked=True) for m in meta_rows]
-        return [int(m[0]) for m in metas], [int(m[1]) for m in metas]
+        return ([int(m[0]) for m in metas], [int(m[1]) for m in metas],
+                [m[2:5] for m in metas])
+
+    def _bucket_retry(self, statuses) -> bool:
+        """True when a bucket dispatch ran out of its budgets (they grow);
+        else the hops of its fixed point go to ``hops_log``."""
+        retry = any([self._needs_more(self._TAG_BUCKET, st) for st in statuses])
+        if not retry:
+            self.hops_log.append(max(int(st[0]) for st in statuses))
+        return retry
 
     def speculate_churn(self, ls, affected_sets) -> bool:
         """Stage a SPECULATIVE dispatch of the debounce backlog's
@@ -1134,8 +1304,8 @@ class RouteSweepEngine:
             if self._pending is not None:
                 da.note_pipelined_dispatch(2)
             segments, commit_state = self._run_bucket(ctx, k, e_dev, ov_new)
-            counts, ch_counts = self._reap_metas(self._stage_metas(segments))
-            if max(counts) > k:
+            counts, ch_counts, statuses = self._reap_metas(self._stage_metas(segments))
+            if max(counts) > k or self._bucket_retry(statuses):
                 reg.counter_bump("ops.spec_skips")
                 return False
         except Exception as exc:  # noqa: BLE001 - filtered below
@@ -1244,6 +1414,20 @@ class RouteSweepEngine:
         self.aversion = snap["aversion"]
         self._k_hint = snap["k_hint"]
 
+    def _burst_redispatch(self, ls, snap, staged, k) -> None:
+        """Roll back to the pre-burst ``snap`` and submit every staged
+        window again (its recorded patch and event), each optimistically
+        committed as the first pass did."""
+        self._burst_rollback(snap)
+        for st in staged:
+            segments, commit_state = self._run_bucket(st["ctx"], k, st["e_dev"], st["ov_new"])
+            st["segments"] = segments
+            st["meta_rows"] = self._stage_metas(segments)
+            self._commit_device(st["ctx"], commit_state, st["ov_new"])
+            self._commit_host_mirrors(ls, st["new_out"], st["ov_flips"])
+        self.version = ls.topology_version
+        self.aversion = ls.attributes_version
+
     def _churn_burst_drain(self, ls, apply_events, defer_consume):
         """The drain body: submit every window's dispatch at ONE fixed
         bucket, optimistically committing each, then reap every meta and
@@ -1294,7 +1478,8 @@ class RouteSweepEngine:
                 self.version = ls.topology_version
                 self.aversion = ls.attributes_version
                 staged.append(dict(segments=segments, meta_rows=meta_rows,
-                                   structural=structural))
+                                   structural=structural, ctx=ctx, e_dev=e_dev,
+                                   ov_new=ov_new, new_out=new_out, ov_flips=ov_flips))
                 da.note_window()
         except Exception as exc:  # noqa: BLE001 - filtered below
             if not _recoverable(exc):
@@ -1303,14 +1488,27 @@ class RouteSweepEngine:
             # roll back and let the supervised replay walk it
             cancel = True
         if not cancel and staged:
-            all_counts: List[List[int]] = []
-            all_ch: List[List[int]] = []
-            for st in staged:
-                counts, ch = self._reap_metas(st["meta_rows"])
-                all_counts.append(counts)
-                all_ch.append(ch)
-            if max(max(c) for c in all_counts) > k:
-                cancel = True
+            while True:
+                all_counts: List[List[int]] = []
+                all_ch: List[List[int]] = []
+                all_st = []
+                for st in staged:
+                    counts, ch, statuses = self._reap_metas(st["meta_rows"])
+                    all_counts.append(counts)
+                    all_ch.append(ch)
+                    all_st.append(statuses)
+                if max(max(c) for c in all_counts) > k:
+                    cancel = True
+                    break
+                retry = any([self._needs_more(self._TAG_BUCKET, x)
+                             for statuses in all_st for x in statuses])
+                if not retry:
+                    self.hops_log.extend(max(int(x[0]) for x in statuses)
+                                         for statuses in all_st)
+                    break
+                # a window's budget ran out: restore the pre-burst state and
+                # re-dispatch every window, in order, with the larger budgets
+                self._burst_redispatch(ls, snap, staged, k)
         if cancel:
             # one cancel path for every hazard: deliver the remaining
             # mutations, restore the pre-burst state, and replay the net
@@ -1499,12 +1697,13 @@ class RouteSweepEngine:
 
     def _upload_event(self, patched, changed):
         """Upload one event's edge-transition list (padded to a power of
-        two, at least 8, with inert INF/INF self-loops) and the patched
-        overload mask. Returns ``(ov_new, e_dev)``."""
+        two, at least 32, with inert INF/INF self-loops: the padded lengths
+        key the executable cache, and most events fit the least) and the
+        patched overload mask. Returns ``(ov_new, e_dev)``."""
         e = np.asarray(
             [(u, v, wo, wn) for (u, v), (wo, wn) in changed.items()], dtype=np.int64
         ).reshape(-1, 4)
-        eb = 8
+        eb = 32
         while eb < len(e):
             eb *= 2
         pad = np.zeros((eb - len(e), 4), dtype=np.int64)
@@ -1555,16 +1754,21 @@ class RouteSweepEngine:
         k = None
         overlapped = False
         for k in buckets:
-            segments, commit_state = self._run_bucket(ctx, k, e_dev, ov_new)
-            meta_rows = self._stage_metas(segments)
-            if not overlapped:
-                if was_pending:
-                    da.note_pipelined_dispatch(2)
-                # the PREVIOUS event's delta is consumed while this
-                # dispatch's copies land
-                self._consume_pending(overlap=True)
-                overlapped = True
-            counts, ch_counts = self._reap_metas(meta_rows)
+            while True:
+                segments, commit_state = self._run_bucket(ctx, k, e_dev, ov_new)
+                meta_rows = self._stage_metas(segments)
+                if not overlapped:
+                    if was_pending:
+                        da.note_pipelined_dispatch(2)
+                    # the PREVIOUS event's delta is consumed while this
+                    # dispatch's copies land
+                    self._consume_pending(overlap=True)
+                    overlapped = True
+                counts, ch_counts, statuses = self._reap_metas(meta_rows)
+                # an overflowed bucket retries larger; a budget that ran
+                # out retries at the same bucket with the larger budget
+                if max(counts) > k or not self._bucket_retry(statuses):
+                    break
             self.last_affected = max(counts)
             if max(counts) <= k:
                 break
@@ -1594,18 +1798,18 @@ class RouteSweepEngine:
 
 
 def _grouped_full_resident(v_t, w_t, overloaded, samp_ids, samp_v, samp_w, pos_w, meta,
-                           n, impl):
+                           n, impl, budget):
     """Grouped cold build: every destination row through the grouped
-    relaxation; the same packed layout and digest as the ELL engine's.
-    Returns (DR, digests, packed, hops)."""
+    relaxation (``budget`` hops); the same packed layout and digest as the
+    ELL engine's. Returns (DR, digests, packed, status)."""
     t_ids = torch.arange(n, dtype=torch.int32, device=overloaded.device)
-    dr, hops = sg._grouped_fixed_point(meta, v_t, w_t, overloaded, t_ids, n,
-                                       reverse=True, impl=impl)
+    dr, hs = sg._grouped_fixed_point(meta, v_t, w_t, overloaded, t_ids, n,
+                                     reverse=True, impl=impl, budget=budget)
     digests, packed = _extract(
         dr, lambda rows, t: sg._grouped_nh_counts(rows, meta, v_t, w_t, overloaded, t),
         overloaded, t_ids, samp_ids, samp_v, samp_w, pos_w,
     )
-    return dr, digests, packed, hops
+    return dr, digests, packed, _status_row(hs)
 
 
 def _patch_segments(w_t, upd_g, upd_s, upd_r, upd_w):
@@ -1622,74 +1826,72 @@ def _patch_segments(w_t, upd_g, upd_s, upd_r, upd_w):
 
 def _grouped_churn_step(v_t, w_t, upd_g, upd_s, upd_r, upd_w, dr, digests, packed_res,
                         e_u, e_v, e_w_old, e_w_new, overloaded_new, samp_ids, samp_v,
-                        samp_w, pos_w, meta, n, k, impl):
+                        samp_w, pos_w, meta, n, k, impl, budget):
     """Grouped churn dispatch: detection against the resident DR, the
     segment-slot weight patch, the affected rows re-solved (from the unit
-    init, as the reference's) through the grouped relaxation, with the
-    same delta-compacted readback as the ELL step. Returns (new_w, dr,
-    digests, packed_res, out, hops)."""
+    init, as the reference's; ``budget`` hops) through the grouped
+    relaxation, with the same delta-compacted readback as the ELL step.
+    Returns (new_w, dr, digests, packed_res, out)."""
     count, local_ids, ids = _detect_rows(dr, e_u, e_v, e_w_old, e_w_new, k, 0)
     new_w = _patch_segments(w_t, upd_g, upd_s, upd_r, upd_w)
-    dr, digests, packed_res, out, hops = _resolve_and_pack(
+    dr, digests, packed_res, out = _resolve_and_pack(
         lambda t: sg._grouped_fixed_point(meta, v_t, new_w, overloaded_new, t, n,
-                                          reverse=True, impl=impl),
+                                          reverse=True, impl=impl, budget=budget),
         lambda rows, t: sg._grouped_nh_counts(rows, meta, v_t, new_w, overloaded_new, t),
         overloaded_new, ids, local_ids, count,
         dr, digests, packed_res, samp_ids, samp_v, samp_w, pos_w, n, k,
     )
-    return new_w, dr, digests, packed_res, out, hops
+    return new_w, dr, digests, packed_res, out
 
 
-def _grouped_frontier_probe(v_t, w_t, dr, e_u, e_v, e_w_old, e_w_new, cell_limit, meta,
-                            n, max_jumps):
-    """The grouped twin of _frontier_probe: (cone, meta row)."""
-    cone, rows, cells, jumps, ok = sg._grouped_cone_expand(
-        dr, meta, v_t, w_t, e_u, e_v, e_w_old, e_w_new, max_jumps,
-        cell_limit=cell_limit[0],
-    )
-    return cone, _meta_row(rows, cells, jumps, ok)
+def _grouped_frontier_probe(v_t, w_t, dr, e_u, e_v, e_w_old, e_w_new, cell_limit, state,
+                            meta, n, max_jumps, jumps):
+    """The grouped twin of _frontier_probe: (state..., meta row)."""
+    if state is None:
+        state = rs.cone_start(dr, e_u, e_v, e_w_old, e_w_new, cell_limit[0])
+    state = rs.cone_run(state, dr, sg.grouped_joins(meta, v_t, w_t), jumps, max_jumps,
+                        cell_limit[0])
+    return (*state, _probe_meta(state, cell_limit[0]))
 
 
 def _grouped_frontier_step(v_t, w_t, cone, dr, overloaded, samp_ids, samp_v, samp_w,
-                           pos_w, meta, n, impl):
-    """The grouped twin of _frontier_step: (dr, digests, packed, hops)."""
+                           pos_w, meta, n, impl, budget):
+    """The grouped twin of _frontier_step: (dr, digests, packed, status)."""
     t_ids = torch.arange(n, dtype=torch.int32, device=dr.device)
     warm0 = torch.where(cone, INF, dr)
-    dr2, hops = sg._grouped_fixed_point(meta, v_t, w_t, overloaded, t_ids, n,
-                                        reverse=True, impl=impl, init=warm0)
+    dr2, hs = sg._grouped_fixed_point(meta, v_t, w_t, overloaded, t_ids, n,
+                                      reverse=True, impl=impl, init=warm0, budget=budget)
     digests, packed = _extract(
         dr2, lambda rows, t: sg._grouped_nh_counts(rows, meta, v_t, w_t, overloaded, t),
         overloaded, t_ids, samp_ids, samp_v, samp_w, pos_w,
     )
-    return dr2, digests, packed, hops
+    return dr2, digests, packed, _status_row(hs)
 
 
-def _grouped_overflow_chain(v_t, w_old_t, w_new_t, dr, packed_res, e_u, e_v, e_w_old,
-                            e_w_new, cell_limit, overloaded_new, samp_ids, samp_v, samp_w,
-                            pos_w, meta, n, n_real, max_jumps, impl):
-    """The grouped twin of _overflow_chain: probe on the pre-patch slabs,
-    seed select on the card, warm re-solve on the patched slabs,
-    extraction and compaction. Segment shapes never change under
+def _grouped_overflow_chain(v_t, w_new_t, dr, packed_res, cone, rows, cells, grew, jumps,
+                            go, cell_limit, overloaded_new, samp_ids, samp_v, samp_w, pos_w,
+                            meta, n, n_real, impl, budget):
+    """The grouped twin of _overflow_chain: seed select on the card from
+    the probe's cone state (pre-patch slabs), warm re-solve on the patched
+    slabs, extraction and compaction. Segment shapes never change under
     grouped_patch, so every grouped overflow takes it."""
-    cone, rows, cells, jumps, ok = sg._grouped_cone_expand(
-        dr, meta, v_t, w_old_t, e_u, e_v, e_w_old, e_w_new, max_jumps,
-        cell_limit=cell_limit[0],
-    )
-    meta_row = _meta_row(rows, cells, jumps, ok)
+    state = (cone, rows, cells, grew, jumps, go)
+    ok = rs.cone_converged(state, cell_limit[0])
     use_frontier = ok & (cells <= cell_limit[0])
     eff_cone = cone | ~use_frontier
     t_ids = torch.arange(n, dtype=torch.int32, device=dr.device)
     warm0 = torch.where(eff_cone, INF, dr)
-    del cone, eff_cone
-    dr2, hops = sg._grouped_fixed_point(meta, v_t, w_new_t, overloaded_new, t_ids, n,
-                                        reverse=True, impl=impl, init=warm0)
+    del eff_cone
+    dr2, hs = sg._grouped_fixed_point(meta, v_t, w_new_t, overloaded_new, t_ids, n,
+                                      reverse=True, impl=impl, init=warm0, budget=budget)
     del warm0
+    meta_row = _meta_row(rows, cells, jumps, ok, _status_row(hs))
     digests, packed = _extract(
         dr2, lambda r, t: sg._grouped_nh_counts(r, meta, v_t, w_new_t, overloaded_new, t),
         overloaded_new, t_ids, samp_ids, samp_v, samp_w, pos_w,
     )
     ch_count, comp = _compact_changed_body(packed, packed_res, n_real)
-    return dr2, digests, packed, ch_count, comp, meta_row, hops
+    return dr2, digests, packed, ch_count, comp, meta_row
 
 
 class GroupedRouteSweepEngine(RouteSweepEngine):
@@ -1704,10 +1906,18 @@ class GroupedRouteSweepEngine(RouteSweepEngine):
     the signature grouping and cold-rebuilds. Digests are comparable by
     name with the ELL engine's."""
 
+    _TAG_FULL = "grouped_full_resident"
+    _TAG_BUCKET = "grouped_churn_step"
+    _TAG_PROBE = "grouped_frontier_probe"
+    _TAG_STEP = "grouped_frontier_step"
+    _TAG_CHAIN = "grouped_overflow_chain"
+    _PROBE_BODY = staticmethod(_grouped_frontier_probe)
+
     def __init__(self, ls, sample_names: Sequence[str], align: int = 128, mesh=None,
                  frontier_threshold: float = _DEFAULT_FRONTIER_THRESHOLD,
-                 impl: str = "batched_minplus", device: DeviceLike = None):
-        self.impl = sg._check_impl(impl)
+                 impl: Optional[str] = "batched_minplus", device: DeviceLike = None):
+        # None: the selector's kernel (spf_grouped.get_grouped_impl)
+        self.impl = sg._check_impl(impl if impl is not None else sg.get_grouped_impl(device))
         super().__init__(ls, sample_names, align=align, mesh=mesh,
                          frontier_threshold=frontier_threshold, device=device)
 
@@ -1722,13 +1932,21 @@ class GroupedRouteSweepEngine(RouteSweepEngine):
         return sg.GroupedRouteSweeper(graph, self.sample_names, impl=self.impl,
                                       device=self.device)
 
+    def _dispatch(self, tag, fn, dyn_args, statics):
+        return aot_call(tag, fn, dyn_args, statics)
+
+    def _probe_statics(self):
+        return dict(meta=self.sweeper.meta, n=self.graph.n_pad)
+
     def _full_resident(self, graph):
         sw = self.sweeper
-        dr, digests, packed, hops = _grouped_full_resident(
-            sw.v_t, sw.w_t, sw.overloaded, sw._samp_ids_dev, sw._samp_v_dev,
-            sw._samp_w_dev, sw._pos_w_dev, sw.meta, graph.n_pad, self.impl,
+        (dr, digests, packed, _st), row = self._run_budgeted(
+            self._TAG_FULL, _grouped_full_resident,
+            (sw.v_t, sw.w_t, sw.overloaded, sw._samp_ids_dev, sw._samp_v_dev,
+             sw._samp_w_dev, sw._pos_w_dev),
+            dict(meta=sw.meta, n=graph.n_pad, impl=self.impl), at=3,
         )
-        self.hops_log.append(hops)
+        self.hops_log.append(int(row[0]))
         return dr, digests, packed
 
     def _refresh_sample_bands(self, patched, affected_nodes) -> bool:
@@ -1761,7 +1979,7 @@ class GroupedRouteSweepEngine(RouteSweepEngine):
         upd = [[None] * nseg for _ in range(4)]
         for si in touched:
             for c in range(4):
-                upd[c][si] = next(tensors)
+                upd[c][si] = _pad_pow2(next(tensors))
         return {
             "patched": patched,
             "upd": tuple(tuple(u) for u in upd),
@@ -1775,12 +1993,14 @@ class GroupedRouteSweepEngine(RouteSweepEngine):
         fault_point(FAULT_DEVICE_LOST)
         graph = ctx["patched"]
         sw = self.sweeper
-        new_w, dr, digests, packed_res, packed_dev, hops = _grouped_churn_step(
-            sw.v_t, sw.w_t, *ctx["upd"], self._dr, self._digests_dev, self._packed_dev,
-            *e_dev, ov_new, sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev,
-            sw._pos_w_dev, sw.meta, graph.n_pad, k, self.impl,
+        h, _j = self._budget(self._TAG_BUCKET)
+        new_w, dr, digests, packed_res, packed_dev = self._dispatch(
+            self._TAG_BUCKET, _grouped_churn_step,
+            (sw.v_t, sw.w_t, *ctx["upd"], self._dr, self._digests_dev, self._packed_dev,
+             *e_dev, ov_new, sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev,
+             sw._pos_w_dev),
+            dict(meta=sw.meta, n=graph.n_pad, k=k, impl=self.impl, budget=h),
         )
-        self.hops_log.append(hops)
         ctx["patched_segs"] = new_w
         return [packed_dev], (new_w, dr, digests, packed_res)
 
@@ -1808,22 +2028,17 @@ class GroupedRouteSweepEngine(RouteSweepEngine):
         return _patch_segments(self.sweeper.w_t, *ctx["upd"])
 
     @solve_window
-    def _dispatch_frontier_probe(self, ctx, e_dev, limit):
-        lim = torch.tensor([limit], dtype=torch.float32, device=self.device)
-        return _grouped_frontier_probe(
-            self.sweeper.v_t, self.sweeper.w_t, self._dr, *e_dev, lim,
-            self.sweeper.meta, self.graph.n_pad, _FRONTIER_MAX_JUMPS,
-        )
 
     @solve_window
     def _frontier_resident(self, cone):
         sw = self.sweeper
-        dr, digests, packed, hops = _grouped_frontier_step(
-            sw.v_t, sw.w_t, cone, self._dr, sw.overloaded, sw._samp_ids_dev,
-            sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev, sw.meta, self.graph.n_pad,
-            self.impl,
+        (dr, digests, packed, _st), row = self._run_budgeted(
+            self._TAG_STEP, _grouped_frontier_step,
+            (sw.v_t, sw.w_t, cone, self._dr, sw.overloaded, sw._samp_ids_dev,
+             sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev),
+            dict(meta=sw.meta, n=self.graph.n_pad, impl=self.impl), at=3,
         )
-        self.hops_log.append(hops)
+        self.hops_log.append(int(row[0]))
         return dr, digests, packed
 
     @solve_window
@@ -1833,10 +2048,13 @@ class GroupedRouteSweepEngine(RouteSweepEngine):
         new_w = ctx["patched_segs"]
         lim = torch.tensor([limit], dtype=torch.float32, device=self.device)
         sw = self.sweeper
-        *chain, hops = _grouped_overflow_chain(
-            sw.v_t, sw.w_t, new_w, self._dr, self._packed_dev, *e_dev, lim, ov_new,
-            sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev, sw.meta,
-            self.graph.n_pad, self.graph.n, _FRONTIER_MAX_JUMPS, self.impl,
+        state, _probe = self._probe_cone(e_dev, lim)
+        (dr, digests, packed, ch_count, comp, _meta), row = self._run_budgeted(
+            self._TAG_CHAIN, _grouped_overflow_chain,
+            (sw.v_t, new_w, self._dr, self._packed_dev, *state, lim, ov_new,
+             sw._samp_ids_dev, sw._samp_v_dev, sw._samp_w_dev, sw._pos_w_dev),
+            dict(meta=sw.meta, n=self.graph.n_pad, n_real=self.graph.n, impl=self.impl),
+            at=5,
         )
-        self.hops_log.append(hops)
-        return tuple(chain)
+        self.hops_log.append(int(row[4]))
+        return dr, digests, packed, ch_count, comp, row

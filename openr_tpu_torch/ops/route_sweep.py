@@ -9,13 +9,15 @@ column layout, ``_unpack_blocks``, ``assemble_result``, ``digests_by_name``,
 ``RouteSweeper`` and ``all_sources_route_sweep``. Each band of a relax step
 goes through ``ops.rev_relax.rev_band_relax`` (the hand-written CUDA kernel
 on the card, its plain torch version on the CPU), writing its column slice
-of one output. The JAX ``lax.while_loop`` becomes a Python loop with one
-host sync per hop, counted in ``ops.blocking_syncs`` through
-``dispatch_accounting.sync_flag``; the hops of each block are kept on the
-sweeper. ``_cone_expand`` is the churn engine's frontier kernel
-(``ops/route_engine.py``): plain torch ops, its growth walked over blocks
-of destination rows so that the ``[rows, band rows, k]`` gathers of a
-full-width cone stay bounded. Not ported yet: the sharded sweeps.
+of one output. The JAX ``lax.while_loop`` becomes chunks of hops whose
+changed count stays on the card (``ops/relax_loop.py``): a sweep's block
+reads it once a chunk, counted in ``ops.blocking_syncs``, and an engine
+body runs a fixed budget of hops with no sync at all. The hops of each
+block are kept on the sweeper. ``_cone_expand`` is the churn engine's
+frontier kernel (``ops/route_engine.py``): plain torch ops, its growth
+walked over blocks of destination rows so that the ``[rows, band rows,
+k]`` gathers of a full-width cone stay bounded, its continue flag and
+counters on the card. Not ported yet: the sharded sweeps.
 
 The sweep relaxes the REVERSED graph (an out-edge ELL: row s holds
 ``(v, w(s -> v))`` for every forward edge), so row t of a block is a
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops import autotune, relax_loop
 from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.rev_relax import rev_band_relax
@@ -53,6 +56,7 @@ from openr_tpu_torch.ops.spf_sparse import (
     EllGraph,
     _as_device_ids,
     _band_of,
+    _ell_impl_for,
     compile_ell,
 )
 
@@ -95,29 +99,34 @@ def _rev_relax(dr, bands, v_t, w_t, overloaded, t_ids) -> torch.Tensor:
     return out
 
 
-def _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=None):
+def _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=None, budget=None,
+                     chunk=relax_loop.HOP_CHUNK):
     """``(DR rows [B, n], hops)`` for destination batch ``t_ids`` from
     the unit init. ``init`` optionally warm-seeds the rows with a
     pointwise upper bound on the fixed point; the unit anchor is min-ed
     in, and the int32 min-relaxation's unique fixed point keeps the
     result bit-identical to the cold solve. The loop stops when a hop
     changes nothing or after ``n`` hops, like the reference's
-    ``while_loop``; each hop costs one host sync (``da.sync_flag``)."""
+    ``while_loop``, reading its changed count once a ``chunk`` of hops
+    (``relax_loop.fixed_point``). With a hop ``budget`` it runs that many
+    hops with no host sync, and ``hops`` is the device pair ``(hops,
+    converged)`` (``relax_loop.hop_status``)."""
     b = t_ids.shape[0]
     dev = t_ids.device
     dr = torch.full((b, n), INF, dtype=torch.int32, device=dev)
-    dr[torch.arange(b, device=dev), t_ids.long()] = 0
+    # a scatter of the scalar: an index_put of 0 would copy a host
+    # scalar to the card, which a graph capture refuses
+    dr.scatter_(1, t_ids.long()[:, None], 0)
     if init is not None:
         dr = torch.minimum(init, dr)
-    hops = 0
-    while hops < n:
-        nxt = _rev_relax(dr, bands, v_t, w_t, overloaded, t_ids)
-        hops += 1
-        changed = da.sync_flag((nxt < dr).any())
-        dr = nxt
-        if not changed:
-            break
-    return dr, hops
+
+    def step(x):
+        return _rev_relax(x, bands, v_t, w_t, overloaded, t_ids)
+
+    if budget is None:
+        return relax_loop.fixed_point(step, dr, n, chunk)
+    dr, changed = relax_loop.run_hops(step, dr, budget)
+    return dr, relax_loop.hop_status(changed, budget, n)
 
 
 # destination rows a full-width gather (the cone's growth, the engine's
@@ -128,28 +137,10 @@ def _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, init=None):
 ROW_BLOCK = 1024
 
 
-def _cone_expand(sel_dr, bands, v_t, w_t, e_u, e_v, e_w_old, e_w_new,
-                 max_jumps, cell_limit=None, row_block=ROW_BLOCK):
-    """Affected-cone mask for a weight-increase delta (the frontier
-    kernel). Given resident distance rows ``sel_dr`` [B, N] and the
-    PRE-patch bands, mark every cell whose tight shortest path crosses
-    an increased edge: the cells whose distance may RISE, which a warm
-    seed must reset. Seed: cells u where an increased edge
-    (u -> v, w_old) was tight; each jump adds cell j when a raw-tight
-    band slot of j (old weights, old distances) reaches a cone cell,
-    until the cone stops growing. Tightness on RAW weights only
-    over-approximates (extra resets stay bit-identical by the
-    unique-fixed-point squeeze); INF cells never rise and are left out.
-
-    Returns ``(cone [B, N] bool, rows, cells, jumps, converged)``:
-    ``rows`` (int32 device scalar) counts rows with a nonempty cone,
-    ``cells`` (float32 device scalar, as the reference's sum, so the
-    threshold policy takes the same branch) the cone's population,
-    ``jumps`` (int) the jumps taken, ``converged`` (bool device scalar)
-    False when ``max_jumps`` cut the expansion off or the cone overflowed
-    ``cell_limit`` (a float32 device scalar): the cone is then an
-    under-approximation and the caller falls back to a coarser reset.
-    Each jump's continue test is one host sync (``da.sync_flag``)."""
+def ell_joins(bands, v_t, w_t):
+    """The ELL growth of one block of cone rows: ``joins(d_blk, c_blk,
+    joined_blk)`` writes into ``joined_blk`` the cells a raw-tight band
+    slot joins to the cone ``c_blk`` (old weights, resident distances)."""
 
     def joins(d_blk, c_blk, joined_blk):
         pos = 0
@@ -165,16 +156,59 @@ def _cone_expand(sel_dr, bands, v_t, w_t, e_u, e_v, e_w_old, e_w_new,
             joined_blk[:, pos : pos + band.rows] = (tight & c_blk[:, idx]).any(2)
             pos += band.rows
 
+    return joins
+
+
+def _cone_expand(sel_dr, bands, v_t, w_t, e_u, e_v, e_w_old, e_w_new,
+                 max_jumps, cell_limit=None, row_block=ROW_BLOCK, jump_budget=None):
+    """Affected-cone mask for a weight-increase delta (the frontier
+    kernel). Given resident distance rows ``sel_dr`` [B, N] and the
+    PRE-patch bands, mark every cell whose tight shortest path crosses
+    an increased edge: the cells whose distance may RISE, which a warm
+    seed must reset. Seed: cells u where an increased edge
+    (u -> v, w_old) was tight; each jump adds cell j when a raw-tight
+    band slot of j (old weights, old distances) reaches a cone cell,
+    until the cone stops growing. Tightness on RAW weights only
+    over-approximates (extra resets stay bit-identical by the
+    unique-fixed-point squeeze); INF cells never rise and are left out.
+
+    Returns ``(cone [B, N] bool, rows, cells, jumps, converged, more)``:
+    ``rows`` (int32 device scalar) counts rows with a nonempty cone,
+    ``cells`` (float32 device scalar, as the reference's sum, so the
+    threshold policy takes the same branch) the cone's population,
+    ``jumps`` (int32 device scalar) the jumps taken, ``converged`` (bool
+    device scalar) False when ``max_jumps`` cut the expansion off or the
+    cone overflowed ``cell_limit`` (a float32 device scalar): the cone is
+    then an under-approximation and the caller falls back to a coarser
+    reset. ``more`` (bool device scalar) is True when ``jump_budget`` (at
+    most ``max_jumps`` jumps with no host sync) ran out with the
+    expansion still going: the caller re-dispatches with a larger budget.
+    Without a budget the jumps run in chunks, one host sync a chunk, and
+    ``more`` is False."""
     return expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit,
-                       row_block, joins)
+                       row_block, ell_joins(bands, v_t, w_t), jump_budget)
 
 
-def expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit, row_block,
-                joins):
-    """The cone expansion both backends share: the seed, the counters and
-    the jump loop; ``joins(d_blk, c_blk, joined_blk)`` is the backend's
-    growth over one block of rows, writing into ``joined_blk`` the cells
-    a tight slot joins to the cone ``c_blk``."""
+# cone jumps an eager expansion runs between two reads of its flag
+JUMP_CHUNK = 4
+
+
+def _within(cells, cell_limit):
+    return cells <= cell_limit if cell_limit is not None else torch.ones_like(cells > 0)
+
+
+def _cone_count(c):
+    rows = c.any(1).sum(dtype=torch.int32)
+    # float32: the population can pass int32 at 100k nodes; a policy
+    # threshold tolerates the rounding
+    return rows, c.sum(dtype=torch.float32)
+
+
+def cone_start(sel_dr, e_u, e_v, e_w_old, e_w_new, cell_limit=None):
+    """The cone's seed and the expansion's device state ``(cone, rows,
+    cells, grew, jumps, go)``: cells u where an increased edge (u -> v,
+    w_old) was tight; ``go`` the reference's loop condition (the last jump
+    grew, the cone within ``cell_limit``)."""
     live = sel_dr < INF
     eu, ev = e_u.long(), e_v.long()
     inc_e = (e_w_new > e_w_old) & (e_w_old < INF)
@@ -187,12 +221,18 @@ def expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit, row_b
     hits.index_add_(1, eu, seed_tight.to(torch.int32))
     cone = hits > 0
     del hits
+    rows, cells = _cone_count(cone)
+    grew = cells > 0
+    jumps = torch.zeros((), dtype=torch.int32, device=sel_dr.device)
+    return cone, rows, cells, grew, jumps, grew & _within(cells, cell_limit)
 
-    def count(c):
-        rows = c.any(1).sum(dtype=torch.int32)
-        # float32: the population can pass int32 at 100k nodes; a policy
-        # threshold tolerates the rounding
-        return rows, c.sum(dtype=torch.float32)
+
+def cone_run(state, sel_dr, joins, todo, max_jumps, cell_limit=None, row_block=ROW_BLOCK):
+    """``todo`` jumps of the expansion ``state`` (``cone_start``'s), with
+    no host sync: a jump runs under the device flag ``go``, which drops
+    once a jump grows nothing, the cone passes ``cell_limit`` or
+    ``max_jumps`` jumps ran; after that every counter stays as it is."""
+    cone, rows, cells, grew, jumps, go = state
 
     def grow(c):
         joined = torch.zeros_like(c)
@@ -201,22 +241,49 @@ def expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit, row_b
                   joined[a : a + row_block])
         return c | joined
 
-    rows, cells = count(cone)
-    grew = cells > 0
-    jumps = 0
-    while jumps < max_jumps:
-        go = grew if cell_limit is None else grew & (cells <= cell_limit)
-        if not da.sync_flag(go):
-            break
+    for _ in range(todo):
         nxt = grow(cone)
-        grew = (nxt & ~cone).any()
-        rows, cells = count(nxt)
-        cone = nxt
-        jumps += 1
+        n_rows, n_cells = _cone_count(nxt)
+        grew = torch.where(go, (nxt & ~cone).any(), grew)
+        cone = torch.where(go, nxt, cone)
+        rows = torch.where(go, n_rows, rows)
+        cells = torch.where(go, n_cells, cells)
+        jumps = jumps + go.to(torch.int32)
+        go = go & grew & _within(cells, cell_limit) & (jumps < max_jumps)
+    return cone, rows, cells, grew, jumps, go
+
+
+def cone_converged(state, cell_limit=None):
+    """False when the expansion was cut off (``max_jumps``) or the cone
+    overflowed ``cell_limit``: it is then an under-approximation."""
+    _cone, _rows, cells, grew, _jumps, _go = state
     converged = ~grew
     if cell_limit is not None:
         converged = converged & (cells <= cell_limit)
-    return cone, rows, cells, jumps, converged
+    return converged
+
+
+def expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit, row_block,
+                joins, jump_budget=None):
+    """The cone expansion both backends share: ``cone_start``, then the
+    jumps (``cone_run``: a jump budget with no host sync, or chunks of
+    ``JUMP_CHUNK`` jumps with one read of the flag each), then the result
+    ``(cone, rows, cells, jumps, converged, more)``; ``joins`` is the
+    backend's growth of one block of rows (``ell_joins``)."""
+    state = cone_start(sel_dr, e_u, e_v, e_w_old, e_w_new, cell_limit)
+    if jump_budget is None:
+        done = 0
+        while done < max_jumps and da.sync_flag(state[5]):
+            todo = min(JUMP_CHUNK, max_jumps - done)
+            state = cone_run(state, sel_dr, joins, todo, max_jumps, cell_limit, row_block)
+            done += todo
+        more = torch.zeros((), dtype=torch.bool, device=sel_dr.device)
+    else:
+        state = cone_run(state, sel_dr, joins, min(jump_budget, max_jumps), max_jumps,
+                         cell_limit, row_block)
+        more = state[5]
+    cone, rows, cells, _grew, jumps, _go = state
+    return cone, rows, cells, jumps, cone_converged(state, cell_limit), more
 
 
 def _blocked(overloaded, v, t_ids) -> torch.Tensor:
@@ -352,11 +419,11 @@ def _pack_block(digest, nh_count, d_s, packed_mask) -> torch.Tensor:
 
 
 def _route_block_body(v_t, w_t, overloaded, t_ids, samp_ids, samp_v,
-                      samp_w, pos_w, bands, n):
+                      samp_w, pos_w, bands, n, chunk=relax_loop.HOP_CHUNK):
     """Fixed point and on-device route selection for one destination
     block: ``(packed [B, W] int32, relax hops)``. The block costs one
     device -> host transfer of the packed array."""
-    dr, hops = _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n)
+    dr, hops = _rev_fixed_point(bands, v_t, w_t, overloaded, t_ids, n, chunk=chunk)
     nh_count = _nh_counts(dr, bands, v_t, w_t, overloaded, t_ids)
     digest = _digest_rows(dr, nh_count, pos_w)
     d_s, packed_mask = _sample_stats(
@@ -538,12 +605,16 @@ class RouteSweeper:
     def solve_block(self, t_ids) -> torch.Tensor:
         """One destination block -> packed [B, W] int32, still on the
         device (the caller reads it back)."""
-        packed, hops = _route_block_body(
-            self.v_t, self.w_t, self.overloaded,
-            _as_device_ids(t_ids, self.device),
-            self._samp_ids_dev, self._samp_v_dev, self._samp_w_dev,
-            self._pos_w_dev, self.graph.bands, self.graph.n_pad,
-        )
+        impl = _ell_impl_for(self.graph.n_pad, max(b.k for b in self.graph.bands),
+                             self.device)
+        with autotune.using("ell_relax", impl):
+            packed, hops = _route_block_body(
+                self.v_t, self.w_t, self.overloaded,
+                _as_device_ids(t_ids, self.device),
+                self._samp_ids_dev, self._samp_v_dev, self._samp_w_dev,
+                self._pos_w_dev, self.graph.bands, self.graph.n_pad,
+                relax_loop.chunk_for(self.block_hops[-1] if self.block_hops else 0),
+            )
         self.block_hops.append(hops)
         return packed
 

@@ -3,11 +3,15 @@
 Port note: mirrors ``openr_tpu/ops/spf.py``. Every relaxation goes
 through ``ops.minplus.minplus``: the hand-written CUDA kernel on the
 card, its plain torch version on the CPU. The JAX ``lax.while_loop``
-becomes a Python loop whose convergence test ``any(nxt < d)`` is one
-host sync per hop. ``reconverge_step`` patches the resident metric
-tensor IN PLACE. Left out for a later slice: ``first_hop_matrix`` and
-``spf_from_source_with_first_hops`` (the all-pairs daemon view) and the
-jnp/pallas/autotune implementation selector.
+becomes chunks of hops whose changed count stays on the card, read once a
+chunk (``ops/relax_loop.py``). ``reconverge_step`` patches the resident
+metric tensor IN PLACE. The implementation selector is the reference's
+(``set_minplus_impl``, ``OPENR_MINPLUS``): "plan" (the kernel's heuristic
+launch plan), one of the autotuner's "minplus" variants, or "auto", the
+measured winner for the ``[S, N]`` shape (``ops/autotune.py``); its
+"jnp" and "pallas" both mean "plan". Left out for a later slice:
+``first_hop_matrix`` and ``spf_from_source_with_first_hops`` (the
+all-pairs daemon view).
 
 Shortest paths are computed algebraically: Bellman-Ford over min-plus
 products for a batch of sources (``distances_from_sources``,
@@ -25,14 +29,42 @@ at or end on it. Distances saturate at INF = 2**30 - 1.
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from openr_tpu_torch.ops import dispatch_accounting as da
-from openr_tpu_torch.ops.minplus import INF, minplus
+from openr_tpu_torch.ops import autotune, relax_loop
+from openr_tpu_torch.ops.minplus import INF, VARIANTS, minplus
 from openr_tpu_torch.ops.staging import UploadStager
+
+
+def _impl_setting(name: str) -> str:
+    impl = {"jnp": "plan", "pallas": "plan"}.get(name, name)
+    if impl not in VARIANTS + ("auto",):
+        raise ValueError(f"minplus impl {name!r}: one of {VARIANTS + ('auto',)}")
+    return impl
+
+
+_MINPLUS_IMPL = _impl_setting(os.environ.get("OPENR_MINPLUS", "plan"))
+
+
+def set_minplus_impl(impl: str) -> None:
+    global _MINPLUS_IMPL
+    _MINPLUS_IMPL = _impl_setting(impl)
+
+
+def get_minplus_impl() -> str:
+    return _MINPLUS_IMPL
+
+
+def _impl_for(shape, device) -> str:
+    """The concrete plan variant for one dispatch: "auto" resolves to the
+    measured winner for ``[rows, n]`` against ``[n, n]``."""
+    if _MINPLUS_IMPL != "auto":
+        return _MINPLUS_IMPL
+    return autotune.resolve_minplus(tuple(shape), device)
 
 
 def _mask_transit_rows(d: torch.Tensor, overloaded: torch.Tensor) -> torch.Tensor:
@@ -46,13 +78,9 @@ def _mask_transit_rows(d: torch.Tensor, overloaded: torch.Tensor) -> torch.Tenso
 
 def _relax_to_fixed_point(d: torch.Tensor, t: torch.Tensor, limit: int) -> torch.Tensor:
     """Iterate ``d <- min(d, d (x) t)`` until nothing shrinks or ``limit``
-    steps ran; one host sync per step."""
-    for _ in range(limit):
-        nxt = torch.minimum(d, minplus(d, t))
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
+    steps ran; one host sync a chunk of steps."""
+    with autotune.using("minplus", _impl_for(d.shape, d.device)):
+        d, _ = relax_loop.fixed_point(lambda x: torch.minimum(x, minplus(x, t)), d, limit)
     return d
 
 
@@ -63,12 +91,10 @@ def all_pairs_distances(w: torch.Tensor, overloaded: torch.Tensor) -> torch.Tens
     n = w.shape[0]
     d = w.clone()
     d.diagonal().fill_(0)
-    for _ in range(n):
-        nxt = torch.minimum(d, minplus(d, _mask_transit_rows(d, overloaded)))
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
+    with autotune.using("minplus", _impl_for(w.shape, w.device)):
+        d, _ = relax_loop.fixed_point(
+            lambda x: torch.minimum(x, minplus(x, _mask_transit_rows(x, overloaded))), d, n
+        )
     return d
 
 

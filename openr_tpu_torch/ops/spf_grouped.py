@@ -10,15 +10,19 @@ Port note: mirrors the cold part of ``openr_tpu/ops/spf_grouped.py``:
 ``structure_report``. Every contraction goes through one of the two
 hand-written kernels of ``ops.grouped_minplus`` (``batched_minplus`` or
 ``batched_minplus_t``, chosen by the ``impl`` argument; on the CPU their
-plain torch versions). The reference's environment selector and its
-``jnp`` formulation have no counterpart: no torch-op formulation is a
-choice on the card. The churn engine's pieces (``ops/route_engine.py``'s
+plain torch versions). The reference's environment selector is here
+(``set_grouped_impl``, ``OPENR_GROUPED_IMPL``): either kernel, or "auto",
+the measured winner of one representative block (``ops/autotune.py``);
+its ``jnp`` formulation has no counterpart, no torch-op formulation being
+a choice on the card, so the reference's names "jnp" and "pallas" mean
+``batched_minplus`` and "pallas_t" ``batched_minplus_t``. The churn
+engine's pieces (``ops/route_engine.py``'s
 grouped engine) are here too: the warm seed of ``_grouped_fixed_point``
 (``init=``), ``_grouped_cone_expand`` (plain torch ops, walked over blocks
 of destination rows as ``route_sweep._cone_expand`` is), ``slot_table``
-and ``grouped_patch`` (host numpy, copied). Each hop's and each cone
-jump's convergence test is one host sync, counted through
-``dispatch_accounting.sync_flag``. Not ported yet: the sharded sweeps.
+and ``grouped_patch`` (host numpy, copied). The hop loops and the cone's
+jumps keep their flags on the card (``ops/relax_loop.py``,
+``route_sweep.expand_cone``). Not ported yet: the sharded sweeps.
 
 In a multi-tier fabric, nodes overwhelmingly share in-neighbour sets:
 nodes sharing a source set form a complete bipartite block with their
@@ -37,6 +41,7 @@ by node name.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
-from openr_tpu_torch.ops import dispatch_accounting as da
+from openr_tpu_torch.ops import autotune, relax_loop
 from openr_tpu_torch.ops import route_sweep as rs
 from openr_tpu_torch.ops.grouped_minplus import batched_minplus, batched_minplus_t
 from openr_tpu_torch.ops.minplus import INF
@@ -56,6 +61,34 @@ from openr_tpu_torch.ops.spf_sparse import (
 )
 
 IMPLS = ("batched_minplus", "batched_minplus_t")
+_REFERENCE_IMPLS = {"jnp": "batched_minplus", "pallas": "batched_minplus",
+                    "pallas_t": "batched_minplus_t"}
+
+# representative [B, G, S, R] probe block of the "auto" measurement
+_AUTO_PROBE_SHAPE = (32, 8, 8, 16)
+
+
+def _impl_setting(name: str) -> str:
+    impl = _REFERENCE_IMPLS.get(name, name)
+    if impl not in IMPLS + ("auto",):
+        raise ValueError(f"grouped impl {name!r}: one of {IMPLS + ('auto',)}")
+    return impl
+
+
+_GROUPED_IMPL = _impl_setting(os.environ.get("OPENR_GROUPED_IMPL", "batched_minplus"))
+
+
+def set_grouped_impl(impl: str) -> None:
+    global _GROUPED_IMPL
+    _GROUPED_IMPL = _impl_setting(impl)
+
+
+def get_grouped_impl(device: DeviceLike = None) -> str:
+    """The selected kernel; "auto" resolves to the measured winner on
+    ``device`` (None = CUDA)."""
+    if _GROUPED_IMPL != "auto":
+        return _GROUPED_IMPL
+    return autotune.resolve_grouped(_AUTO_PROBE_SHAPE, resolve_device(device))
 
 
 def _check_impl(impl: str) -> str:
@@ -347,7 +380,7 @@ def _grouped_relax(d, meta, srcs_t, ws_t, overloaded, t_ids, impl):
 
 
 def _grouped_fixed_point(meta, srcs_t, ws_t, overloaded, ids, n, reverse, impl,
-                         init=None):
+                         init=None, budget=None, chunk=relax_loop.HOP_CHUNK):
     """``(distance rows [B, n], hops)`` from the unit init.
     ``reverse=False``: rows are SOURCES (forward all-sources; the init
     is one unmasked relax so an overloaded source still originates).
@@ -355,12 +388,15 @@ def _grouped_fixed_point(meta, srcs_t, ws_t, overloaded, ids, n, reverse, impl,
     the per-row mask needs no init special case). ``init`` (reverse
     only) warm-seeds the rows with a pointwise upper bound on the fixed
     point; the unit anchor is min-ed in, and the unique fixed point
-    keeps the result bit-identical to the cold solve. One host sync per
-    hop (``da.sync_flag``); at most ``n`` hops."""
+    keeps the result bit-identical to the cold solve. At most ``n`` hops,
+    the changed count read once a ``chunk`` of hops
+    (``relax_loop.fixed_point``); with a hop ``budget``, that many hops
+    with no host sync and ``hops`` the device pair ``(hops, converged)``,
+    as in ``route_sweep._rev_fixed_point``."""
     b = ids.shape[0]
     dev = ids.device
     d = torch.full((b, n), INF, dtype=torch.int32, device=dev)
-    d[torch.arange(b, device=dev), ids.long()] = 0
+    d.scatter_(1, ids.long()[:, None], 0)  # no host scalar copy (capturable)
     if reverse:
         if init is not None:
             d = torch.minimum(init, d)
@@ -371,15 +407,14 @@ def _grouped_fixed_point(meta, srcs_t, ws_t, overloaded, ids, n, reverse, impl,
             d, meta, srcs_t, ws_t, torch.zeros_like(overloaded), None, impl
         )
     t_ids = ids if reverse else None
-    hops = 0
-    while hops < n:
-        nxt = _grouped_relax(d, meta, srcs_t, ws_t, overloaded, t_ids, impl)
-        hops += 1
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
-    return d, hops
+
+    def step(x):
+        return _grouped_relax(x, meta, srcs_t, ws_t, overloaded, t_ids, impl)
+
+    if budget is None:
+        return relax_loop.fixed_point(step, d, n, chunk)
+    d, changed = relax_loop.run_hops(step, d, budget)
+    return d, relax_loop.hop_status(changed, budget, n)
 
 
 class GroupedState:
@@ -449,15 +484,22 @@ def _grouped_nh_counts(dr, meta, srcs_t, ws_t, overloaded, t_ids) -> torch.Tenso
 
 def _grouped_cone_expand(sel_dr, meta, srcs_t, ws_t, e_u, e_v, e_w_old,
                          e_w_new, max_jumps, cell_limit=None,
-                         row_block=rs.ROW_BLOCK):
+                         row_block=rs.ROW_BLOCK, jump_budget=None):
     """Affected-cone mask for a weight-increase delta over the GROUPED
     segment slabs: ``route_sweep._cone_expand``'s seed, growth and
     counters (``route_sweep.expand_cone``), walking each band's
     ``[G, S, R]`` segments instead of ELL slots. Cell j joins when a
     raw-tight segment slot of j (old weights, resident distances) reaches
     a cone cell; axis-2 segments transpose onto the band grid as in
-    ``_grouped_relax``. Returns ``(cone, rows, cells, jumps, converged)``
-    with ``_cone_expand``'s contract."""
+    ``_grouped_relax``. Returns ``(cone, rows, cells, jumps, converged,
+    more)`` with ``_cone_expand``'s contract."""
+    return rs.expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit,
+                          row_block, grouped_joins(meta, srcs_t, ws_t), jump_budget)
+
+
+def grouped_joins(meta, srcs_t, ws_t):
+    """The grouped growth of one block of cone rows
+    (``route_sweep.ell_joins``' contract over the segment slabs)."""
 
     def joins(d_blk, c_blk, joined_blk):
         b = d_blk.shape[0]
@@ -485,18 +527,18 @@ def _grouped_cone_expand(sel_dr, meta, srcs_t, ws_t, e_u, e_v, e_w_old,
                 acc |= j.reshape(b, rows)
             pos += rows
 
-    return rs.expand_cone(sel_dr, e_u, e_v, e_w_old, e_w_new, max_jumps, cell_limit,
-                          row_block, joins)
+    return joins
 
 
 def _grouped_route_block_body(srcs_t, ws_t, overloaded, t_ids, samp_ids,
-                              samp_v, samp_w, pos_w, meta, n, impl):
+                              samp_v, samp_w, pos_w, meta, n, impl,
+                              chunk=relax_loop.HOP_CHUNK):
     """Grouped twin of ``route_sweep._route_block_body``: the same packed
     layout and digest algebra; only the relaxation differs, so the
     canonical digest must agree bit-exactly with the ELL sweep's.
     Returns ``(packed [B, W] int32, relax hops)``."""
     dr, hops = _grouped_fixed_point(
-        meta, srcs_t, ws_t, overloaded, t_ids, n, reverse=True, impl=impl
+        meta, srcs_t, ws_t, overloaded, t_ids, n, reverse=True, impl=impl, chunk=chunk
     )
     nh_count = _grouped_nh_counts(dr, meta, srcs_t, ws_t, overloaded, t_ids)
     digest = rs._digest_rows(dr, nh_count, pos_w)
@@ -536,6 +578,7 @@ class GroupedRouteSweeper(rs.RouteSweeper):
             _as_device_ids(t_ids, self.device),
             self._samp_ids_dev, self._samp_v_dev, self._samp_w_dev,
             self._pos_w_dev, self.meta, self.graph.n_pad, self.impl,
+            relax_loop.chunk_for(self.block_hops[-1] if self.block_hops else 0),
         )
         self.block_hops.append(hops)
         return packed

@@ -21,16 +21,24 @@ and the incremental KSP2 engine's all-sources solve: ``_ell_fixed_point``,
 distances, the root's view and the endpoint rows; the latter also the
 speculative masked re-solve of every destination, row-diffed on the
 device).
-The reference's jitted entries have no counterpart in eager PyTorch:
-the fixed points are called directly. Each band of a relax step goes
-through ``ops.ell_relax.ell_band_relax`` (or ``ell_band_relax_masked``:
+The reference's committed dispatches go through the executable cache
+here too (``ell_dispatch``, ``ops/aot_cache.py``): ``ell_masked_distances``,
+``ell_masked_distances_resident``, ``ell_all_view_rows`` and
+``ell_all_view_rows_masked`` run a captured body of a fixed hop budget
+whose status (hops, converged) is read once, and re-dispatched with a
+larger budget when it ran out; the other fixed points run eagerly. The
+plan selector ``set_ell_relax_impl`` ("plan", a variant, "auto") is the
+reference's. Each band of a relax step goes through
+``ops.ell_relax.ell_band_relax`` (or ``ell_band_relax_masked``:
 the hand-written CUDA kernels on the card, their plain torch versions on
 the CPU), writing into its column slice of one output instead of
 concatenating band parts. The KSP2 edge masks are built bit-packed on
 the host (32 slots an int32 word) where the JAX package builds bool
-cells. The JAX ``lax.while_loop`` becomes a Python loop with one host
-sync per hop. Where the reference donates its resident buffers, the port
-scatters the patched rows into them in place (``index_copy_``); its
+cells. The JAX ``lax.while_loop`` becomes chunks of hops whose changed
+count stays on the card (``ops/relax_loop.py``): one host sync a chunk
+eagerly, none in a captured body. Where the reference donates its
+resident buffers, the port scatters the patched rows into them in place
+(``index_copy_``); its
 host-to-device copies go through one pinned buffer
 (``ops.staging.UploadStager``), and the engine's and the masked solve's
 readbacks land in pinned host memory (``ops.staging.Readback``), where the
@@ -49,6 +57,7 @@ ordered by (degree class, name), so every lookup goes through
 
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from dataclasses import dataclass, replace
@@ -58,7 +67,10 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops import autotune
 from openr_tpu_torch.ops import dispatch_accounting as da
+from openr_tpu_torch.ops import relax_loop
+from openr_tpu_torch.ops.aot_cache import _flatten, aot_call
 from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked, mask_words
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
@@ -85,6 +97,92 @@ ELL_COUNTERS = get_registry().counter_dict(
     ],
     prefix="decision.",
 )
+
+
+# Sliced-ELL relax plan selector, the sparse twin of ops.spf's min-plus
+# selector: "plan" (each kernel's heuristic launch plan), one of the
+# autotuner's "ell_relax" variants by name, or "auto", the measured winner
+# for the dispatch's (n_pad, k_slot) band geometry (ops.autotune). The
+# reference's names "jnp" and "pallas" both mean "plan": the port has one
+# formulation on the card, the hand kernels. The committed dispatch tags
+# re-key through ``ell_dispatch`` when a variant other than "plan" is
+# armed, so flipping the impl never replays a stale capture.
+_REFERENCE_IMPLS = {"jnp": "plan", "pallas": "plan"}
+_ELL_IMPLS = tuple(c for c in autotune._FAMILY_CANDIDATES["ell_relax"] if c != "plain")
+
+
+def _impl_setting(name: str, valid: Tuple[str, ...]) -> str:
+    impl = _REFERENCE_IMPLS.get(name, name)
+    if impl not in valid + ("auto",):
+        raise ValueError(f"ell relax impl {name!r}: one of {valid + ('auto',)}")
+    return impl
+
+
+_ELL_IMPL = _impl_setting(os.environ.get("OPENR_ELL_RELAX", "plan"), _ELL_IMPLS)
+
+
+def set_ell_relax_impl(impl: str) -> None:
+    global _ELL_IMPL
+    _ELL_IMPL = _impl_setting(impl, _ELL_IMPLS)
+
+
+def get_ell_relax_impl() -> str:
+    return _ELL_IMPL
+
+
+def _ell_impl_for(n: int, k: int, device) -> str:
+    """The concrete plan variant for one (n_pad, k_slot) band geometry:
+    "auto" resolves to the measured winner (memoized per shape by the
+    autotuner, measured here, outside any capture)."""
+    if _ELL_IMPL != "auto":
+        return _ELL_IMPL
+    return autotune.resolve_ell_relax((int(n), int(k)), device)
+
+
+def ell_dispatch(tag, fn, dyn_args, statics, shape=None):
+    """Committed dispatch of a body that runs the sliced-ELL relaxes
+    (``_ell_relax``, ``_ell_relax_masked``, ``route_sweep._rev_relax``):
+    the concrete plan variant for the dispatch's band geometry (from
+    ``statics`` ``bands`` and ``n``, or ``shape=(n, k)``) is resolved
+    first and, when it is not "plan", suffixes the tag (``tag@run4``), so
+    it re-keys the executable cache and shows in ``ops.device_ms.<tag>``.
+    The kernels inside launch that variant (``autotune.using``)."""
+    if shape is None:
+        shape = (statics["n"], max(b.k for b in statics["bands"]))
+    leaves: List[torch.Tensor] = []
+    _flatten(tuple(dyn_args), leaves)
+    impl = _ell_impl_for(int(shape[0]), int(shape[1]), leaves[0].device)
+    if impl != "plan":
+        tag = f"{tag}@{impl}"
+    with autotune.using("ell_relax", impl):
+        return aot_call(tag, fn, dyn_args, statics)
+
+
+# hop budget of each budgeted dispatch tag: it starts at one chunk and
+# doubles (relax_loop.next_budget) each time a dispatch runs out of hops
+_HOP_BUDGET: Dict[str, int] = {}
+
+
+def _budgeted_dispatch(tag, fn, dyn_args, statics, n: int):
+    """``ell_dispatch`` of a body that takes a static hop ``budget`` and
+    returns its outputs followed by a status row ``[hops, converged, ...]``
+    (one pair a fixed point): the status is read (one blocking sync), and
+    the body re-dispatched with a larger budget until every fixed point in
+    it converged. Returns ``(outputs, hops of the first fixed point)``."""
+    budget = min(_HOP_BUDGET.get(tag, relax_loop.HOP_CHUNK), n)
+    while True:
+        *out, status = ell_dispatch(tag, fn, dyn_args, dict(statics, budget=budget))
+        st = da.reap_read(status)
+        if st[1::2].all() or budget >= n:
+            return out, int(st[0])
+        budget = relax_loop.next_budget(budget, n)
+        _HOP_BUDGET[tag] = budget
+
+
+def _status(changed, budget: int, n: int) -> torch.Tensor:
+    """The int32 ``[hops, converged]`` of one budgeted fixed point."""
+    hops, ok = relax_loop.hop_status(changed, budget, n)
+    return torch.stack([hops.to(torch.int32), ok.to(torch.int32)])
 
 
 def _pad_up(n: int, align: int) -> int:
@@ -504,15 +602,12 @@ def _ell_view_batch(srcs_t, ws_t, overloaded, srcs, w_sv, bands, n):
     b = srcs.shape[0]
     dev = overloaded.device
     unit = torch.full((b, n), INF, dtype=torch.int32, device=dev)
-    unit[torch.arange(b, device=dev), srcs.long()] = 0
+    unit.scatter_(1, srcs.long()[:, None], 0)
     # init rows: one UNMASKED relax (overloaded sources still originate)
     d = _ell_relax(unit, bands, srcs_t, ws_t, torch.zeros_like(overloaded))
-    for _ in range(n):
-        nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
+    d, _ = relax_loop.fixed_point(
+        lambda x: _ell_relax(x, bands, srcs_t, ws_t, overloaded), d, n
+    )
     fh = _first_hops_from_rows(d, srcs, w_sv, overloaded)
     return torch.cat([d, fh.to(torch.int32)], dim=0)
 
@@ -540,12 +635,14 @@ def ell_view_batch_packed(graph: EllGraph, srcs, device: torch.device) -> torch.
     for a padded source batch over the sliced-ELL graph, solved on
     ``device`` from the graph's host bands."""
     srcs_dev, w_sv = _batch_args(graph, srcs, device)
-    return _ell_view_batch(
-        tuple(torch.from_numpy(s).to(device) for s in graph.src),
-        tuple(torch.from_numpy(w).to(device) for w in graph.w),
-        torch.from_numpy(graph.overloaded).to(device),
-        srcs_dev, w_sv, graph.bands, graph.n_pad,
-    )
+    impl = _ell_impl_for(graph.n_pad, max(b.k for b in graph.bands), device)
+    with autotune.using("ell_relax", impl):
+        return _ell_view_batch(
+            tuple(torch.from_numpy(s).to(device) for s in graph.src),
+            tuple(torch.from_numpy(w).to(device) for w in graph.w),
+            torch.from_numpy(graph.overloaded).to(device),
+            srcs_dev, w_sv, graph.bands, graph.n_pad,
+        )
 
 
 def ell_source_batch(graph: EllGraph, ls, src_name: str) -> List[int]:
@@ -586,28 +683,30 @@ def _ell_relax_masked(d, bands, srcs_t, ws_t, masks_t, overloaded) -> torch.Tens
     return out
 
 
-def _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n):
+def _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n,
+                            budget=None):
     """``(distances [B, n], hops)`` from ``src_id`` over B differently
     masked graphs (reference semantics: LinkState.cpp:763 getKthPaths'
     runSpf with linksToIgnore, one graph per destination). The init is
     one relax with no overload mask, so an overloaded source still
     originates; then one relax per hop until a hop changes nothing or
-    after ``n`` hops, one host sync per hop."""
+    after ``n`` hops (``relax_loop.fixed_point``: one host sync a chunk).
+    With a hop ``budget`` no host sync at all: ``budget`` hops, and
+    ``hops`` is the device status ``[hops, converged]`` (``_status``)."""
     b = masks_t[0].shape[0]
     unit = torch.full((b, n), INF, dtype=torch.int32, device=overloaded.device)
     unit[:, src_id] = 0
     d = _ell_relax_masked(
         unit, bands, srcs_t, ws_t, masks_t, torch.zeros_like(overloaded)
     )
-    hops = 0
-    while hops < n:
-        nxt = _ell_relax_masked(d, bands, srcs_t, ws_t, masks_t, overloaded)
-        hops += 1
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
-    return d, hops
+
+    def step(x):
+        return _ell_relax_masked(x, bands, srcs_t, ws_t, masks_t, overloaded)
+
+    if budget is None:
+        return relax_loop.fixed_point(step, d, n)
+    d, changed = relax_loop.run_hops(step, d, budget)
+    return d, _status(changed, budget, n)
 
 
 def build_edge_masks(graph: EllGraph, exclusion_sets, parallel_pairs=None):
@@ -683,12 +782,16 @@ def ell_masked_distances(
     The bands and the masks are uploaded once per call; the masks are the
     bulk of it ([B, slots / 8] bytes)."""
     dev = resolve_device(device)
-    d, _ = _ell_masked_fixed_point(
-        tuple(torch.from_numpy(s).to(dev) for s in graph.src),
-        tuple(torch.from_numpy(w).to(dev) for w in graph.w),
-        tuple(torch.from_numpy(m).to(dev) for m in masks),
-        torch.from_numpy(graph.overloaded).to(dev),
-        src_id, graph.bands, graph.n_pad,
+    (d,), _ = _budgeted_dispatch(
+        "ksp2_masked_host", _ell_masked_fixed_point,
+        (
+            tuple(torch.from_numpy(s).to(dev) for s in graph.src),
+            tuple(torch.from_numpy(w).to(dev) for w in graph.w),
+            tuple(torch.from_numpy(m).to(dev) for m in masks),
+            torch.from_numpy(graph.overloaded).to(dev),
+            int(src_id),
+        ),
+        dict(bands=graph.bands, n=graph.n_pad), graph.n_pad,
     )
     return da.reap_read(d)
 
@@ -738,29 +841,25 @@ def _scatter_rows(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t) -> None:
 
 
 def _ell_reconverge(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t,
-                    inc_tail, inc_head, inc_w, overloaded, d_prev, srcs, bands, n):
+                    inc_tail, inc_head, inc_w, overloaded, d_prev, srcs, bands, n,
+                    chunk=relax_loop.HOP_CHUNK):
     """The fused churn step: scatter the patched rows into the resident
     bands, derive the direct metrics on the device, warm-seed the fixed
     point from ``d_prev`` (resetting only the increase cone), relax
     through ``ell_band_relax`` until a hop changes nothing (one host
-    sync a hop), and pack distances + first hops. Returns ``(packed
+    sync a ``chunk`` of hops), and pack distances + first hops. Returns ``(packed
     [2B, n], d [B, n], hops)``."""
     _scatter_rows(srcs_t, ws_t, patch_ids_t, patch_src_t, patch_w_t)
     w_sv = _device_direct_metrics(srcs_t, ws_t, srcs, bands)
     b = srcs.shape[0]
     unit = torch.full((b, n), INF, dtype=torch.int32, device=overloaded.device)
-    unit[torch.arange(b, device=overloaded.device), srcs.long()] = 0
+    unit.scatter_(1, srcs.long()[:, None], 0)
     # init rows: one UNMASKED relax (overloaded sources still originate)
     d0 = _ell_relax(unit, bands, srcs_t, ws_t, torch.zeros_like(overloaded))
     d = _warm_seed(d_prev, inc_tail, inc_head, inc_w, d0)
-    hops = 0
-    while hops < n:
-        nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
-        hops += 1
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
+    d, hops = relax_loop.fixed_point(
+        lambda x: _ell_relax(x, bands, srcs_t, ws_t, overloaded), d, n, chunk
+    )
     fh = _first_hops_from_rows(d, srcs, w_sv, overloaded)
     return torch.cat([d, fh.to(torch.int32)], dim=0), d, hops
 
@@ -984,10 +1083,15 @@ class EllState:
         if d_prev is None:
             d_prev = torch.zeros((b, patched.n_pad), dtype=torch.int32, device=self.device)
         t_solve = time.perf_counter()
-        packed, d, hops = _ell_reconverge(
-            in_src, in_w, ids, p_src, p_w, ext[0], ext[1], ext[2], overloaded,
-            d_prev, ext[3], patched.bands, patched.n_pad,
-        )
+        impl = _ell_impl_for(patched.n_pad, max(b.k for b in patched.bands), self.device)
+        with autotune.using("ell_relax", impl):
+            # a warm solve reads its flag after as many hops as the last
+            # one took; a cold one after the default chunk
+            packed, d, hops = _ell_reconverge(
+                in_src, in_w, ids, p_src, p_w, ext[0], ext[1], ext[2], overloaded,
+                d_prev, ext[3], patched.bands, patched.n_pad,
+                relax_loop.chunk_for(self.last_hops if warm else 0),
+            )
         t_end = time.perf_counter()
         self.src, self.w, self.overloaded = in_src, in_w, overloaded
         self._d_dev = d
@@ -1019,9 +1123,10 @@ def ell_masked_distances_resident(state: EllState, src_id: int, masks) -> Readba
     state._check_whole()
     if not isinstance(masks[0], torch.Tensor):
         masks = state.stager.upload([("masks", m) for m in masks])
-    d, _ = _ell_masked_fixed_point(
-        state.src, state.w, tuple(masks), state.overloaded, src_id,
-        state.graph.bands, state.graph.n_pad,
+    (d,), _ = _budgeted_dispatch(
+        "ksp2_masked_resident", _ell_masked_fixed_point,
+        (state.src, state.w, tuple(masks), state.overloaded, int(src_id)),
+        dict(bands=state.graph.bands, n=state.graph.n_pad), state.graph.n_pad,
     )
     return Readback(d)
 
@@ -1029,31 +1134,34 @@ def ell_masked_distances_resident(state: EllState, src_id: int, masks) -> Readba
 # -- all-sources solve and the KSP2 engine's fused dispatches ----------------
 
 
-def _ell_fixed_point(srcs_t, ws_t, overloaded, src_ids, bands, n, warm=None):
+def _ell_fixed_point(srcs_t, ws_t, overloaded, src_ids, bands, n, warm=None,
+                     budget=None):
     """``(distances [S, n], hops)`` from a batch of sources over the class
     bands. The init is one relax with no overload mask, so an overloaded
     source still originates; ``warm`` = (d_prev, inc_tail, inc_head,
     inc_w) seeds it from the previous rows through ``_warm_seed`` (the
     same fixed point, fewer hops under churn). Then one relax per hop
-    until a hop changes nothing or after ``n`` hops, one host sync per
-    hop."""
+    until a hop changes nothing or after ``n`` hops, one host sync a
+    chunk of hops; with a hop ``budget``, ``budget`` hops and the device
+    status for ``hops``, as in ``_ell_masked_fixed_point``."""
     s = src_ids.shape[0]
     dev = overloaded.device
     unit = torch.full((s, n), INF, dtype=torch.int32, device=dev)
-    unit[torch.arange(s, device=dev), src_ids.long()] = 0
+    # a scatter of the scalar: an index_put of 0 would copy a host
+    # scalar to the card, which a graph capture refuses
+    unit.scatter_(1, src_ids.long()[:, None], 0)
     d = _ell_relax(unit, bands, srcs_t, ws_t, torch.zeros_like(overloaded))
     del unit
     if warm is not None:
         d = _warm_seed(*warm, d)
-    hops = 0
-    while hops < n:
-        nxt = _ell_relax(d, bands, srcs_t, ws_t, overloaded)
-        hops += 1
-        changed = da.sync_flag((nxt < d).any())
-        d = nxt
-        if not changed:
-            break
-    return d, hops
+
+    def step(x):
+        return _ell_relax(x, bands, srcs_t, ws_t, overloaded)
+
+    if budget is None:
+        return relax_loop.fixed_point(step, d, n)
+    d, changed = relax_loop.run_hops(step, d, budget)
+    return d, _status(changed, budget, n)
 
 
 def ell_distances_from_sources(graph: EllGraph, src_ids, state: Optional[EllState] = None,
@@ -1070,13 +1178,15 @@ def ell_distances_from_sources(graph: EllGraph, src_ids, state: Optional[EllStat
         srcs_t = tuple(torch.from_numpy(s).to(dev) for s in graph.src)
         ws_t = tuple(torch.from_numpy(w).to(dev) for w in graph.w)
         ov = torch.from_numpy(graph.overloaded).to(dev)
-    d, _ = _ell_fixed_point(srcs_t, ws_t, ov, _as_device_ids(src_ids, ov.device),
-                            graph.bands, graph.n_pad)
+    impl = _ell_impl_for(graph.n_pad, max(b.k for b in graph.bands), ov.device)
+    with autotune.using("ell_relax", impl):
+        d, _ = _ell_fixed_point(srcs_t, ws_t, ov, _as_device_ids(src_ids, ov.device),
+                                graph.bands, graph.n_pad)
     return d
 
 
 def _ell_all_view_rows(srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev,
-                       inc_tail, inc_head, inc_w, bands, n):
+                       inc_tail, inc_head, inc_w, bands, n, budget=None):
     """The incremental KSP2 engine's fused step: all-sources distances D
     [n, n] over the bands, warm-seeded from ``d_prev`` (the previous
     step's D) with the increase-edge delta; the root's batched view
@@ -1084,10 +1194,12 @@ def _ell_all_view_rows(srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev
     from D's rows instead of a second fixed point; and the rows of the
     invalidation endpoints from D and from ``d_prev``. Returns ``(D,
     packed, hops)``, ``packed`` = [view d | view first hops | new
-    endpoint rows | old endpoint rows]: one readback."""
+    endpoint rows | old endpoint rows]: one readback. With a hop
+    ``budget``, ``hops`` is the device status (``_ell_fixed_point``)."""
     arange = torch.arange(n, dtype=torch.int32, device=overloaded.device)
     d_all, hops = _ell_fixed_point(srcs_t, ws_t, overloaded, arange, bands, n,
-                                   warm=(d_prev, inc_tail, inc_head, inc_w))
+                                   warm=(d_prev, inc_tail, inc_head, inc_w),
+                                   budget=budget)
     d = d_all[view_srcs.long()]
     fh = _first_hops_from_rows(d, view_srcs, w_sv, overloaded)
     ep = ep_ids.long()
@@ -1118,7 +1230,7 @@ def _changed_row_meta(row_changed, n: int, k_budget: int):
 
 def _ell_all_view_rows_masked(srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev,
                               inc_tail, inc_head, inc_w, masks_t, dm_old, src_id, bands, n,
-                              k_budget):
+                              k_budget, budget=None):
     """``_ell_all_view_rows`` plus the speculative masked re-solve of
     every destination's second-path graph against the resident masks
     ``masks_t`` (one batch row a destination, cold: a previous masked row
@@ -1126,12 +1238,17 @@ def _ell_all_view_rows_masked(srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids,
     ``dm_old``, so the readback carries only the rows that moved. Returns
     ``(D, dm_new, packed, hops)``, ``packed`` = ``_ell_all_view_rows``'
     rows, then the meta row (``_changed_row_meta``), then the changed
-    rows (the first ``k_budget``; padding ids gather row 0)."""
+    rows (the first ``k_budget``; padding ids gather row 0). With a hop
+    ``budget``, ``hops`` is both fixed points' device status, all-sources
+    first."""
     d_all, packed, hops = _ell_all_view_rows(
         srcs_t, ws_t, overloaded, view_srcs, w_sv, ep_ids, d_prev,
-        inc_tail, inc_head, inc_w, bands, n,
+        inc_tail, inc_head, inc_w, bands, n, budget=budget,
     )
-    dm_new, _ = _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id, bands, n)
+    dm_new, m_hops = _ell_masked_fixed_point(srcs_t, ws_t, masks_t, overloaded, src_id,
+                                             bands, n, budget=budget)
+    if budget is not None:
+        hops = torch.cat([hops, m_hops])
     b = dm_new.shape[0]
     meta, ids = _changed_row_meta((dm_new != dm_old).any(dim=1), n, k_budget)
     changed_rows = dm_new[ids.clamp(0, b - 1)]
@@ -1166,9 +1283,11 @@ def ell_all_view_rows(state: EllState, view_srcs, w_sv, ep_ids, d_prev, inc=None
     ``packed`` as its ``Readback`` in flight."""
     state._check_whole()
     srcs_t, w_t, ep_t, inc_t, inc_h, inc_w = _engine_inputs(state, view_srcs, w_sv, ep_ids, inc)
-    d_all, packed, hops = _ell_all_view_rows(
-        state.src, state.w, state.overloaded, srcs_t, w_t, ep_t, d_prev,
-        inc_t, inc_h, inc_w, state.graph.bands, state.graph.n_pad,
+    (d_all, packed), hops = _budgeted_dispatch(
+        "ksp2_view_rows", _ell_all_view_rows,
+        (state.src, state.w, state.overloaded, srcs_t, w_t, ep_t, d_prev,
+         inc_t, inc_h, inc_w),
+        dict(bands=state.graph.bands, n=state.graph.n_pad), state.graph.n_pad,
     )
     return d_all, Readback(packed), hops
 
@@ -1182,9 +1301,11 @@ def ell_all_view_rows_masked(state: EllState, view_srcs, w_sv, ep_ids, d_prev, m
     ``ell_all_view_rows``."""
     state._check_whole()
     srcs_t, w_t, ep_t, inc_t, inc_h, inc_w = _engine_inputs(state, view_srcs, w_sv, ep_ids, inc)
-    d_all, dm_new, packed, hops = _ell_all_view_rows_masked(
-        state.src, state.w, state.overloaded, srcs_t, w_t, ep_t, d_prev,
-        inc_t, inc_h, inc_w, tuple(masks_t), dm_old, src_id,
-        state.graph.bands, state.graph.n_pad, k_budget,
+    (d_all, dm_new, packed), hops = _budgeted_dispatch(
+        "ksp2_view_rows_masked", _ell_all_view_rows_masked,
+        (state.src, state.w, state.overloaded, srcs_t, w_t, ep_t, d_prev,
+         inc_t, inc_h, inc_w, tuple(masks_t), dm_old, int(src_id)),
+        dict(bands=state.graph.bands, n=state.graph.n_pad, k_budget=k_budget),
+        state.graph.n_pad,
     )
     return d_all, dm_new, Readback(packed), hops

@@ -583,6 +583,7 @@ class FlightRecorder:
                 "anchor": anchor,
             },
             "attribution": prof.attribution(),
+            "host_overhead_ratio": prof.host_overhead_ratio(),
         }
         stamp = int(bundle["ts"] * 1000.0)
         base = f"postmortem-{trigger}-{stamp}-{os.getpid()}-{seq}"

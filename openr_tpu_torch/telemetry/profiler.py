@@ -16,6 +16,10 @@ unsampled call) the host time stands in, as in the reference.
 - call sites label dispatches (``labels(bucket=..., slo=...)``) so the
   sampled device time also lands per label
   (``ops.device_ms.by_<key>.<value>``);
+- ``dispatch_accounting.event_window`` reports every window's wall clock
+  and its attributed device time (``on_window``), so
+  ``ops.host_overhead_ratio`` is a live gauge of window wall over
+  attributed device time (``host_overhead_ratio``).
 
 Disabled (``OPENR_PROFILE=0``) the plane costs one attribute read per
 dispatch and nothing else.
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import os
 import threading
+from collections import deque
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional
 
@@ -66,6 +71,12 @@ class Profiler:
         self._tls = threading.local()
         self._warm = False
         self._annotation_cls: Any = None
+        # recent (window_wall_ms, window_device_ms) pairs: the ratio
+        # gauge reads these, bounded so it tracks current behaviour
+        self._windows: deque = deque(maxlen=256)
+        get_registry().gauge(
+            "ops.host_overhead_ratio", self.host_overhead_ratio
+        )
 
     # -- warmup marker ----------------------------------------------
     def mark_warm(self) -> None:
@@ -188,6 +199,25 @@ class Profiler:
                     (1.0 - _EWMA) * st.device_ewma_ms + _EWMA * device_ms
                 )
         return device_ms
+
+    # -- per-window attribution -------------------------------------
+    def on_window(self, tag: str, wall_ms: float, device_ms: float) -> None:
+        """One event window retired: its host wall clock and the device
+        time attributed inside it (``dispatch_accounting.attribute_stage``).
+        Feeds the live ``ops.host_overhead_ratio`` gauge."""
+        if not self.enabled or device_ms <= 0.0:
+            return
+        with self._lock:
+            self._windows.append((wall_ms, device_ms))
+
+    def host_overhead_ratio(self) -> float:
+        """Window wall time over attributed device time across the
+        recent windows; 0.0 before any window carried device time."""
+        with self._lock:
+            pairs = list(self._windows)
+        wall = sum(p[0] for p in pairs)
+        dev = sum(p[1] for p in pairs)
+        return round(wall / dev, 4) if dev > 0.0 else 0.0
 
     # -- export ------------------------------------------------------
     def attribution(self) -> Dict[str, Dict[str, float]]:

@@ -332,3 +332,22 @@ def test_the_daemon_process_runs_without_jax_or_openr_tpu(tmp_path):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("stopped")
+
+
+def test_committed_dispatch_modules_import_without_jax_or_openr_tpu():
+    """The committed dispatch's modules (the executable cache, the
+    autotuner, the relax loops), each imported alone with JAX and
+    ``openr_tpu`` refused."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in (
+        "openr_tpu_torch.ops.aot_cache",
+        "openr_tpu_torch.ops.autotune",
+        "openr_tpu_torch.ops.relax_loop",
+    ):
+        code = _BLOCKED_IMPORT.split("import openr_tpu_torch\n")[0] + (
+            f"import importlib; importlib.import_module({name!r})\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        )
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, (name, proc.stderr)

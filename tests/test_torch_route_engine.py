@@ -38,6 +38,7 @@ from openr_tpu.telemetry import get_registry as jax_registry
 from openr_tpu_torch import carry
 from openr_tpu_torch.faults import injector as port_injector
 from openr_tpu_torch.ops import dispatch_accounting as da
+from openr_tpu_torch.ops import relax_loop as port_relax_loop
 from openr_tpu_torch.ops import route_engine as port_engine
 from openr_tpu_torch.ops import route_sweep as port_sweep
 from openr_tpu_torch.ops import spf_grouped as port_grouped
@@ -489,12 +490,15 @@ def test_cone_expand_matches_reference(kind, seed, max_jumps, cell_limit):
             torch.from_numpy(sel), pe.sweeper.meta, pe.sweeper.v_t, pe.sweeper.w_t, *pargs,
             max_jumps, cell_limit=p_lim, row_block=4)
     cone_j, rows_j, cells_j, jumps_j, ok_j = (np.asarray(x) for x in want)
-    cone_p, rows_p, cells_p, jumps_p, ok_p = got
+    cone_p, rows_p, cells_p, jumps_p, ok_p, more_p = got
     np.testing.assert_array_equal(cone_j, cone_p.numpy())
     assert int(rows_j) == int(rows_p)
     assert np.float32(cells_j) == np.float32(cells_p.item())
-    assert int(jumps_j) == jumps_p
+    assert int(jumps_j) == int(jumps_p)
     assert bool(ok_j) == bool(ok_p)
+    # without a jump budget the expansion runs to its end on the host's
+    # chunked reads: nothing is left for a re-dispatch
+    assert not bool(more_p)
 
 
 def test_residency_bound_is_refused(monkeypatch):
@@ -522,8 +526,9 @@ def test_mesh_is_refused_and_the_card_is_the_default(monkeypatch):
 
 
 def test_sweep_counts_a_sync_per_hop_and_per_readback():
-    """One CPU sweep: ``ops.blocking_syncs`` rises by its blocks' hops
-    plus one readback a block, for both backends."""
+    """One CPU sweep: ``ops.blocking_syncs`` rises by one read of each
+    block's changed-hop count a chunk of hops (``relax_loop.chunk_for``,
+    not one a hop) plus one readback a block, for both backends."""
     twin = Twin(fat_tree())
     names = sorted(twin.ls.get_adjacency_databases())
     reg = port_registry()
@@ -538,7 +543,11 @@ def test_sweep_counts_a_sync_per_hop_and_per_readback():
             sweeper.sweep(block=32)
         blocks = len(sweeper.block_hops)
         assert blocks == -(-sweeper.graph.n_pad // 32)
-        want = sum(sweeper.block_hops) + blocks
+        # a block reads its count after as many hops as the block before
+        # it took (the first after HOP_CHUNK)
+        chunks = [port_relax_loop.chunk_for(h) for h in [0] + sweeper.block_hops[:-1]]
+        want = sum((h - 1) // c + 1 for h, c in zip(sweeper.block_hops, chunks)) + blocks
+        assert want < sum(sweeper.block_hops) + blocks
         assert reg.counter_get("ops.blocking_syncs") - before == want
         assert w.blocking_syncs == want
 
