@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's route build, route sweep, route engine, Decision module, route plane, daemon fabric and daemon process on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's route build, route sweep, route engine, Decision module, route plane, daemon fabric, daemon process, tenant plane and solver service on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -125,7 +125,11 @@ Phases, one JSON line each (``"phase": ...``):
    bump the last pod's first rack switch. Every route database must equal
    the host Dijkstra solver's, which runs on its own copy of the
    link-state and prefix databases (the kth-path cache lives on the ``LinkState``: a shared
-   one would hand it the device's second paths), and after each event
+   one would hand it the device's second paths) in spawned processes
+   (``HostRouteOracle``: each build's oracle replays the events so far and
+   runs beside the others and the card; the answers are compared at the
+   phase's end, so the card never waits on the host's 40 s builds at
+   10 000 nodes), and after each event
    the engine's resident all-sources matrix must equal a cold
    ``ell_distances_from_sources`` on the card. Each build reports cold
    build or incremental sync, the affected destinations, the KSP2
@@ -179,8 +183,9 @@ Phases, one JSON line each (``"phase": ...``):
    databases, the ladder must stay on its warm rung (no
    ``decision.fallbacks``, ``degradations`` or ``ladder_exhausted``) and
    ``minplus`` must have launched.
-12. ``decision-10k``: the same on the 10 000-node fabric, 3 bench events
-   and 1 remote one (``rsw-623-0``); also every rebuild after the first
+12. ``decision-10k``: the same on the 10 000-node fabric, 1 bench event
+   (3 until the tenant plane's phases joined the script) and 1 remote one
+   (``rsw-623-0``); also every rebuild after the first
    patches the resident bands (no ``decision.ell_full_compiles``), the
    publications prewarm them (``decision.ell_prewarms`` > 0), and
    ``ell_band_relax`` launches; ``ops.spec_*`` are reported as read.
@@ -246,8 +251,15 @@ Phases, one JSON line each (``"phase": ...``):
    host backend over that daemon's own link-state and prefix state, run
    on its Decision's thread; it must launch no kernel); no neighbour may
    be lost but the cut's two; no ``decision.fallbacks`` or
-   ``spf_host_fallback``; ``minplus`` must launch. It reports launches by
-   kernel and by step, threads, ``gc_ms``, the solvers' pinned bytes and
+   ``spf_host_fallback``; ``minplus`` must launch. The 24 daemons share
+   one interpreter's collector, so the phase freezes the heap and defers
+   full collections to its end (``defer_full_collections``: full
+   collections over all 24 daemons' heaps took 13-14 s of a 20 s flood,
+   and a run on the card lost every neighbour in the flood). It reports launches by
+   kernel and by step, threads, ``gc_ms`` and the longest collection, the
+   LAN's delivery lag by step (``LanProbe``: how late a probe packet rode
+   the delivery thread Spark's keepalives ride), the process's peak
+   resident set, the solvers' pinned bytes and
    ``torch.cuda.max_memory_allocated``.
 
 17. ``daemon-process``: the daemon as users run it, a process of its own
@@ -279,14 +291,70 @@ Phases, one JSON line each (``"phase": ...``):
    ``process.rss_peak_bytes`` counter. After
    ``SIGTERM`` it must exit 0 within 30 s.
 
+18. ``tenancy-1008``: the tenant plane (``ops/world_batch.py``):
+   ``WorldManager(slots_per_bucket=64, max_resident=128)`` on the card
+   serving 64 vantage tenants over one 1008-node LinkState (40 rack, 16
+   fabric, 8 spine switches: the three source-batch buckets S = 8, 32 and
+   64 fill and the graph is shared, ``tenancy.graph_shares``) and 8 area
+   tenants on LinkStates of their own rooted at ``rsw-0-0``, which join the
+   warm buckets after the first round. 10 rounds, one ``solve_views``
+   each: a metric bump, an adjacency down and back up, an ``fsw``
+   overload flip in turn, on the shared LinkState and one area, and a
+   vantage override toggled every round. Every view must equal
+   ``ell_view_batch_packed`` of the tenant's graph and sources on the
+   card (the reference's sequential oracle; its launches not counted),
+   four tenants of round 1 the host Dijkstra; ``ops.aot_compiles`` must
+   not move after the first round, ``ops.aot_fallbacks`` never. Then
+   ``WorldManager(8, 8)`` overcommitted with 16 tenants for 3 rounds must
+   evict and rehydrate warm (no cold solve after the first round); one
+   tenant's ``ksp2_view`` for 64 destinations must equal the host's
+   ``get_kth_paths(…, 1) + (…, 2)``, with ``tenancy.ksp2_host_fallbacks``
+   flat; ``SpfSolver(world_batch=True)`` over 4
+   areas (copies of the fabric, root ``rsw-0-0``) must build the route
+   databases of ``world_batch=False`` before and after one churn event
+   (in every area), with ``decision.world_preloads`` rising and
+   ``decision.world_preload_failures`` at 0. It reports each round's ms
+   and garbage-collector ms, the batched against the sequential ms a
+   tenant (the reference's ``bench_scale.multi_tenant_bench`` ratio,
+   gated there at 0.5; over the rounds after the first, and over those
+   after the areas' join), the
+   ``tenancy.*`` deltas, the delta rows and bytes read back, the Decision
+   builds' ms and garbage-collector ms, and one profiled wave (busy ms,
+   idle share, heaviest ops) with one more wave's host clock split at its
+   bucket launches and reaps.
+19. ``tenancy-10k``: 4 area tenants of the 10 000-node fabric in one
+   bucket (``[4, 16384, 1024]``, 512 MiB of slots), 3 churn rounds, every
+   view against ``ell_view_batch_packed``; peak memory and each round's
+   ms.
+20. ``serve-1008``, in a spawned process that owns the card for the
+   service: ``SolverService`` (a 32-slot manager) behind
+   ``CtrlServer(SolverCtrlHandler)``; three torch-free client processes
+   (``load.multi_client.spawn_clients``) hold 8 tenants each of the
+   1008-node fabric in the three SLO classes for 5 churn rounds. Every
+   digest a client reads must equal ``oracle_digests`` (the port's plain
+   versions in two spawned processes, beside the service), ``solver_fib``
+   for two more
+   tenants ``oracle_fib_digests``; ``tenancy.wave_joins`` must rise and no
+   key be captured after the first wave. It reports each class's p99 and
+   p50 as the clients saw them (the wire included), the waves and the
+   preemptions.
+21. ``fleet-1008``, in the same process: ``FleetController(services=2,
+   with_standby=True)`` over 8 tenants of the 1008-node fabric for 6
+   rounds; one tenant migrates live before round 2 (warm, the client
+   answering the redirect), and the primary owning another is killed
+   before round 4 and its standby promoted mid-storm (zero route
+   deletes); every digest against ``oracle_digests``. It reports the
+   migration ms and the replica lag.
+
 Phase 7c runs in a process of its own (``sweep_100k_process``), so the
 100 000-node link state leaves with it. Phases 14 and 15 run in another
 (``pipeline_process``,
 started with ``spawn`` and joined): it holds only the route plane, as a
 daemon's does. The earlier phases keep six copies of the two networks
 alive, and a full garbage collection's pause grows with the heap. Phase
-16 runs in another (``daemon_fabric_process``), and phase 17's driving
-side in a third (``daemon_process_process``).
+16 runs in another (``daemon_fabric_process``), phase 17's driving
+side in a third (``daemon_process_process``), and phases 20 and 21 in a
+fourth (``serve_fleet_process``).
 
 A ``committed`` line follows each phase whose path dispatches through the
 executable cache or runs the budgeted relax loops (``dense``, ``sparse``,
@@ -311,7 +379,10 @@ the sessions, the short ones, the margin and the launch skew.
 
 The ``kernels`` phase holds ``ell_band_relax`` also at the KSP2 engine's
 all-sources shapes, S = n_pad rows (1024 and 10112), against its plain
-version on slices of 1024 rows. That of the route sweep's kernels (``rev_band_relax``,
+version on slices of 1024 rows, and over a tenant axis
+(``ell_band_relax_worlds``) at the tenant plane's two shapes, ``[64, 64,
+1024] x [64, 1024, 64]`` and ``[4, 8, 16384] x [4, 16384, 1024]``, and at
+ragged random worlds. That of the route sweep's kernels (``rev_band_relax``,
 ``batched_minplus``, ``batched_minplus_t``) runs at both sweeps' shapes:
 one relax step of a 1024-destination block of the 10 000-node sweep and
 of a 256-destination block of the 1008-node one; that of
@@ -333,10 +404,11 @@ exits nonzero before doing anything. The sizes are fixed: the 1008-node
 fabric of the repo's ``bench.py`` (10 churn events and 3 remote ones;
 with KSP2 3 and 3, and 2 with the chunked dispatch; through Decision 10
 and 3; the route engine's script) and a 10 000-node one (3 events and 1
-remote one; with KSP2 1 and 1; through Decision 3 and 1; the route
+remote one; with KSP2 1 and 1; through Decision 1 and 1; the route
 engine's script; under load, the windows above; 24 daemons, 10 events; a
-daemon process, 10 and 3 events), and the 100 000-node sweep; only the
-seed of the random kernel inputs can be set.
+daemon process, 10 and 3 events; 72 tenants for 10 rounds, 4 for 3; a
+solver service of 24 tenants for 5 rounds, a fleet of 8 for 6), and the
+100 000-node sweep; only the seed of the random kernel inputs can be set.
 """
 
 from __future__ import annotations
@@ -346,6 +418,7 @@ import contextlib
 import gc
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -417,6 +490,10 @@ ENGINE_COUNTERS = ("ops.host_dispatches", "ops.blocking_syncs", "ops.async_reaps
 KSP2_DENSE_EVENTS = 3
 KSP2_SPARSE_EVENTS = 1
 KSP2_SAMPLED_DSTS = 256
+# the host oracle of the KSP2 engine cells: its worker processes, and the
+# longest wait for the route database of one build
+HOST_ORACLE_WORKERS = 4
+HOST_ORACLE_WAIT_S = 900.0
 # the chunked KSP2 dispatch (engine off) stays driven on the 1008-node
 # fabric for this many churn events
 KSP2_CHUNKED_EVENTS = 2
@@ -426,7 +503,7 @@ ALL_SOURCES_SLICE = 1024
 # adjacency database) on the 1008-node and the 10 000-node fabric, each
 # followed by REMOTE_EVENTS remote ones; the module's default debounce
 DECISION_DENSE_EVENTS = 10
-DECISION_SPARSE_EVENTS = 3
+DECISION_SPARSE_EVENTS = 1
 DECISION_DEBOUNCE_S = (0.010, 0.250)
 # the longest a route update may take to come off the out-queue
 DECISION_WAIT_S = 600.0
@@ -703,6 +780,7 @@ class GcClock:
     def __init__(self):
         self.ms = 0.0
         self.full = 0
+        self.longest_ms = 0.0
         self._t0 = None
         gc.callbacks.append(self._note)
 
@@ -710,12 +788,74 @@ class GcClock:
         if phase == "start":
             self._t0 = time.perf_counter()
         elif self._t0 is not None:
-            self.ms += (time.perf_counter() - self._t0) * 1e3
+            ms = (time.perf_counter() - self._t0) * 1e3
+            self.ms += ms
+            self.longest_ms = max(self.longest_ms, ms)
             self.full += info["generation"] == 2
             self._t0 = None
 
     def read(self):
         return self.ms, self.full
+
+
+def defer_full_collections():
+    """Freeze the heap as it stands (``gc.freeze``) and stop automatic
+    full collections, the young generations collected as before; returns
+    the call that restores the thresholds and unfreezes. For a phase
+    that hosts many daemons in one interpreter: a full collection there
+    walks every daemon's heap while every daemon stands still (13-14 s
+    of a 20 s flood at 24 daemons), which a daemon in a process of its
+    own never sees."""
+    threshold = gc.get_threshold()
+    gc.freeze()
+    gc.set_threshold(threshold[0], threshold[1], 1 << 30)
+
+    def restore():
+        gc.set_threshold(*threshold)
+        gc.unfreeze()
+
+    return restore
+
+
+class LanProbe:
+    """The delivery lag of a ``MockIoProvider`` as a packet sees it: a
+    pair of probe interfaces joined to each other, one sending its send
+    time every ``interval_s`` from a thread of its own, the other noting
+    how late each packet arrived past the link's 1 ms. Spark's keepalives
+    ride the same delivery thread, so a lag near the hold time loses
+    neighbours. ``take`` returns the largest lag since the last take,
+    ``all_max`` the largest yet."""
+
+    def __init__(self, io, interval_s: float = 0.25):
+        self.io = io
+        self.interval_s = interval_s
+        self.lags = []
+        self.all_max = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        io.connect_pair("probe_a", "probe_b", 1)
+        io.attach("probe_b", self._receive)
+        self._thread = threading.Thread(target=self._run, name="lan-probe", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(self.interval_s):
+            self.io.send("probe_a", repr(time.monotonic()).encode())
+
+    def _receive(self, if_name, payload):
+        lag_ms = (time.monotonic() - float(payload.decode())) * 1e3 - 1.0
+        with self._lock:
+            self.lags.append(lag_ms)
+            self.all_max = lag_ms if self.all_max is None else max(self.all_max, lag_ms)
+
+    def take(self):
+        with self._lock:
+            lags, self.lags = self.lags, []
+        return max(lags) if lags else None
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
 
 
 def kernel_records(stats, name) -> int:
@@ -864,6 +1004,77 @@ def load_topology(topo, LinkState, PrefixState):
     for name in sorted(topo.prefix_dbs):
         ps.update_prefix_database(topo.prefix_dbs[name])
     return ls, ps
+
+
+# a HostRouteOracle worker's network, kept between its tasks: (nodes,
+# ksp2_dsts, root) -> (link state, prefix state, host solver, events applied)
+_ORACLE_STATE = {}
+
+
+def _host_oracle_task(nodes, ksp2_dsts, root, events):
+    """One ``HostRouteOracle`` answer, in a worker process: the host
+    Dijkstra solver's plain route database of the KSP2 network after
+    ``events`` (``(node, metric)`` bumps in order). The worker keeps its
+    network between tasks and applies only the events past those it
+    applied (the checks come in order), or builds it anew."""
+    sys.path.insert(0, str(ROOT))
+    from openr_tpu_torch import carry
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.decision.spf_solver import SpfSolver
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.models import topologies
+
+    key = (nodes, ksp2_dsts, root)
+    state = _ORACLE_STATE.get(key)
+    if state is None or state[3] > len(events):
+        ls, ps = load_ksp2_network(topologies, LinkState, PrefixState, nodes, ksp2_dsts)
+        state = (ls, ps, SpfSolver(root, backend="host", device="cpu"), 0)
+    ls, ps, solver, applied = state
+    for node, metric in events[applied:]:
+        bump_metric(ls, node, metric)
+    _ORACLE_STATE[key] = (ls, ps, solver, len(events))
+    db = solver.build_route_db(root, {ls.area: ls}, ps)
+    return carry.route_db_to_plain(db.to_route_db(root))
+
+
+class HostRouteOracle:
+    """The host Dijkstra solver's route databases of a KSP2 network, in
+    ``HOST_ORACLE_WORKERS`` spawned processes, each with its own copy of
+    the databases: the caller logs each event as it applies it to its own
+    (``bump``) and hands over each build's route database (``check``),
+    which submits the oracle's build after the events so far; the answers
+    are compared in ``finish``. The card never waits on the host (at
+    10 000 nodes about 40 s a build), and the builds run side by side."""
+
+    def __init__(self, nodes, ksp2_dsts, root):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.args = (nodes, ksp2_dsts, root)
+        self.pool = ProcessPoolExecutor(
+            HOST_ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        self.events = []
+        self.pending = []
+        self.checked = 0
+
+    def bump(self, node, metric) -> None:
+        self.events.append((node, metric))
+
+    def check(self, step, got_plain) -> None:
+        future = self.pool.submit(_host_oracle_task, *self.args, list(self.events))
+        self.pending.append((step, got_plain, future))
+
+    def finish(self, phase) -> None:
+        """Wait for every answer; raise on the first route database that
+        differs from the oracle's. Stops the workers either way."""
+        try:
+            for step, got, future in self.pending:
+                if got != future.result(timeout=HOST_ORACLE_WAIT_S):
+                    raise AssertionError(f"{phase}: route database differs from the host "
+                                         f"oracle after event {step}")
+                self.checked += 1
+        finally:
+            self.pool.shutdown(cancel_futures=True)
 
 
 def bump_metric(ls, node: str, metric: int) -> None:
@@ -1590,15 +1801,18 @@ def port_modules(dev):
         node_kwargs={"device": dev})
 
 
-def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC_STEP_S):
+def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC_STEP_S,
+                        defer_gc=True):
     """``daemon-fabric``: a ``DaemonFabric`` over ``m`` brought up, then
     flooded with the generator's LSDB of ``fat_tree_nodes(lsdb_nodes)``
     (seed ``PIPELINE_SEED``) set at ``FABRIC_INJECT``'s KvStore, then
     ``events`` of its events one at a time, then the link ``cut`` (two
     switch names) partitioned both ways. After each step every daemon's
     Fib must equal its host oracle, and no neighbour may be lost but by
-    the cut. Emits the phase line and returns it with the daemons'
-    route databases after each step (``fibs``) and the kernel launches."""
+    the cut. ``defer_gc`` (the default) defers full collections to the
+    phase's end (``defer_full_collections``). Emits the phase line and
+    returns it with the daemons' route databases after each step
+    (``fibs``) and the kernel launches."""
     from openr_tpu_torch.kernels import LAUNCHES, reset_launches
     from openr_tpu_torch.telemetry import get_registry
 
@@ -1616,6 +1830,10 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
     f0 = {k: reg.counter_get(k) for k in fallbacks}
     t_phase = time.perf_counter()
     fabric_ = DaemonFabric(m, fabric, spark, m.node_kwargs, step_s)
+    # 24 daemons share this interpreter's collector: no full collection
+    # until the phase ends (``defer_full_collections``)
+    restore_gc = defer_full_collections() if defer_gc else (lambda: None)
+    probe = LanProbe(fabric_.io)
     hold_s = spark["hold_time_s"]
     names = fabric_.names
     inject = fabric_.nodes[FABRIC_INJECT].kvstore
@@ -1641,7 +1859,8 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
     def lost(step, want):
         if fabric_.neighbors_lost() != want:
             raise AssertionError(f"{phase}: {fabric_.neighbors_lost()} neighbours lost after "
-                                 f"{step}, {want} expected")
+                                 f"{step}, {want} expected (LAN lag up to {probe.all_max} ms, "
+                                 f"longest collection {gc_clock.longest_ms} ms)")
 
     try:
         # 1. bring-up: every Fib holds every other daemon's loopback
@@ -1654,7 +1873,8 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
         bringup_s = time.perf_counter() - t0
         bringup = {"seconds": bringup_s, "oracle_ms": oracle_step("bring-up"),
                    "routes": len(fibs["bring-up"][names[0]][1]), "launches": launched_since(l0),
-                   "gc_ms": gc_clock.read()[0] - g0[0], "threads": threading.active_count()}
+                   "gc_ms": gc_clock.read()[0] - g0[0], "lan_lag_ms": probe.take(),
+                   "threads": threading.active_count()}
         lost("bring-up", 0)
         progress("bring-up", seconds=bringup_s)
 
@@ -1682,7 +1902,7 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
                  "prefixes": n_prefixes, "oracle_ms": oracle_step("flood"),
                  "routes": len(fibs["flood"][names[0]][1]),
                  "launches": launched_since(l0),
-                 "gc_ms": gc_clock.read()[0] - g0[0]}
+                 "gc_ms": gc_clock.read()[0] - g0[0], "lan_lag_ms": probe.take()}
         lost("flood", 0)
         # the generated block is a component apart: its prefixes get no route
         foreign = fabric_.foreign_routes()
@@ -1718,7 +1938,7 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
                 "kind": ev.kind, "key": ev.key, "event_ms": event_ms,
                 "oracle_ms": oracle_step(f"event {step}"),
                 "launches": launched_since(l0),
-                "gc_ms": gc_clock.read()[0] - g0[0]})
+                "gc_ms": gc_clock.read()[0] - g0[0], "lan_lag_ms": probe.take()})
             lost(f"event {step}", 0)
             progress(f"event {step}", ms=event_ms)
 
@@ -1749,7 +1969,7 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
         reroute = {"cut": [a, b], "detect_ms": detect_ms, "reroute_ms": reroute_ms,
                    "oracle_ms": oracle_ms, "affected": len(affected),
                    "launches": launched_since(l0),
-                   "gc_ms": gc_clock.read()[0] - g0[0]}
+                   "gc_ms": gc_clock.read()[0] - g0[0], "lan_lag_ms": probe.take()}
         lost("the cut", 2)
         if not affected:
             raise AssertionError(f"{phase}: the cut changed no daemon's routes")
@@ -1768,7 +1988,9 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
         threads = threading.active_count()
         neighbors_lost = fabric_.neighbors_lost()
     finally:
+        probe.stop()
         fabric_.stop()
+        restore_gc()
     times = [r["event_ms"] for r in event_rows]
     line = {
         "phase": phase, "daemons": len(names), "links": len(fabric_.links),
@@ -1781,6 +2003,9 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
         "parity_with_host_oracle": True, "neighbors_lost": neighbors_lost,
         "generated_prefixes_routed": foreign, "launches": launches, "threads": threads,
         "gc_ms": gc_clock.read()[0], "gc_full_collections": gc_clock.read()[1],
+        "gc_deferred": defer_gc, "gc_longest_ms": gc_clock.longest_ms,
+        "lan_lag_max_ms": probe.all_max,
+        "rss_peak_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
         "pinned_bytes": pinned,
         "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
         "fallbacks": {k: reg.counter_get(k) - f0[k] for k in fallbacks},
@@ -1792,11 +2017,11 @@ def daemon_fabric_phase(m, fabric, lsdb_nodes, events, spark, cut, step_s=FABRIC
     return line, fibs, launches
 
 
-def daemon_fabric_process(start: float):
+def daemon_fabric_process(start: float, defer_gc: bool = True):
     """``daemon_fabric_phase`` at full size with Decision on the card, in
     a process of its own (the 24 daemons' threads and heaps stay apart
-    from the other phases'); ``start`` is the script's ``_START``.
-    Returns the phase's kernel launches."""
+    from the other phases'); ``start`` is the script's ``_START``,
+    ``defer_gc`` the phase's. Returns the phase's kernel launches."""
     global _START
     _START = start
     sys.path.insert(0, str(ROOT))
@@ -1809,7 +2034,7 @@ def daemon_fabric_process(start: float):
     aot0 = aot_snapshot()
     _, _, launches = daemon_fabric_phase(port_modules(torch.device("cuda")), FABRIC,
                                          FABRIC_LSDB_NODES, FABRIC_EVENTS, deployed_spark_config(),
-                                         FABRIC_CUT)
+                                         FABRIC_CUT, defer_gc=defer_gc)
     committed_line("daemon-fabric", aot0, events=FABRIC_EVENTS)
     return launches
 
@@ -3374,6 +3599,864 @@ def engine_phase(dev, phase, nodes, ladder, block, profile, gc_clock=None):
     return launches
 
 
+# -- the tenant plane and the solver service (tenancy-1008, tenancy-10k,
+# serve-1008, fleet-1008) ------------------------------------------------------
+
+# tenancy-1008: vantage tenants over ONE 1008-node LinkState, by tier (the
+# rack, fabric and spine switches' source batches are 8, 32 and 64 rows:
+# one shape bucket each), and area tenants on LinkStates of their own
+TENANCY_VANTAGES = {"rsw": 40, "fsw": 16, "ssw": 8}
+TENANCY_AREAS = 8
+TENANCY_ROUNDS = 10
+TENANCY_SLOTS = 64
+TENANCY_RESIDENT = 128
+# the overcommitted manager: slots, resident cap, tenants, rounds
+TENANCY_EVICT = (8, 8, 16, 3)
+TENANCY_KSP2_DSTS = 64
+TENANCY_DECISION_AREAS = 4
+TENANCY_HOST_SAMPLES = 4
+TENANCY_10K_AREAS = 4
+TENANCY_10K_ROUNDS = 3
+SERVE_CLIENTS = 3
+SERVE_TENANTS = 8
+SERVE_ROUNDS = 5
+SERVE_SLOTS = 32
+SERVE_FIB_TENANTS = 2
+FLEET_TENANTS = 8
+FLEET_ROUNDS = 6
+FLEET_MIGRATE_AT = 2
+FLEET_PROMOTE_AT = 4
+SLO_ROTATION = ("premium", "standard", "bulk")
+# processes of the serve and fleet phases' CPU oracle, run beside them
+SERVE_ORACLE_WORKERS = 2
+
+
+def _sync_card(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def worlds_kernel_row(torch, dev, graph, worlds, s, rng, compare, reps=REPS):
+    """``ell_band_relax`` over a tenant axis at one tenant shape: ``graph``
+    packed into its uniform block (``ell_pack_uniform``) ``worlds`` times,
+    each world with its own overload bits and random distance rows,
+    against ``ell_band_relax_worlds_plain``; device ms of the kernel
+    (``ms``) and the plain version, call ms, and the bound: the distance rows, the
+    blocks (src + w, the padding slots included: the kernel reads them)
+    and the overload bits read once, the output written once, one add and
+    one min a slot and batch row. ``live_bound_ms`` is the same bound over
+    the graph's live slots alone (what a layout without padding would
+    read), and ``padding_share`` the share of the block bytes that are
+    padding."""
+    import numpy as np
+
+    from openr_tpu_torch.ops import spf_sparse
+    from openr_tpu_torch.ops.ell_relax import (
+        ell_band_relax_worlds,
+        ell_band_relax_worlds_plain,
+        launch_plan,
+    )
+    from openr_tpu_torch.ops.minplus import INF
+    from openr_tpu_torch.ops.world_batch import _pow2_at_least
+
+    n = _pow2_at_least(graph.n_pad, 128)
+    k = _pow2_at_least(max(bd.k for bd in graph.bands), 16)
+    src, w, ov = spf_sparse.ell_pack_uniform(graph, n, k)
+    src_t = torch.from_numpy(src).to(dev)[None].expand(worlds, n, k).contiguous()
+    w_t = torch.from_numpy(w).to(dev)[None].expand(worlds, n, k).contiguous()
+    ov_np = np.tile(ov, (worlds, 1)) | (rng.random((worlds, n)) < 0.05)
+    ov_t = torch.from_numpy(ov_np).to(dev)
+    d_np = rng.integers(0, 1000, (worlds, s, n)).astype(np.int32)
+    d_np[rng.random(d_np.shape) < 0.5] = INF
+    d_t = torch.from_numpy(d_np).to(dev)
+    compare("ell_band_relax", ell_band_relax_worlds(d_t, src_t, w_t, ov_t),
+            ell_band_relax_worlds_plain(d_t, src_t, w_t, ov_t),
+            f"worlds [{worlds}, {s}, {n}] x [{worlds}, {n}, {k}]")
+    plan = launch_plan(s, n, k, worlds=worlds)
+    live = int(sum(bd.rows * bd.k for bd in graph.bands))
+    row = {
+        "shape": {"B": worlds, "S": s, "n": n, "k": k},
+        "plan": {"body": "wide" if plan.wide else "narrow", "row_threads": plan.row_threads,
+                 "grid": [*plan.grid, plan.worlds]},
+        "live_slots_per_world": live,
+        "padding_share": 1.0 - live / (n * k),
+        "match": True,
+    }
+    if dev.type == "cuda":
+        row["ms"] = device_ms(
+            torch, lambda: ell_band_relax_worlds(d_t, src_t, w_t, ov_t), reps,
+            KERNEL_KEYS["ell_band_relax"], records=1)
+        row["plain_ms"] = device_ms(
+            torch, lambda: ell_band_relax_worlds_plain(d_t, src_t, w_t, ov_t), max(3, reps // 10))
+        row["call_ms"] = time_ms(torch, lambda: ell_band_relax_worlds(d_t, src_t, w_t, ov_t), reps)
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        8 * worlds * s * n + 8 * worlds * n * k + worlds * n, 2 * worlds * s * n * k)
+    row["live_bound_ms"], _ = bound_ms(
+        8 * worlds * s * n + 8 * worlds * live + worlds * n, 2 * worlds * s * live)
+    return row
+
+
+def _wave_host_split(torch, dev, mgr, items, prepare, phase):
+    """One more wave of ``mgr`` after ``prepare()``, its host clock split
+    at the bucket dispatches: ms before the first launch (the tenants'
+    sync and placement), in the launches (operand prep and enqueue), from
+    the last launch to the first reap's start, in the reaps (the wait for
+    the card and the delta fan-out), and after the last reap. Views held
+    against the sequential oracle."""
+    stamps = []
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                stamps.append((name, t0, time.perf_counter()))
+        return call
+
+    prepare()
+    mgr._dispatch_launch = timed("launch", mgr._dispatch_launch)
+    mgr._dispatch_finish = timed("finish", mgr._dispatch_finish)
+    try:
+        _sync_card(torch, dev)
+        t0 = time.perf_counter()
+        views = mgr.solve_views(items())
+        _sync_card(torch, dev)
+        t1 = time.perf_counter()
+    finally:
+        del mgr._dispatch_launch, mgr._dispatch_finish
+    _oracle_views(torch, dev, views, phase, "the split wave")
+    launches = [st for st in stamps if st[0] == "launch"]
+    finishes = [st for st in stamps if st[0] == "finish"]
+    if not launches or not finishes:
+        return {"wave_ms": (t1 - t0) * 1e3, "buckets": 0}
+    return {"wave_ms": (t1 - t0) * 1e3, "buckets": len(launches),
+            "before_launch_ms": (launches[0][1] - t0) * 1e3,
+            "launches_ms": sum(b - a for _, a, b in launches) * 1e3,
+            "launch_to_reap_ms": (finishes[0][1] - launches[-1][2]) * 1e3,
+            "reaps_ms": sum(b - a for _, a, b in finishes) * 1e3,
+            "after_reap_ms": (t1 - finishes[-1][2]) * 1e3}
+
+
+def _fabric_ls(topologies, LinkState, nodes, area="0"):
+    """A fresh LinkState of ``fat_tree_nodes(nodes)`` in ``area``, and the
+    topology."""
+    from dataclasses import replace
+
+    topo = topologies.fat_tree_nodes(nodes)
+    ls = LinkState(area=area)
+    for name in sorted(topo.adj_dbs):
+        ls.update_adjacency_database(replace(topo.adj_dbs[name], area=area))
+    return ls, topo
+
+
+def _drop_first_adj(ls, node):
+    from dataclasses import replace
+
+    db = ls.get_adjacency_databases()[node]
+    dropped = db.adjacencies[0]
+    ls.update_adjacency_database(replace(db, adjacencies=db.adjacencies[1:]))
+    return dropped
+
+
+def _restore_adj(ls, node, adj):
+    from dataclasses import replace
+
+    db = ls.get_adjacency_databases()[node]
+    ls.update_adjacency_database(replace(db, adjacencies=(adj,) + tuple(db.adjacencies)))
+
+
+def _set_overload(ls, node, flag):
+    from dataclasses import replace
+
+    db = ls.get_adjacency_databases()[node]
+    ls.update_adjacency_database(replace(db, is_overloaded=flag))
+
+
+def _oracle_views(torch, dev, views, phase, what):
+    """Every tenant view ``(graph, srcs, packed)`` against the reference's
+    sequential oracle on ``dev``: ``ell_view_batch_packed`` of the view's
+    own graph and sources, solved alone (its launches are not counted).
+    Returns the oracle's ms per tenant."""
+    import numpy as np
+
+    from openr_tpu_torch.kernels import LAUNCHES
+    from openr_tpu_torch.ops import spf_sparse
+
+    saved = dict(LAUNCHES)
+    _sync_card(torch, dev)
+    t0 = time.perf_counter()
+    for i, (graph, srcs, packed) in enumerate(views):
+        want = spf_sparse.ell_view_batch_packed(graph, srcs, dev).cpu().numpy()
+        if packed.shape != want.shape or not np.array_equal(packed, want):
+            raise AssertionError(f"{phase}: tenant {i}'s view differs from the "
+                                 f"sequential oracle after {what}")
+    ms = (time.perf_counter() - t0) * 1e3
+    LAUNCHES.update(saved)
+    return ms / max(1, len(views))
+
+
+def _host_check(ls, root, view, phase):
+    """One view's distance row against the host Dijkstra."""
+    from openr_tpu_torch.ops.minplus import INF
+
+    graph, _srcs, packed = view
+    res = ls.get_spf_result(root)
+    for name, idx in graph.node_index.items():
+        want = res[name].metric if name in res else INF
+        if int(packed[0][idx]) != int(want):
+            raise AssertionError(f"{phase}: {root}'s distance to {name} is "
+                                 f"{int(packed[0][idx])}, the host Dijkstra's {want}")
+
+
+def _tenancy_delta(before):
+    from openr_tpu_torch.ops.world_batch import TENANCY_COUNTERS
+
+    return {k: TENANCY_COUNTERS[k] - before[k] for k in before
+            if TENANCY_COUNTERS[k] != before[k]}
+
+
+def _need_launches(dev, launches, kernels, phase, what="") -> None:
+    """On the card each of ``kernels`` must have been launched (a CPU
+    rehearsal runs the plain versions, which count none)."""
+    for kernel in kernels:
+        if dev.type == "cuda" and launches[kernel] == 0:
+            raise AssertionError(f"{phase}: {what or 'the phase'} launched no {kernel}")
+
+
+def _fail_on_moves(phase, reg, aot0):
+    if reg.counter_get("ops.aot_fallbacks") != aot0["ops.aot_fallbacks"]:
+        raise AssertionError(f"{phase}: ops.aot_fallbacks moved")
+
+
+def tenancy_phase(dev, nodes=DENSE_NODES, vantages=None, areas=TENANCY_AREAS,
+                  rounds=TENANCY_ROUNDS, slots=TENANCY_SLOTS, resident=TENANCY_RESIDENT,
+                  evict=TENANCY_EVICT, ksp2_dsts=TENANCY_KSP2_DSTS,
+                  decision_areas=TENANCY_DECISION_AREAS, profile=True, gc_clock=None,
+                  phase="tenancy-1008"):
+    """``tenancy-1008``: ``WorldManager(slots, resident)`` on ``dev``
+    serving vantage tenants over one ``fat_tree_nodes(nodes)`` LinkState
+    (``vantages``: tenants per tier, rack, fabric and spine switches, so
+    the three source-batch buckets fill and the graph is shared) and
+    ``areas`` area tenants on LinkStates of their own rooted at
+    ``rsw-0-0``, which join after the first round. ``rounds`` rounds of
+    churn, each one ``solve_views``: a metric bump, an adjacency down and
+    back up, an ``fsw`` overload flip, in turn, on the shared LinkState
+    and one area; and every round a vantage override toggled. Every view
+    against ``ell_view_batch_packed`` of the tenant's graph and sources
+    (the sequential oracle), four tenants of round 1 against the host
+    Dijkstra; ``ops.aot_compiles`` flat after the first round and no
+    fallback. Then an overcommitted manager (``evict``: slots, resident
+    cap, tenants, rounds) must evict and rehydrate warm; a tenant's
+    ``ksp2_view`` for ``ksp2_dsts`` destinations against the host's
+    ``get_kth_paths``, none of them answered by the host; and ``SpfSolver(world_batch=True)`` over
+    ``decision_areas`` copies of the fabric against ``world_batch=False``,
+    before and after one churn event. Each round reports the host's
+    garbage-collector ms and full collections (``gc_clock``, a
+    ``GcClock``; one of its own when None); the batched-over-sequential
+    ratio is given over the rounds after the first and over those after
+    the areas' join (``steady``). Returns the launch counts. The sizes
+    are arguments so a rehearsal runs it small on the CPU."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch import carry
+    from openr_tpu_torch.decision import spf_solver
+    from openr_tpu_torch.decision.prefix_state import PrefixState
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops import world_batch
+    from openr_tpu_torch.ops.world_batch import TENANCY_COUNTERS, WorldManager
+    from openr_tpu_torch.telemetry import get_registry
+
+    vantages = dict(TENANCY_VANTAGES if vantages is None else vantages)
+    reg = get_registry()
+    gc_clock = gc_clock or GcClock()
+    t_phase = time.monotonic()
+    ls, topo = _fabric_ls(topologies, LinkState, nodes)
+    names = sorted(topo.adj_dbs)
+    vantage_roots = []
+    for tier, count in vantages.items():
+        tier_names = [nm for nm in names if nm.startswith(tier + "-")]
+        if len(tier_names) < count:
+            raise AssertionError(f"{phase}: {len(tier_names)} {tier} switches for {count}")
+        stride = len(tier_names) // count
+        vantage_roots += tier_names[::stride][:count]
+    area_ls = [_fabric_ls(topologies, LinkState, nodes, area=f"area{i}")[0] for i in range(areas)]
+    fsw = [nm for nm in names if nm.startswith("fsw-")]
+    rsw = [nm for nm in names if nm.startswith("rsw-")]
+    overridden = vantage_roots[0]
+    override_node = fsw[-1]
+
+    def items(rnd):
+        out = [(f"v{i}", ls, root, ({override_node: True} if (i == 0 and rnd % 2) else None))
+               for i, root in enumerate(vantage_roots)]
+        if rnd >= 1:  # the area tenants join the warm buckets
+            out += [(f"a{i}", a, "rsw-0-0", None) for i, a in enumerate(area_ls)]
+        return out
+
+    dropped = {}
+
+    def churn(rnd):
+        kind = ("metric", "down", "up", "overload")[(rnd - 1) % 4]
+        a = area_ls[rnd % areas]
+        for target in (ls, a):
+            if kind == "metric":
+                bump_metric(target, rsw[rnd % len(rsw)], 2 + rnd % 7)
+            elif kind == "down":
+                dropped[id(target)] = _drop_first_adj(target, fsw[1])
+            elif kind == "up" and id(target) in dropped:
+                _restore_adj(target, fsw[1], dropped.pop(id(target)))
+            elif kind == "overload":
+                flag = not target.get_adjacency_databases()[fsw[2]].is_overloaded
+                _set_overload(target, fsw[2], flag)
+        return kind
+
+    mgr = WorldManager(slots_per_bucket=slots, max_resident=resident, device=dev)
+    reset_launches()
+    aot0 = aot_snapshot()
+    before = dict(TENANCY_COUNTERS)
+    round_lines = []
+    compiles_after_first = None
+    batched_ms = sequential_ms = 0.0
+    solved = 0
+    steady = [0.0, 0.0]  # batched ms, sequential ms, rounds after the join
+    for rnd in range(rounds):
+        kind = churn(rnd) if rnd else "cold"
+        r0 = dict(TENANCY_COUNTERS)
+        its = items(rnd)
+        gc0 = gc_clock.read()
+        _sync_card(torch, dev)
+        t0 = time.perf_counter()
+        views = mgr.solve_views(its)
+        _sync_card(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        gc1 = gc_clock.read()
+        per_tenant_seq = _oracle_views(torch, dev, views, phase, f"round {rnd} ({kind})")
+        if rnd == 1:
+            for (tid, l, root, ov), view in list(zip(its, views))[1:1 + TENANCY_HOST_SAMPLES]:
+                _host_check(l, root, view, phase)
+        if rnd == 0:
+            compiles_after_first = reg.counter_get("ops.aot_compiles")
+        elif reg.counter_get("ops.aot_compiles") != compiles_after_first:
+            raise AssertionError(f"{phase}: round {rnd} ({kind}) captured a new key")
+        delta = _tenancy_delta(r0)
+        if rnd:
+            batched_ms += ms
+            sequential_ms += per_tenant_seq * len(its)
+            solved += len(its)
+        if rnd >= 2:
+            steady[0] += ms
+            steady[1] += per_tenant_seq * len(its)
+        round_lines.append({"round": rnd, "event": kind, "tenants": len(its), "ms": ms,
+                            "gc_ms": gc1[0] - gc0[0], "gc_full_collections": gc1[1] - gc0[1],
+                            "sequential_ms_per_tenant": per_tenant_seq,
+                            "tenancy": delta})
+    _fail_on_moves(phase, reg, aot0)
+    main_delta = _tenancy_delta(before)
+    if main_delta.get("graph_shares", 0) < len(vantage_roots) - 1:
+        raise AssertionError(f"{phase}: vantages shared no graph: {main_delta}")
+    n_buckets = mgr.bucket_count()
+    buckets = sorted(mgr._buckets)
+    profile_line = None
+    if profile and dev.type == "cuda":
+        def prepare(attempt):
+            bump_metric(ls, rsw[-1], 5 + attempt)
+
+        stats, views, wall_ms = profiled(
+            torch, lambda: mgr.solve_views(items(rounds)),
+            lambda st, res: lacking(st, KERNEL_KEYS["ell_band_relax"]), prepare=prepare)
+        _oracle_views(torch, dev, views, phase, "the profiled wave")
+        busy = device_us(stats, "a call") / 1e3
+        profile_line = {"wave_ms": wall_ms, "device_busy_ms": busy,
+                        "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
+                        "relax_device_ms": device_us(stats, KERNEL_KEYS["ell_band_relax"]) / 1e3,
+                        "top_device_ms": top_device_ms(stats),
+                        "host_split": _wave_host_split(torch, dev, mgr, lambda: items(rounds),
+                                                       lambda: bump_metric(ls, rsw[-1], 13),
+                                                       phase)}
+    launches_main = dict(LAUNCHES)
+
+    # -- eviction and warm rehydration ---------------------------------------
+    e_slots, e_resident, e_tenants, e_rounds = evict
+    ev = WorldManager(slots_per_bucket=e_slots, max_resident=e_resident, device=dev)
+    e_items = [(f"e{i}", ls, root) for i, root in enumerate(rsw[::max(1, len(rsw) // e_tenants)][:e_tenants])]
+    e_before = dict(TENANCY_COUNTERS)
+    e_lines = []
+    for rnd in range(e_rounds):
+        if rnd:
+            bump_metric(ls, rsw[rnd], 3 + rnd)
+        r0 = dict(TENANCY_COUNTERS)
+        _sync_card(torch, dev)
+        t0 = time.perf_counter()
+        views = ev.solve_views(e_items)
+        _sync_card(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        _oracle_views(torch, dev, views, phase, f"eviction round {rnd}")
+        delta = _tenancy_delta(r0)
+        if rnd and delta.get("cold_solves", 0):
+            raise AssertionError(f"{phase}: eviction round {rnd} solved cold: {delta}")
+        e_lines.append({"round": rnd, "ms": ms, "tenancy": delta})
+    e_delta = _tenancy_delta(e_before)
+    if not e_delta.get("rehydrations") or not e_delta.get("evictions"):
+        raise AssertionError(f"{phase}: the overcommitted manager did not evict and "
+                             f"rehydrate: {e_delta}")
+
+    # -- KSP2 second paths of one tenant ---------------------------------------
+    k_root, k_ls = "rsw-0-0", area_ls[0]
+    k_names = [nm for nm in sorted(k_ls.get_adjacency_databases()) if nm != k_root]
+    dsts = k_names[:: max(1, len(k_names) // ksp2_dsts)][:ksp2_dsts]
+    mgr.solve_views([("a0", k_ls, k_root)])
+    registry = get_registry()
+    fb0 = registry.counter_get("tenancy.ksp2_host_fallbacks")
+    t0 = time.perf_counter()
+    paths = mgr.ksp2_view("a0", dsts)
+    ksp2_ms = (time.perf_counter() - t0) * 1e3
+    ksp2_fallbacks = registry.counter_get("tenancy.ksp2_host_fallbacks") - fb0
+    if ksp2_fallbacks:
+        raise AssertionError(f"{phase}: ksp2_view answered {ksp2_fallbacks} "
+                             "destinations from the host")
+    for dst in dsts:
+        want = k_ls.get_kth_paths(k_root, dst, 1) + k_ls.get_kth_paths(k_root, dst, 2)
+        if paths[dst] != want:
+            raise AssertionError(f"{phase}: ksp2_view's paths to {dst} differ from the host's")
+
+    # -- the multi-area Decision build ------------------------------------------
+    d_areas, ps = {}, PrefixState()
+    for i in range(decision_areas):
+        name = f"d{i}"
+        d_ls, d_topo = _fabric_ls(topologies, LinkState, nodes, area=name)
+        d_areas[name] = d_ls
+        for pname in sorted(d_topo.prefix_dbs):
+            ps.update_prefix_database(replace(d_topo.prefix_dbs[pname], area=name))
+    keys = ("decision.world_preloads", "decision.world_preload_failures")
+    c0 = [spf_solver.SPF_COUNTERS[k] for k in keys]
+    on = spf_solver.SpfSolver("rsw-0-0", device=dev, world_batch=True)
+    off = spf_solver.SpfSolver("rsw-0-0", device=dev, world_batch=False)
+    decision_ms = []
+    for step in range(2):
+        if step:
+            for d_ls in d_areas.values():
+                bump_metric(d_ls, "fsw-0-0", 7)
+        _sync_card(torch, dev)
+        gc0 = gc_clock.read()
+        t0 = time.perf_counter()
+        got = on.build_route_db("rsw-0-0", d_areas, ps)
+        _sync_card(torch, dev)
+        t1 = time.perf_counter()
+        gc1 = gc_clock.read()
+        want = off.build_route_db("rsw-0-0", d_areas, ps)
+        _sync_card(torch, dev)
+        gc2 = gc_clock.read()
+        decision_ms.append({"world_batch_ms": (t1 - t0) * 1e3,
+                            "sequential_ms": (time.perf_counter() - t1) * 1e3,
+                            "world_batch_gc_ms": gc1[0] - gc0[0],
+                            "sequential_gc_ms": gc2[0] - gc1[0]})
+        if carry.route_db_to_plain(got.to_route_db("rsw-0-0")) != carry.route_db_to_plain(
+                want.to_route_db("rsw-0-0")):
+            raise AssertionError(f"{phase}: the world-batch build {step} differs from "
+                                 "the per-area build")
+    preloads = spf_solver.SPF_COUNTERS[keys[0]] - c0[0]
+    failures = spf_solver.SPF_COUNTERS[keys[1]] - c0[1]
+    if preloads < 2 or failures:
+        raise AssertionError(f"{phase}: {preloads} world preloads, {failures} failures")
+    _fail_on_moves(phase, reg, aot0)
+    launches = dict(LAUNCHES)
+    _need_launches(dev, launches, ("ell_band_relax", "ell_band_relax_masked"), phase)
+    _need_launches(dev, launches_main, ("ell_band_relax",), phase, "the tenant waves")
+    world_batch.reset_world_manager()
+    ratio = (batched_ms / solved) / (sequential_ms / solved) if solved and sequential_ms else None
+    emit({
+        "phase": phase, "nodes": nodes, "tenants": len(items(1)),
+        "vantages": vantages, "areas": areas, "rounds": rounds,
+        "slots": slots, "buckets": [list(b) for b in buckets], "bucket_count": n_buckets,
+        "views_match_oracle": True, "host_samples": TENANCY_HOST_SAMPLES,
+        "round_lines": round_lines,
+        "batched_ms_per_tenant": batched_ms / solved if solved else None,
+        "sequential_ms_per_tenant": sequential_ms / solved if solved else None,
+        "batched_over_sequential": ratio,
+        "meets_reference_gate_0_5": (ratio is not None and ratio <= 0.5),
+        "batched_over_sequential_steady": steady[0] / steady[1] if steady[1] else None,
+        "tenancy": main_delta,
+        "delta_rows": main_delta.get("delta_rows", 0),
+        "delta_bytes": 4 * main_delta.get("delta_rows", 0) * (2 + buckets[0][1]),
+        "aot_compiles_after_first_round": 0,
+        "profiled_wave": profile_line,
+        "eviction": {"slots": e_slots, "resident": e_resident, "tenants": len(e_items),
+                     "rounds": e_lines, "tenancy": e_delta},
+        "ksp2": {"dsts": len(dsts), "ms": ksp2_ms, "match_host": True,
+                 "host_fallbacks": ksp2_fallbacks},
+        "decision": {"areas": decision_areas, "builds": decision_ms,
+                     "world_preloads": preloads, "world_preload_failures": failures,
+                     "match": True},
+        "launches_waves": launches_main, "launches": launches,
+        "seconds": time.monotonic() - t_phase,
+    })
+    return launches
+
+
+def tenancy_10k_phase(dev, nodes=SPARSE_NODES, areas=TENANCY_10K_AREAS,
+                      rounds=TENANCY_10K_ROUNDS, phase="tenancy-10k"):
+    """``tenancy-10k``: ``areas`` area tenants of ``fat_tree_nodes(nodes)``
+    rooted at ``rsw-0-0`` in one bucket (at 10 000 nodes ``[4, 16384,
+    1024]``, 512 MiB of slots), ``rounds`` churn rounds (a metric bump of
+    one area each), every view against ``ell_view_batch_packed``; the
+    peak memory and each round's ms. Returns the launch counts."""
+    import torch
+
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops.world_batch import TENANCY_COUNTERS, WorldManager
+    from openr_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    t_phase = time.monotonic()
+    lss = [_fabric_ls(topologies, LinkState, nodes, area=f"area{i}")[0] for i in range(areas)]
+    rsw = [nm for nm in sorted(lss[0].get_adjacency_databases()) if nm.startswith("rsw-")]
+    mgr = WorldManager(slots_per_bucket=areas, max_resident=areas, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    aot0 = aot_snapshot()
+    before = dict(TENANCY_COUNTERS)
+    its = [(f"a{i}", l, "rsw-0-0") for i, l in enumerate(lss)]
+    lines = []
+    compiles_after_first = None
+    for rnd in range(rounds + 1):
+        if rnd:
+            bump_metric(lss[rnd % areas], rsw[(7 * rnd) % len(rsw)], 2 + rnd)
+        r0 = dict(TENANCY_COUNTERS)
+        _sync_card(torch, dev)
+        t0 = time.perf_counter()
+        views = mgr.solve_views(its)
+        _sync_card(torch, dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        seq = _oracle_views(torch, dev, views, phase, f"round {rnd}")
+        if rnd == 0:
+            compiles_after_first = reg.counter_get("ops.aot_compiles")
+        lines.append({"round": rnd, "ms": ms, "sequential_ms_per_tenant": seq,
+                      "tenancy": _tenancy_delta(r0)})
+    _fail_on_moves(phase, reg, aot0)
+    launches = dict(LAUNCHES)
+    _need_launches(dev, launches, ("ell_band_relax",), phase)
+    emit({
+        "phase": phase, "nodes": nodes, "tenants": areas, "rounds": rounds,
+        "buckets": [list(b) for b in sorted(mgr._buckets)],
+        "slot_bytes": sum(4 * b.src_dev.numel() + 4 * b.w_dev.numel()
+                          for b in mgr._buckets.values()),
+        "views_match_oracle": True, "round_lines": lines,
+        "aot_compiles_after_first_round": reg.counter_get("ops.aot_compiles") - compiles_after_first,
+        "tenancy": _tenancy_delta(before),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "launches": launches, "seconds": time.monotonic() - t_phase,
+    })
+    return launches
+
+
+def _oracle_digests_task(specs, rounds):
+    """``load.multi_client.oracle_digests`` on the CPU, in a worker
+    process (the port's plain versions: bit-identical to the card's)."""
+    sys.path.insert(0, str(ROOT))
+    from openr_tpu_torch.load import multi_client
+
+    return multi_client.oracle_digests(specs, rounds, "cpu")
+
+
+def _oracle_digests_async(specs, rounds, workers=SERVE_ORACLE_WORKERS):
+    """Start the sequential oracle of ``specs`` in ``workers`` spawned
+    processes, so it runs while the service works; returns a function
+    that waits and gives the merged ``{tenant: digests}``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(_oracle_digests_task, specs[i::workers], rounds)
+               for i in range(workers)]
+
+    def result():
+        out = {}
+        try:
+            for f in futures:
+                out.update(f.result(timeout=HOST_ORACLE_WAIT_S))
+        finally:
+            pool.shutdown(cancel_futures=True)
+        return out
+
+    return result
+
+
+def _p99(values):
+    if not values:
+        return None
+    s = sorted(values)
+    return s[min(len(s) - 1, int(0.99 * len(s)))]
+
+
+def serve_phase(dev, nodes=DENSE_NODES, clients=SERVE_CLIENTS, tenants=SERVE_TENANTS,
+                rounds=SERVE_ROUNDS, slots=SERVE_SLOTS, fib_tenants=SERVE_FIB_TENANTS,
+                require_joins=True, phase="serve-1008"):
+    """``serve-1008``: ``SolverService`` + ``CtrlServer(SolverCtrlHandler)``
+    owning ``dev`` in this process; ``clients`` spawned torch-free client
+    processes (``load.multi_client.spawn_clients``) hold ``tenants``
+    tenants each of ``fat_tree_nodes(nodes)`` in mixed SLO classes for
+    ``rounds`` churn rounds; every digest a client reads against
+    ``oracle_digests`` (computed on the CPU in spawned processes while the
+    service works), and
+    ``solver_fib`` for ``fib_tenants`` more tenants against
+    ``oracle_fib_digests``. ``tenancy.wave_joins`` must rise (unless
+    ``require_joins`` is False: a small rehearsal's waves may end before
+    the next request arrives) and no key may be captured after the first
+    wave. Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from openr_tpu_torch.ctrl.server import CtrlServer
+    from openr_tpu_torch.ctrl.solver import SolverCtrlHandler
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.load import multi_client
+    from openr_tpu_torch.ops.world_batch import TENANCY_COUNTERS, WorldManager
+    from openr_tpu_torch.serve.client import SolverClient
+    from openr_tpu_torch.serve.service import SolverService
+    from openr_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    t_phase = time.monotonic()
+    specs = {
+        f"c{c}": [multi_client.TenantSpec(f"c{c}_t{t}", "fabric", nodes, seed=c * tenants + t + 1,
+                                          slo=SLO_ROTATION[(c * tenants + t) % 3])
+                  for t in range(tenants)]
+        for c in range(clients)
+    }
+    all_specs = [s for ss in specs.values() for s in ss]
+    oracle_of = _oracle_digests_async(all_specs, rounds)
+    svc = SolverService(manager=WorldManager(slots_per_bucket=slots, max_resident=4 * slots,
+                                             device=dev)).start()
+    srv = CtrlServer(SolverCtrlHandler(svc), host="127.0.0.1", port=0)
+    srv.start()
+    reset_launches()
+    aot0 = aot_snapshot()
+    before = dict(TENANCY_COUNTERS)
+    s0 = {k: reg.counter_get(k) for k in ("serve.waves", "serve.requests", "serve.errors")}
+    try:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as td:
+            t0 = time.perf_counter()
+            procs = multi_client.spawn_clients("127.0.0.1", srv.port, specs, rounds, td)
+            first_wave_compiles = None
+            while any(p.is_alive() for p, _ in procs):
+                if first_wave_compiles is None and svc._waves >= 1:
+                    first_wave_compiles = reg.counter_get("ops.aot_compiles")
+                time.sleep(0.005)
+            results = multi_client.harvest(procs)
+            drive_s = time.perf_counter() - t0
+        if first_wave_compiles is None:
+            first_wave_compiles = reg.counter_get("ops.aot_compiles")
+        t0 = time.perf_counter()
+        oracle = oracle_of()
+        oracle_wait_ms = (time.perf_counter() - t0) * 1e3
+        errors = [e for r in results for e in r.get("errors", [])]
+        if errors:
+            raise AssertionError(f"{phase}: client errors {errors[:3]}")
+        for res in results:
+            for tid, digs in res["digests"].items():
+                if digs != oracle[tid]:
+                    raise AssertionError(f"{phase}: {tid}'s digests differ from the oracle")
+        captures_after_first = reg.counter_get("ops.aot_compiles") - first_wave_compiles
+        if captures_after_first:
+            raise AssertionError(f"{phase}: {captures_after_first} captures after the first wave")
+        delta = _tenancy_delta(before)
+        if require_joins and not delta.get("wave_joins"):
+            raise AssertionError(f"{phase}: no request joined a wave in flight: {delta}")
+        latencies = {}
+        for res in results:
+            for cls, vals in res["latencies_ms"].items():
+                latencies.setdefault(cls, []).extend(vals)
+        # FIB-level views of two more tenants, against the oracle replay
+        fib_specs = [multi_client.TenantSpec(f"fib{i}", "fabric", nodes, seed=40 + i)
+                     for i in range(fib_tenants)]
+        saved = dict(LAUNCHES)
+        fib_oracle = multi_client.oracle_fib_digests(fib_specs, 2, 1, dev)
+        LAUNCHES.update(saved)
+        client = SolverClient("127.0.0.1", srv.port)
+        fib_got = {}
+        for spec in fib_specs:
+            dbs = spec.build_dbs()
+            client.register(spec.tenant_id, slo=spec.slo)
+            client.update_world(spec.tenant_id, [dbs[k] for k in sorted(dbs)],
+                                root=spec.root_of(dbs),
+                                prefix_dbs=[db for _k, db in sorted(spec.build_prefix_dbs().items())])
+            for i in range(2):
+                if i:
+                    node = multi_client.apply_mutation(dbs, spec, i)
+                    client.update_world(spec.tenant_id, [dbs[node]])
+                client.solve(spec.tenant_id)
+                fib_got.setdefault(spec.tenant_id, []).append(client.fib(spec.tenant_id).digest)
+        client.close()
+        if fib_got != fib_oracle:
+            raise AssertionError(f"{phase}: FIB digests differ from the oracle")
+        _fail_on_moves(phase, reg, aot0)
+        launches = dict(LAUNCHES)
+        _need_launches(dev, launches, ("ell_band_relax",), phase)
+        emit({
+            "phase": phase, "nodes": nodes, "clients": clients, "tenants": len(all_specs),
+            "rounds": rounds, "slots": slots, "digests_match_oracle": True,
+            "fib_match_oracle": True, "fib_tenants": fib_tenants,
+            "drive_s": drive_s, "oracle_wait_ms": oracle_wait_ms,
+            "p99_ms_by_class": {cls: _p99(v) for cls, v in sorted(latencies.items())},
+            "p50_ms_by_class": {cls: sorted(v)[len(v) // 2] for cls, v in sorted(latencies.items())},
+            "requests_by_class": {cls: len(v) for cls, v in sorted(latencies.items())},
+            "waves": reg.counter_get("serve.waves") - s0["serve.waves"],
+            "requests": reg.counter_get("serve.requests") - s0["serve.requests"],
+            "serve_errors": reg.counter_get("serve.errors") - s0["serve.errors"],
+            "preemptions": delta.get("wave_preemptions", 0),
+            "wave_joins": delta.get("wave_joins", 0),
+            "captures_after_first_wave": captures_after_first,
+            "tenancy": delta, "launches": launches,
+            "seconds": time.monotonic() - t_phase,
+        })
+        return launches
+    finally:
+        srv.stop()
+        svc.stop()
+
+
+def fleet_phase(dev, nodes=DENSE_NODES, tenants=FLEET_TENANTS, rounds=FLEET_ROUNDS,
+                migrate_at=FLEET_MIGRATE_AT, promote_at=FLEET_PROMOTE_AT, phase="fleet-1008"):
+    """``fleet-1008``: ``FleetController(services=2, with_standby=True)`` on
+    ``dev`` over ``tenants`` tenants of ``fat_tree_nodes(nodes)``, driven by
+    a fleet-aware ``SolverClient`` for ``rounds`` churn rounds; before
+    round ``migrate_at`` one tenant migrates live (it must rehydrate warm,
+    and the client answer the redirect), before round ``promote_at`` the
+    primary owning another is killed and its standby promoted mid-storm
+    (zero route deletes). Every digest against ``oracle_digests`` (on the
+    CPU in spawned processes while the fleet works). Reports
+    the replica lag and the migration ms. Returns the launch counts."""
+    import torch
+
+    from openr_tpu_torch.fleet import FleetController
+    from openr_tpu_torch.kernels import LAUNCHES, reset_launches
+    from openr_tpu_torch.load import multi_client
+    from openr_tpu_torch.ops.world_batch import TENANCY_COUNTERS
+    from openr_tpu_torch.serve.client import SolverClient
+    from openr_tpu_torch.telemetry import get_registry
+
+    reg = get_registry()
+    t_phase = time.monotonic()
+    specs = [multi_client.TenantSpec(f"f{i}", "fabric", nodes, seed=60 + i,
+                                     slo=SLO_ROTATION[i % 3]) for i in range(tenants)]
+    oracle_of = _oracle_digests_async(specs, rounds)
+    fc = FleetController(services=2, with_standby=True, device=dev)
+    fc.start()
+    reset_launches()
+    aot0 = aot_snapshot()
+    before = dict(TENANCY_COUNTERS)
+    try:
+        ctrl_port = fc.serve_ctrl("127.0.0.1")
+        f0 = fc.counters()
+        clients, worlds, got = {}, {}, {}
+        for spec in specs:
+            host, port = fc.admit(spec.tenant_id, spec.slo)
+            c = clients.get((host, port))
+            if c is None:
+                c = clients[(host, port)] = SolverClient(host, port,
+                                                          controller=("127.0.0.1", ctrl_port))
+            dbs = spec.build_dbs()
+            worlds[spec.tenant_id] = (spec, dbs, c)
+            c.register(spec.tenant_id, slo=spec.slo)
+            c.update_world(spec.tenant_id, [dbs[k] for k in sorted(dbs)], root=spec.root_of(dbs))
+        migrated, promoted = specs[0].tenant_id, specs[1].tenant_id
+        migration = promotion = None
+        lags = []
+        for i in range(rounds):
+            if i == migrate_at:
+                src = fc.owner_of(migrated)
+                colds = TENANCY_COUNTERS["tenant_import_colds"]
+                t0 = time.perf_counter()
+                reply = fc.migrate(migrated)
+                migration = {"ms": (time.perf_counter() - t0) * 1e3, "from": src,
+                             "to": fc.owner_of(migrated), "warm": bool(reply.get("warm")),
+                             "import_colds": TENANCY_COUNTERS["tenant_import_colds"] - colds}
+                if migration["to"] == src or migration["import_colds"] or not migration["warm"]:
+                    raise AssertionError(f"{phase}: the migration was not warm: {migration}")
+            if i == promote_at:
+                owner = fc.owner_of(promoted)
+                ms = fc.services()[owner]
+                lags.append({"before_flush": ms.streamer.lag()})
+                if not ms.streamer.flush(10.0):
+                    raise AssertionError(f"{phase}: {owner}'s journal did not drain")
+                lags[-1]["after_flush"] = ms.streamer.lag()
+                p0 = fc.counters()
+                ms.kill_primary()
+                done = fc.maybe_failover()
+                p1 = fc.counters()
+                promotion = {
+                    "service": owner, "promoted": done,
+                    "promotions": p1.get("fleet.promotions", 0) - p0.get("fleet.promotions", 0),
+                    "deletes": (p1.get("fleet.promotion_deletes", 0)
+                                - p0.get("fleet.promotion_deletes", 0)),
+                }
+                if done != [owner] or promotion["promotions"] != 1 or promotion["deletes"]:
+                    raise AssertionError(f"{phase}: the promotion flapped: {promotion}")
+            for tid, (spec, dbs, c) in worlds.items():
+                if i > 0:
+                    node = multi_client.apply_mutation(dbs, spec, i)
+                    c.update_world(tid, [dbs[node]])
+                got.setdefault(tid, []).append(c.solve(tid).digest())
+        oracle = oracle_of()
+        if got != oracle:
+            bad = sorted(t for t in got if got[t] != oracle[t])
+            raise AssertionError(f"{phase}: digests differ from the oracle for {bad}")
+        redirects = sum(c.redirects for c in clients.values())
+        reconnects = sum(c.reconnects for c in clients.values())
+        if not redirects:
+            raise AssertionError(f"{phase}: no redirect was answered")
+        for ms in fc.services().values():
+            if ms.streamer is not None and not ms.promoted:
+                ms.streamer.flush(10.0)
+                lags.append({"service": ms.name, "after_flush": ms.streamer.lag()})
+        for c in clients.values():
+            c.close()
+        _fail_on_moves(phase, reg, aot0)
+        launches = dict(LAUNCHES)
+        _need_launches(dev, launches, ("ell_band_relax",), phase)
+        f1 = fc.counters()
+        emit({
+            "phase": phase, "nodes": nodes, "tenants": tenants, "rounds": rounds,
+            "digests_match_oracle": True, "migration": migration, "promotion": promotion,
+            "redirects": redirects, "reconnects": reconnects, "replica_lag": lags,
+            "fleet": {k: f1[k] - f0.get(k, 0) for k in f1
+                      if isinstance(f1[k], (int, float)) and f1[k] != f0.get(k, 0)},
+            "tenancy": _tenancy_delta(before), "launches": launches,
+            "seconds": time.monotonic() - t_phase,
+        })
+        return launches
+    finally:
+        fc.stop()
+
+
+def serve_fleet_process(start: float):
+    """``serve-1008`` and ``fleet-1008`` on the card, in a process of its
+    own that owns the card for the service (the client processes it
+    spawns are torch-free); ``start`` is the script's ``_START``. Returns
+    the launch counts of both."""
+    global _START
+    _START = start
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    dev = torch.device("cuda")
+    serve = serve_phase(dev)
+    fleet = fleet_phase(dev)
+    emit({"phase": "profiler", "process": "serve-fleet", **profiler_summary()})
+    return {k: serve[k] + fleet[k] for k in serve}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the random kernel inputs")
@@ -3478,12 +4561,12 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     dense_ls, dense_ps = load_network(topologies, LinkState, PrefixState, DENSE_NODES)
     sparse_ls, sparse_ps = load_network(topologies, LinkState, PrefixState, SPARSE_NODES)
-    # the KSP2 cells, each twice: the device solver's copy and the host
-    # oracle's own
-    ksp2_dense = [load_ksp2_network(topologies, LinkState, PrefixState, DENSE_NODES)
-                  for _ in range(2)]
-    ksp2_sparse = [load_ksp2_network(topologies, LinkState, PrefixState, SPARSE_NODES,
-                                     KSP2_SAMPLED_DSTS) for _ in range(2)]
+    # the KSP2 engine cells: the device solver's copy (the host oracle
+    # builds its own in a process of its own, HostRouteOracle); the chunked
+    # cell twice: the device solver's copy and the host oracle's own
+    ksp2_dense = load_ksp2_network(topologies, LinkState, PrefixState, DENSE_NODES)
+    ksp2_sparse = load_ksp2_network(topologies, LinkState, PrefixState, SPARSE_NODES,
+                                    KSP2_SAMPLED_DSTS)
     ksp2_dense_chunked = [load_ksp2_network(topologies, LinkState, PrefixState, DENSE_NODES)
                           for _ in range(2)]
     n_dense = len(dense_ls.get_adjacency_databases())
@@ -3665,6 +4748,35 @@ def main(argv=None) -> int:
           "kernel_ms": ell_ms, "plain_ms": ell_plain, "bound_ms": ell_bound,
           "call_ms": ell_call, "plain_call_ms": ell_plain_call})
 
+    # ell_band_relax over a tenant axis (ell_band_relax_worlds): the tenant
+    # plane's uniform blocks at its two shapes (64 vantage worlds of the
+    # 1008-node fabric at the spine bucket's S = 64; 4 area worlds of the
+    # 10 000-node one at S = 8), then ragged random worlds: narrow and wide
+    # slot widths, S of 1 to 13, 1 to 7 worlds
+    worlds_rows = {
+        "1008": worlds_kernel_row(torch, dev, spf_sparse.compile_ell(dense_ls),
+                                  TENANCY_SLOTS, 64, rng, compare),
+        "10k": worlds_kernel_row(torch, dev, graph, TENANCY_10K_AREAS, 8, rng, compare),
+    }
+    from openr_tpu_torch.ops.ell_relax import (
+        ell_band_relax_worlds,
+        ell_band_relax_worlds_plain,
+    )
+
+    worlds_ragged = [(1, 1, 40, 3), (3, 8, 300, 9), (7, 13, 257, 33), (2, 5, 100, 64),
+                     (5, 2, 129, 200), (4, 8, 1000, 1024)]
+    for bw, s_, n_, k_ in worlds_ragged:
+        dd = rand_int((bw, s_, n_), 0.3)
+        ww = rand_int((bw, n_, k_), 0.3)
+        sb = torch.from_numpy(rng.integers(0, n_, (bw, n_, k_)).astype(np.int32)).to(dev)
+        ovr = torch.from_numpy(rng.random((bw, n_)) < 0.2).to(dev)
+        for mask in (ovr, ovr.to(torch.int32)):
+            compare("ell_band_relax", ell_band_relax_worlds(dd, sb, ww, mask),
+                    ell_band_relax_worlds_plain(dd, sb, ww, mask), (bw, s_, n_, k_))
+    emit({"phase": "kernels", "kernel": "ell_band_relax", "cell": "worlds",
+          "rows": worlds_rows, "checked_shapes": [list(x) for x in worlds_ragged],
+          "match": True})
+
     # ell_band_relax at the KSP2 engine's all-sources shapes: S = n_pad
     # rows (every node a source) over the 1008-node fabric's in-bands and
     # over the 10 000-node one's, two relax hops from the unit rows. The
@@ -3672,7 +4784,7 @@ def main(argv=None) -> int:
     # against the kernel on slices of ALL_SOURCES_SLICE rows (the first
     # and the last)
     all_sources_kernel = {}
-    for label, g in (("1008", spf_sparse.compile_ell(ksp2_dense[0][0])), ("10k", graph)):
+    for label, g in (("1008", spf_sparse.compile_ell(ksp2_dense[0])), ("10k", graph)):
         s = g.n_pad
         g_src = tuple(torch.from_numpy(x).to(dev) for x in g.src)
         g_w = tuple(torch.from_numpy(x).to(dev) for x in g.w)
@@ -3736,7 +4848,7 @@ def main(argv=None) -> int:
     # root's unit rows, a random mask of about 5 % set bits (every 7th row
     # all set: that destination loses every edge) and a random overload mask
     masked_kernel = {}
-    for label, ls in (("1008", ksp2_dense[0][0]), ("10k", sparse_ls)):
+    for label, ls in (("1008", ksp2_dense[0]), ("10k", sparse_ls)):
         g = spf_sparse.compile_ell(ls)
         s = _ksp2_chunk(g)
         g_src = tuple(torch.from_numpy(x).to(dev) for x in g.src)
@@ -4271,7 +5383,7 @@ def main(argv=None) -> int:
         sweep_huge, rev_100k = pool.submit(sweep_100k_process, _START).result()
 
     # -- 8./9. the main path: KSP2 route builds through the engine --------
-    def ksp2_engine_drive(phase, worlds, events, remote_events):
+    def ksp2_engine_drive(phase, world, fabric_nodes, ksp2_dsts, events, remote_events):
         """The KSP2 engine (the default up to ksp2_engine.ENGINE_MAX_NODES
         nodes) on a KSP2 network from ``root``: an initial build,
         ``events`` bench events (a bump of ``fsw-0-0``), ``remote_events``
@@ -4280,18 +5392,23 @@ def main(argv=None) -> int:
         databases, and after each the engine's resident all-sources
         matrix held against a cold ``ell_distances_from_sources`` on the
         card (its launches are taken back out of the counts). Then one
-        more bench and one more remote build under the profiler. Each
+        more bench and one more remote build under the profiler. The host
+        oracle (``HostRouteOracle``: spawned processes with their own copy
+        of the databases of ``fabric_nodes`` and ``ksp2_dsts`` as
+        ``load_ksp2_network`` takes them) replays the events and answers
+        each build's route database while the card works; the answers are
+        compared at the phase's end. Each
         build reports cold build or incremental sync, the affected
         destinations, the KSP2 route reuses, the all-sources hops and
         ``ell_band_relax`` launches, the fast path on or off and the
         speculative rows changed, the engine's host-clock parts, the
         kernel launches and the host's garbage-collector ms. The launch counts and the solver counters are zeroed just before
         and read just after."""
-        (ls, ps), (host_ls, host_ps) = worlds
+        ls, ps = world
         nodes = len(ls.get_adjacency_databases())
-        areas, host_areas = {ls.area: ls}, {host_ls.area: host_ls}
+        areas = {ls.area: ls}
+        oracle = HostRouteOracle(fabric_nodes, ksp2_dsts, root)
         device_solver = SpfSolver(root, backend="device", device=dev)
-        host_solver = SpfSolver(root, backend="host", device=dev)
         stager = device_solver._resident.stager
         remote = remote_rsw(ls)
         want_dsts = len({
@@ -4301,14 +5418,7 @@ def main(argv=None) -> int:
         })
 
         def check(got, step):
-            want = host_solver.build_route_db(root, host_areas, host_ps)
-            if carry.route_db_to_plain(got.to_route_db(root)) != carry.route_db_to_plain(
-                want.to_route_db(root)
-            ):
-                raise AssertionError(
-                    f"{phase}: route database differs from the host oracle "
-                    f"after event {step}"
-                )
+            oracle.check(step, carry.route_db_to_plain(got.to_route_db(root)))
             if len(got.unicast_routes) != nodes - 1 or len(got.mpls_routes) < nodes:
                 raise AssertionError(
                     f"{phase}: {len(got.unicast_routes)} unicast and "
@@ -4328,8 +5438,8 @@ def main(argv=None) -> int:
 
         def bump(node, metric):
             def event():
-                for l in (ls, host_ls):
-                    bump_metric(l, node, metric)
+                bump_metric(ls, node, metric)
+                oracle.bump(node, metric)
             return event
 
         def one_build(step, event):
@@ -4403,6 +5513,10 @@ def main(argv=None) -> int:
                 "top_device_ms": top_device_ms(stats),
             }
         counters = dict(SPF_COUNTERS)
+        launches = dict(LAUNCHES)
+        t_wait = time.perf_counter()
+        oracle.finish(phase)
+        oracle_wait_ms = (time.perf_counter() - t_wait) * 1e3
         if counters["decision.ksp2_device_batches"] == 0:
             raise AssertionError(f"{phase}: no KSP2 device batch")
         if counters["decision.ksp2_host_fallbacks"] or counters["decision.spf_host_fallback"]:
@@ -4411,7 +5525,6 @@ def main(argv=None) -> int:
                    for b in remotes):
             raise AssertionError(f"{phase}: no remote event synced incrementally and "
                                  f"reused KSP2 routes: {[b['counters'] for b in remotes]}")
-        launches = dict(LAUNCHES)
         for kernel in ("ell_band_relax", "ell_band_relax_masked"):
             if launches[kernel] == 0:
                 raise AssertionError(f"{phase}: KSP2 builds launched no {kernel}")
@@ -4420,6 +5533,8 @@ def main(argv=None) -> int:
             "phase": phase, "mode": "engine", "tracer": ksp2_engine.TRACER,
             "nodes": nodes, "root": root,
             "events": events, "ksp2_dsts": want_dsts, "parity_with_host_oracle": True,
+            "host_oracle": {"builds": oracle.checked, "wait_ms": oracle_wait_ms,
+                            "workers": HOST_ORACLE_WORKERS},
             "resident_matches_cold_solve": True,
             "first_build": builds[0],
             "median_event_ms": statistics.median(b["ms"] for b in events_only),
@@ -4579,9 +5694,10 @@ def main(argv=None) -> int:
         })
         return launches
 
-    ksp2_small = ksp2_engine_drive("ksp2-1008", ksp2_dense, KSP2_DENSE_EVENTS, REMOTE_EVENTS)
-    ksp2_large = ksp2_engine_drive("ksp2-10k", ksp2_sparse, KSP2_SPARSE_EVENTS,
-                                   KSP2_SPARSE_REMOTE_EVENTS)
+    ksp2_small = ksp2_engine_drive("ksp2-1008", ksp2_dense, DENSE_NODES, None,
+                                   KSP2_DENSE_EVENTS, REMOTE_EVENTS)
+    ksp2_large = ksp2_engine_drive("ksp2-10k", ksp2_sparse, SPARSE_NODES, KSP2_SAMPLED_DSTS,
+                                   KSP2_SPARSE_EVENTS, KSP2_SPARSE_REMOTE_EVENTS)
     engine_max = ksp2_engine.ENGINE_MAX_NODES
     ksp2_engine.ENGINE_MAX_NODES = 0
     try:
@@ -4609,11 +5725,26 @@ def main(argv=None) -> int:
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         pool.apply(daemon_process_process, (_START,))
 
+    # -- 18-19. the tenant plane: WorldManager at 1008 and 10 000 nodes
+    gc.collect()
+    torch.cuda.empty_cache()
+    tenancy_small = tenancy_phase(dev, gc_clock=gc_clock)
+    tenancy_large = tenancy_10k_phase(dev)
+
+    # -- 20-21. the solver service and the fleet, in a process that owns
+    # the card for the service, its clients in torch-free processes (not a
+    # multiprocessing.Pool: its workers are daemonic and may not start them)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        serve_fleet = pool.submit(serve_fleet_process, _START).result()
+
     main_launches = {
         k: dense[k] + sparse[k] + sweep_small[k] + sweep_large[k] + engine_small[k]
         + engine_large[k] + sweep_huge[k] + ksp2_small[k]
         + ksp2_large[k] + ksp2_chunked[k] + decision_small[k] + decision_large[k]
         + decision_faults[k] + pipeline_small[k] + pipeline_large[k] + fabric[k]
+        + tenancy_small[k] + tenancy_large[k] + serve_fleet[k]
         for k in LAUNCHES
     }
 
@@ -4655,7 +5786,13 @@ def main(argv=None) -> int:
          "shape": {"S": b, "n_pad": graph.n_pad,
                    "bands": [[bd.rows, bd.k] for bd in graph.bands]},
          "match": True,
-         "all_sources": all_sources_kernel},
+         "all_sources": all_sources_kernel,
+         "worlds": {
+             label: {**row, "launches": {"tenancy-1008": tenancy_small["ell_band_relax"],
+                                         "tenancy-10k": tenancy_large["ell_band_relax"],
+                                         "serve-fleet-1008": serve_fleet["ell_band_relax"]},
+                     "max_abs_err": max_err["ell_band_relax"], "library_ms": None}
+             for label, row in worlds_rows.items()}},
         {"name": "ell_band_relax_masked", "route": "cuda",
          "source": f"{csrc}/ell_relax_masked.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:219",

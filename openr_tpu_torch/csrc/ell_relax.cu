@@ -32,6 +32,15 @@
 //   loads are contiguous), four at a time with their loads issued before
 //   their uses; __reduce_min_sync joins a warp's lanes and shared memory
 //   the warps of a row.
+// A world axis (openr_ell_band_relax_worlds): B independent graphs, each
+// with its own d [S, n], src / w [n, k] and overloaded [n], relaxed as one
+// uniform band at pos = 0 in one launch (the tenant plane's
+// [B, n_slot, k_slot] blocks; the reference batches the Pallas kernel
+// through pallas_call's vmap rule). The world is blockIdx.z and each
+// operand steps by its per-world stride (size_t: B * S * n outgrows an
+// int); the single-graph entry point is the same bodies with one world.
+// Padding rows of a uniform block (self-loops at w = INF) are relaxed like
+// any other row: their slots are read and gathered, and change nothing.
 // Either body writes straight into column pos + j of an output shaped like
 // d: every band of the port's _ell_relax writes its own column slice of one
 // [S, n_pad] output, which replaces the JAX concatenate of band parts. The
@@ -63,10 +72,17 @@ ell_band_relax_narrow(const int32_t* __restrict__ d, int n_pad,
                       const int32_t* __restrict__ src,
                       const int32_t* __restrict__ w, int rows, int k,
                       const Ov* __restrict__ overloaded, int pos,
-                      int32_t* __restrict__ out) {
+                      int32_t* __restrict__ out, size_t d_world,
+                      size_t sw_world, size_t ov_world) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int s = blockIdx.y;
   if (j >= rows) return;
+  const size_t b = blockIdx.z;
+  d += b * d_world;
+  out += b * d_world;
+  src += b * sw_world;
+  w += b * sw_world;
+  overloaded += b * ov_world;
   const int32_t* drow = d + (size_t)s * n_pad;
   const int32_t* srow = src + (size_t)j * k;
   const int32_t* wrow = w + (size_t)j * k;
@@ -86,8 +102,15 @@ ell_band_relax_wide(const int32_t* __restrict__ d, int n_pad,
                     const int32_t* __restrict__ src,
                     const int32_t* __restrict__ w, int rows, int k,
                     const Ov* __restrict__ overloaded, int pos, int shift,
-                    int32_t* __restrict__ out) {
+                    int32_t* __restrict__ out, size_t d_world,
+                    size_t sw_world, size_t ov_world) {
   __shared__ int32_t part[kWideThreads / 32];
+  const size_t b = blockIdx.z;
+  d += b * d_world;
+  out += b * d_world;
+  src += b * sw_world;
+  w += b * sw_world;
+  overloaded += b * ov_world;
   const int step = 1 << shift;
   const int lane = threadIdx.x & (step - 1);
   const int j = blockIdx.x * (kWideThreads >> shift) + (threadIdx.x >> shift);
@@ -130,14 +153,21 @@ ell_band_relax_wide(const int32_t* __restrict__ d, int n_pad,
   }
 }
 
+// B worlds on grid.z; a world's d and out step by S * n_pad, its src and w
+// by rows * k and its overloaded by n_pad (all unused when B = 1).
 template <typename Ov>
-cudaError_t launch(const int32_t* d, int S, int n_pad, const int32_t* src,
-                   const int32_t* w, int rows, int k, const Ov* ov, int pos,
-                   int row_threads, int32_t* out, cudaStream_t st) {
+cudaError_t launch(const int32_t* d, int B, int S, int n_pad,
+                   const int32_t* src, const int32_t* w, int rows, int k,
+                   const Ov* ov, int pos, int row_threads, int32_t* out,
+                   cudaStream_t st) {
+  const size_t d_world = (size_t)S * n_pad;
+  const size_t sw_world = (size_t)rows * k;
+  const size_t ov_world = (size_t)n_pad;
+  if (B < 1 || B > 65535) return cudaErrorInvalidValue;
   if (row_threads == 1) {
-    const dim3 grid((rows + kThreads - 1) / kThreads, S);
+    const dim3 grid((rows + kThreads - 1) / kThreads, S, B);
     ell_band_relax_narrow<Ov><<<grid, kThreads, 0, st>>>(
-        d, n_pad, src, w, rows, k, ov, pos, out);
+        d, n_pad, src, w, rows, k, ov, pos, out, d_world, sw_world, ov_world);
     return cudaGetLastError();
   }
   int shift = 5;
@@ -146,9 +176,10 @@ cudaError_t launch(const int32_t* d, int S, int n_pad, const int32_t* src,
     return cudaErrorInvalidValue;
   }
   const int per_block = kWideThreads >> shift;
-  const dim3 grid((rows + per_block - 1) / per_block, S);
+  const dim3 grid((rows + per_block - 1) / per_block, S, B);
   ell_band_relax_wide<Ov><<<grid, kWideThreads, 0, st>>>(
-      d, n_pad, src, w, rows, k, ov, pos, shift, out);
+      d, n_pad, src, w, rows, k, ov, pos, shift, out, d_world, sw_world,
+      ov_world);
   return cudaGetLastError();
 }
 
@@ -168,12 +199,38 @@ extern "C" int openr_ell_band_relax(const void* d, int S, int n_pad,
   int32_t* out_ = static_cast<int32_t*>(out);
   cudaError_t rc;
   if (ov_is_int32) {
-    rc = launch(d_, S, n_pad, src_, w_, rows, k,
+    rc = launch(d_, 1, S, n_pad, src_, w_, rows, k,
                 static_cast<const int32_t*>(overloaded), pos, row_threads,
                 out_, st);
   } else {
-    rc = launch(d_, S, n_pad, src_, w_, rows, k,
+    rc = launch(d_, 1, S, n_pad, src_, w_, rows, k,
                 static_cast<const uint8_t*>(overloaded), pos, row_threads,
+                out_, st);
+  }
+  return static_cast<int>(rc);
+}
+
+// The world axis: d, out [B, S, n]; src, w [B, n, k]; overloaded [B, n];
+// every row of each world is one uniform band at pos = 0.
+extern "C" int openr_ell_band_relax_worlds(const void* d, int B, int S,
+                                           int n, const void* src,
+                                           const void* w, int k,
+                                           const void* overloaded,
+                                           int ov_is_int32, int row_threads,
+                                           void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* d_ = static_cast<const int32_t*>(d);
+  const int32_t* src_ = static_cast<const int32_t*>(src);
+  const int32_t* w_ = static_cast<const int32_t*>(w);
+  int32_t* out_ = static_cast<int32_t*>(out);
+  cudaError_t rc;
+  if (ov_is_int32) {
+    rc = launch(d_, B, S, n, src_, w_, n, k,
+                static_cast<const int32_t*>(overloaded), 0, row_threads,
+                out_, st);
+  } else {
+    rc = launch(d_, B, S, n, src_, w_, n, k,
+                static_cast<const uint8_t*>(overloaded), 0, row_threads,
                 out_, st);
   }
   return static_cast<int>(rc);

@@ -41,9 +41,9 @@ hold for the route engine's warm events. Left out for a later slice: the crash-s
 (the ``state_plane`` argument, the flight journal anchored on it,
 ``checkpoint_state`` and ``warm_boot``), the integrity plane (the
 auditor's post-converge hook and the quarantine test beside the staleness
-stamp: no port engine registers with an auditor yet), and the solver
-options the port's ``SpfSolver`` does not have (``view_cache_cap``,
-``world_batch``).
+stamp: no port engine registers with an auditor yet). ``world_batch``
+and ``view_cache_cap`` pass through to ``SpfSolver`` as in the
+reference.
 """
 
 from __future__ import annotations
@@ -239,6 +239,8 @@ class Decision:
         admission: Optional[AdmissionControl] = None,
         pipelined_emit: bool = False,
         kvstore_reader_maxlen: Optional[int] = None,
+        world_batch: Optional[bool] = None,
+        view_cache_cap: Optional[int] = None,
         device: DeviceLike = None,
     ):
         self._enable_rib_policy = enable_rib_policy
@@ -254,6 +256,8 @@ class Decision:
             enable_best_route_selection=enable_best_route_selection,
             backend=solver_backend,
             device=device,
+            view_cache_cap=view_cache_cap,
+            world_batch=world_batch,
         )
         # degradation ladder for the rebuild path: warm device solve →
         # device-state reset + cold rebuild → non-device backend. The

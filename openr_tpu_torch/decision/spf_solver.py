@@ -30,10 +30,17 @@ dispatch do not). The "native" backend answers from the host C++ core
 ``prewarm`` and ``speculate_views`` are Decision's publication-time hooks;
 a fresh device view solve crosses the fault seam ``decision.spf_solve``;
 a plugin may register a backend of its own (``register_spf_backend``).
-Left out for later slices: the fleet/state hooks of the resident cache
-(``export_resident_state``, ``fleet_preload_views``,
-``seed_resident_state``), the view cache's size option and the multi-area
-world batch.
+The view cache is an LRU of ``view_cache_cap`` graphs
+(``OPENR_VIEW_CACHE_CAP``, ``route_engine.view_evictions``); with
+``world_batch`` (``OPENR_WORLD_BATCH=1``) a build first solves every
+area's view as one tenant-plane dispatch (``_world_preload`` over
+``ops.world_batch``'s process-wide manager on the solver's device) and
+preloads the views for the per-area builds, and ``fleet_preload_views``
+installs a solver service's views for the next build; a failed preload
+is counted (``decision.world_preload_failures``) and the areas are solved
+one by one on the same device. Left out for a later slice: the state
+hooks of the resident cache (``export_resident_state``,
+``seed_resident_state``).
 
 Behavioural parity with the reference ``openr/decision/Decision.cpp``
 SpfSolverImpl (buildRouteDb:569, createRouteForPrefix:402,
@@ -43,6 +50,7 @@ addBestPaths:1033, getNextHopsWithMetric:1124, getNextHopsThrift:1211).
 
 from __future__ import annotations
 
+import os
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -123,6 +131,14 @@ SPF_COUNTERS = get_registry().counter_dict(
         "decision.sp_route_reuses",
         "decision.device_state_resets",
         "decision.backend_switches",
+        # multi-area batched dispatch (ops.world_batch): builds whose
+        # area views were solved as one tenant-plane dispatch, and
+        # preload attempts that fell back to sequential solves
+        "decision.world_preloads",
+        "decision.world_preload_failures",
+        # SpfSolver._views LRU demotions: a hot loop here means the view
+        # cache cap (OPENR_VIEW_CACHE_CAP) is below the live area count
+        "route_engine.view_evictions",
     ]
 )
 
@@ -232,8 +248,9 @@ def _ksp2_chunk(graph) -> int:
         chunk *= 2
     return chunk
 
-# per-solver view cache capacity (graphs, not views)
-VIEW_CACHE_CAP = 4
+# SpfSolver._views LRU capacity (graphs, not views). Overridable per
+# solver via the view_cache_cap constructor arg.
+VIEW_CACHE_CAP_DEFAULT = int(os.environ.get("OPENR_VIEW_CACHE_CAP", "4") or 4)
 
 
 def make_next_hop(
@@ -469,12 +486,29 @@ class _EllResidentCache:
         return state.graph, srcs, packed
 
 
+def fleet_preload_views(ls: LinkState, views) -> None:
+    """Install one batched wave's per-vantage solved views (a solver
+    service's fan-in): each ``(graph, srcs, packed)`` triple is consumed
+    once by the matching root's next SpfView of ``ls``, so N vantage
+    route rebuilds follow one ``world_dispatch`` with no further device
+    work. The reference keeps one process-wide resident cache; the port's
+    are per solver, so every live one takes the views."""
+    for cache in list(_DEVICE_CACHES):
+        if isinstance(cache, _EllResidentCache):
+            cache.preload_views(ls, views)
+
+
 def reset_device_caches() -> None:
     """Drop every live solver's device-derived caches (resident ELL
-    bands, compiled graph snapshots): the next build recompiles and
-    re-lands everything from the LinkState alone."""
+    bands, preloaded views, compiled graph snapshots) and the tenant
+    plane's world managers: the next build recompiles and re-lands
+    everything from the LinkState alone, so a torn dispatch never leaves
+    half-synced resident state behind."""
     for cache in list(_DEVICE_CACHES):
         cache.invalidate()
+    from openr_tpu_torch.ops import world_batch
+
+    world_batch.reset_world_manager()
 
 
 class SpfView:
@@ -695,6 +729,8 @@ class SpfSolver:
         enable_best_route_selection: bool = True,
         backend: str = "device",
         device: DeviceLike = None,
+        view_cache_cap: Optional[int] = None,
+        world_batch: Optional[bool] = None,
     ):
         _check_backend(backend)
         self.my_node_name = my_node_name
@@ -705,6 +741,16 @@ class SpfSolver:
         self.enable_best_route_selection = enable_best_route_selection
         self.backend = backend
         self.device = resolve_device(device)
+        # _views LRU capacity (per-graph slots); None -> env/default
+        self.view_cache_cap = max(
+            1, view_cache_cap if view_cache_cap is not None else VIEW_CACHE_CAP_DEFAULT
+        )
+        # multi-area tenant-plane dispatch (ops.world_batch): None -> the
+        # env opt-in. Off by default: single-area deployments gain nothing
+        self.world_batch = (
+            world_batch if world_batch is not None
+            else os.environ.get("OPENR_WORLD_BATCH") == "1"
+        )
         self._snapshots = SnapshotCache(self.device)
         _DEVICE_CACHES.add(self._snapshots)
         # the device-resident sliced-ELL bands of the sparse views and the
@@ -902,6 +948,37 @@ class SpfSolver:
 
     # -- SPF views --------------------------------------------------------
 
+    def _world_preload(self, my_node_name: str, area_link_states: AreaLinkStates) -> None:
+        """Solve every eligible area's {root} + neighbours view as ONE
+        batched tenant-plane dispatch (``ops.world_batch``, on the
+        solver's device) and preload the results into the resident-view
+        path, so the per-area SpfViews below are host-side slices instead
+        of N sequential device round trips. A failure (or an area already
+        holding a cached view) leaves the areas to the per-area solves on
+        the same device; a failure is counted."""
+        if self.backend != "device" or not self.world_batch:
+            return
+        items = []
+        for area in sorted(area_link_states):
+            ls = area_link_states[area]
+            if not ls.has_node(my_node_name):
+                continue
+            per_ls = self._views.get(ls)
+            if per_ls is not None and (ls.topology_version, my_node_name) in per_ls:
+                continue  # cached view: a preload would go unconsumed
+            items.append((f"{area}/{my_node_name}", ls, my_node_name))
+        if len(items) < 2:
+            return  # nothing to batch
+        try:
+            from openr_tpu_torch.ops import world_batch
+
+            views = world_batch.get_world_manager(self.device).solve_views(items)
+            for (_tid, ls, _root), (graph, srcs, packed) in zip(items, views):
+                self._resident.preload_view(ls, graph, srcs, packed)
+            SPF_COUNTERS["decision.world_preloads"] += 1
+        except Exception:
+            SPF_COUNTERS["decision.world_preload_failures"] += 1
+
     def _view(self, area: str, ls: LinkState, root: str) -> SpfView:
         del area  # identity of the LinkState object is the key
         per_ls = self._views.pop(ls, None)
@@ -909,8 +986,9 @@ class SpfSolver:
             per_ls = {}
         # re-insert on hit: eviction is LRU
         self._views[ls] = per_ls
-        while len(self._views) > VIEW_CACHE_CAP:
+        while len(self._views) > self.view_cache_cap:
             self._views.pop(next(iter(self._views)))
+            SPF_COUNTERS["route_engine.view_evictions"] += 1
         key = (ls.topology_version, root)
         view = per_ls.get(key)
         spec = self._spec_staged.get(ls)
@@ -1109,6 +1187,7 @@ class SpfSolver:
         self._build_seq += 1
         route_db = DecisionRouteDb()
         self.best_routes_cache.clear()
+        self._world_preload(my_node_name, area_link_states)
         # KSP2 second paths, batched on the device and primed into each
         # area's kth-path cache before the prefix loop reads them; the
         # engines' affected set, or None (no KSP2 reuse this build)

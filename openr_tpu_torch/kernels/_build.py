@@ -48,6 +48,11 @@ SIGNATURES: Dict[str, List] = {
     "openr_ell_band_relax": [
         _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P,
     ],
+    # d [B, S, n], B, S, n, src, w [B, n, k], k, overloaded [B, n],
+    # ov_is_int32, row_threads, out, stream
+    "openr_ell_band_relax_worlds": [
+        _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P,
+    ],
     # d, S, n_pad, src, w, mask (packed int32 words), rows, k, overloaded,
     # ov_is_int32, pos, kmax, group, row_threads, chunk, out, stream
     "openr_ell_band_relax_masked": [

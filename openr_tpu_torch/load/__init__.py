@@ -15,8 +15,11 @@ Two halves (see docs/ARCHITECTURE.md "Service plane"):
 depends on the Decision/Fib modules; importing this package from inside
 ``decision`` must stay cycle-free.
 
-Port note: mirrors ``openr_tpu/load/__init__.py``; ``multi_client.py`` (the
-multi-tenant client fleet) is left out for a later slice.
+``multi_client`` (the multi-process client fleet of the solver service)
+is imported as a submodule: its client path is torch-free, its oracles
+import torch lazily.
+
+Port note: mirrors ``openr_tpu/load/__init__.py``.
 """
 
 from openr_tpu_torch.load.admission import (

@@ -1,7 +1,11 @@
 """One band of the sliced-ELL relaxation: the sparse SPF relaxation step.
 
 Port note: the counterpart of ``openr_tpu/ops/pallas_ell.py::ell_band_relax``
-and ``::ell_band_relax_masked``. ``ell_band_relax`` launches the
+and ``::ell_band_relax_masked``, and of ``ell_band_relax`` batched over a
+tenant axis by ``pallas_call``'s vmap rule (the reference's
+``spf_sparse._uniform_relax`` under ``vmap``): ``ell_band_relax_worlds``,
+one uniform band covering every row of each of B worlds, in one launch of
+the same kernel with the world on the grid's third axis. ``ell_band_relax`` launches the
 hand-written kernel in ``csrc/ell_relax.cu`` and ``ell_band_relax_masked``
 (the KSP2 second-path relax, with a per-batch-row edge mask) the one in
 ``csrc/ell_relax_masked.cu`` on CUDA tensors; each runs its ``*_plain``
@@ -63,33 +67,41 @@ MASKED_WIDE_MIN_BLOCKS = 2 * 132
 
 class EllPlan(NamedTuple):
     """How one band launches: ``wide`` body or not, threads a (s, j) row
-    (``row_threads``, 1 for the narrow body), band rows a block, and the
-    grid ``(band-row tiles, batch rows)``."""
+    (``row_threads``, 1 for the narrow body), band rows a block, the grid
+    ``(band-row tiles, batch rows)``, and the worlds on the grid's third
+    axis (1 but for ``ell_band_relax_worlds``)."""
 
     wide: bool
     row_threads: int
     rows_per_block: int
     grid: Tuple[int, int]
+    worlds: int = 1
 
 
-def launch_plan(s: int, rows: int, k: int, variant: str = "plan") -> EllPlan:
+def launch_plan(s: int, rows: int, k: int, variant: str = "plan",
+                worlds: int = 1) -> EllPlan:
     """The launch of one band of ``rows`` band rows with ``k`` slots over
-    ``s`` batch rows (both >= 1, ``s`` within the grid's y limit) by the
-    rule above the class. The autotuner's variants ``threadsX`` (family
-    "ell_relax") give a wide band's row X threads instead; its other
-    variants leave the plan as it is."""
-    if s < 1 or rows < 1 or k < 0 or s > GRID_Y_MAX:
-        raise ValueError(f"ell_band_relax plan: s={s}, rows={rows}, k={k}")
+    ``s`` batch rows (both >= 1, ``s`` within the grid's y limit) in each
+    of ``worlds`` worlds (within the grid's z limit) by the rule above the
+    class: the warps of every world count toward ``TARGET_WARPS``. The
+    autotuner's variants ``threadsX`` (family "ell_relax") give a wide
+    band's row X threads instead; its other variants leave the plan as it
+    is."""
+    if (s < 1 or rows < 1 or k < 0 or s > GRID_Y_MAX or worlds < 1
+            or worlds > GRID_Y_MAX):
+        raise ValueError(
+            f"ell_band_relax plan: s={s}, rows={rows}, k={k}, worlds={worlds}")
     if k < WIDE_K:
-        return EllPlan(False, 1, NARROW_ROWS, (-(-rows // NARROW_ROWS), s))
+        return EllPlan(False, 1, NARROW_ROWS, (-(-rows // NARROW_ROWS), s), worlds)
     threads = MIN_ROW_THREADS
-    while (threads < WIDE_THREADS and s * rows * threads // 32 < TARGET_WARPS
+    while (threads < WIDE_THREADS
+           and worlds * s * rows * threads // 32 < TARGET_WARPS
            and k >= MIN_SLOTS * 2 * threads):
         threads *= 2
     if variant.startswith("threads"):
         threads = int(variant[7:])
     per = WIDE_THREADS // threads
-    return EllPlan(True, threads, per, (-(-rows // per), s))
+    return EllPlan(True, threads, per, (-(-rows // per), s), worlds)
 
 
 class MaskedPlan(NamedTuple):
@@ -384,3 +396,100 @@ def ell_band_relax_masked(
     _build.check(rc, "ell_band_relax_masked")
     note_launch("ell_band_relax_masked")
     return view
+
+
+def _check_worlds(d, src, w, overloaded) -> None:
+    if d.dim() != 3 or src.dim() != 3 or src.shape != w.shape:
+        raise ValueError(
+            f"ell_band_relax_worlds: shapes d {tuple(d.shape)}, src "
+            f"{tuple(src.shape)}, w {tuple(w.shape)}"
+        )
+    b, _s, n = d.shape
+    if src.shape[:2] != (b, n) or overloaded.shape != (b, n):
+        raise ValueError(
+            f"ell_band_relax_worlds: d {tuple(d.shape)}, src {tuple(src.shape)}, "
+            f"overloaded {tuple(overloaded.shape)}: want [B, n, k] and [B, n]"
+        )
+    for name, t in (("d", d), ("src", src), ("w", w)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"ell_band_relax_worlds: {name} must be int32, got {t.dtype}")
+    if overloaded.dtype not in (torch.bool, torch.uint8, torch.int32):
+        raise TypeError(
+            f"ell_band_relax_worlds: overloaded must be bool, uint8 or int32, "
+            f"got {overloaded.dtype}"
+        )
+    devices = {d.device, src.device, w.device, overloaded.device}
+    if len(devices) != 1:
+        raise ValueError(f"ell_band_relax_worlds: operands on {sorted(map(str, devices))}")
+
+
+def ell_band_relax_worlds_plain(
+    d: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    overloaded: torch.Tensor,
+) -> torch.Tensor:
+    """``[B, S, n]``: for each world ``b``, ``min(d[b], min_slot
+    min(d[b, :, src[b, j, slot]] + w_eff[b, j, slot], INF))`` with
+    ``w_eff = INF`` where ``overloaded[b, src[b, j, slot]]``: a batched
+    gather in plain torch ops. ``src`` holds node ids < n."""
+    _check_worlds(d, src, w, overloaded)
+    b, s, n = d.shape
+    k = src.shape[2]
+    idx = src.long().reshape(b, n * k)
+    ov = torch.gather(overloaded, 1, idx).reshape(b, n, k)
+    w_eff = w.masked_fill(ov != 0, INF)
+    gathered = torch.gather(d, 2, idx[:, None, :].expand(b, s, n * k))
+    relaxed = (gathered.view(b, s, n, k) + w_eff[:, None]).clamp_max_(INF).amin(3)
+    return torch.minimum(d, relaxed)
+
+
+def ell_band_relax_worlds(
+    d: torch.Tensor,
+    src: torch.Tensor,
+    w: torch.Tensor,
+    overloaded: torch.Tensor,
+) -> torch.Tensor:
+    """One relax step of B worlds, each one uniform band covering all its
+    rows (``pos = 0``): distance rows ``d [B, S, n]``, slots ``src``/``w
+    [B, n, k]``, ``overloaded [B, n]`` bool, uint8 or int32 0/1. Returns
+    a new ``[B, S, n]``. Slot ids are not range-checked: they must lie in
+    ``[0, n)``, as ``spf_sparse.ell_pack_uniform`` makes them.
+
+    CUDA tensors go through the hand-written kernel
+    (``openr_ell_band_relax_worlds``, one launch for every world, current
+    stream, not synchronised, as ``launch_plan(..., worlds=B)`` says); CPU
+    tensors through ``ell_band_relax_worlds_plain``. Any other device
+    raises."""
+    _check_worlds(d, src, w, overloaded)
+    if d.device.type == "cpu":
+        return ell_band_relax_worlds_plain(d, src, w, overloaded)
+    if d.device.type != "cuda":
+        raise ValueError(f"ell_band_relax_worlds: no kernel for device {d.device}")
+    from openr_tpu_torch.kernels import _build
+
+    if overloaded.dtype == torch.bool:
+        overloaded = overloaded.view(torch.uint8)
+    for name, t in (("d", d), ("src", src), ("w", w), ("overloaded", overloaded)):
+        if not t.is_contiguous():
+            raise ValueError(f"ell_band_relax_worlds: {name} must be contiguous")
+    b, s, n = d.shape
+    k = src.shape[2]
+    out = torch.empty_like(d)
+    if b == 0 or s == 0 or n == 0:
+        return out
+    # the "ell_relax" autotune family is measured on the banded kernels
+    # only, so its winner does not reach the world shapes unmeasured
+    _variant("ell_band_relax_worlds")  # refuses "plain" on the card
+    plan = launch_plan(s, n, k, worlds=b)
+    lib = _build.library()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        rc = lib.openr_ell_band_relax_worlds(
+            d.data_ptr(), b, s, n, src.data_ptr(), w.data_ptr(), k,
+            overloaded.data_ptr(), int(overloaded.dtype == torch.int32),
+            plan.row_threads, out.data_ptr(), stream,
+        )
+    _build.check(rc, "ell_band_relax_worlds")
+    note_launch("ell_band_relax")
+    return out

@@ -13,7 +13,9 @@ snapshot and rollback, and the supervised ladder warm -> recover -> cold
 -> host) and the grouped engine (``_grouped_full_resident``,
 ``_patch_segments``, ``_grouped_churn_step``, ``_grouped_frontier_probe``,
 ``_grouped_frontier_step``, ``_grouped_overflow_chain``,
-``GroupedRouteSweepEngine``). The reference's jitted bodies are
+``GroupedRouteSweepEngine``), and the tenant plane's epilogue
+(``compact_rows_with_ids``, the fused ``world_dispatch`` that
+``ops.world_batch`` runs). The reference's jitted bodies are
 dispatched where the reference dispatches them: through the executable
 cache (``ops/aot_cache.py``: a captured CUDA graph on the card), by
 ``spf_sparse.ell_dispatch`` for the ELL engine and ``aot_call`` for the
@@ -40,9 +42,8 @@ contract: one submit run and one read run, and deferred, no blocking
 sync.
 
 Left out, each waiting on its item of ROADMAP Queue 1: the sharded bodies
-and the ``mesh=`` argument (item 10: the constructor refuses a mesh),
-``world_dispatch``/``compact_rows_with_ids`` (item 8), the integrity and
-state hooks (``audit_*``, ``quarantine``, ``integrity_heal``,
+and the ``mesh=`` argument (item 10: the constructor refuses a mesh), the
+integrity and state hooks (``audit_*``, ``quarantine``, ``integrity_heal``,
 ``corrupt_resident``, ``snapshot_resident_state``/
 ``rehydrate_resident_state``, the ``device.corrupt_resident`` seam and the
 auditor registration: item 9).
@@ -115,6 +116,7 @@ from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf_sparse import (
     TornStateError,
     _out_edges,
+    _tenant_view_solve,
     band_patch_inputs,
     compile_ell,
     ell_dispatch,
@@ -331,6 +333,54 @@ def _compact_changed_body(new_packed, prev_packed, n):
     out = torch.zeros((npad + 1, body.shape[1]), dtype=torch.int32, device=new_packed.device)
     out.index_copy_(0, dest, body)
     return ch_count, out[:npad]
+
+
+def compact_rows_with_ids(new_packed, prev_packed, cap: int):
+    """Tenant-batched delta epilogue (consumed by ops.world_batch, and
+    fused into ``world_dispatch`` below so it rides the same body as the
+    solve it diffs; the reference's traced ``_compact_rows_with_ids``):
+    diff a [B, R, N] packed block bit for bit against the resident
+    previous one and compact the changed rows to the front, each prefixed
+    by a [tenant, row] id column pair, so one readback fans back out to B
+    per-tenant host mirrors. Returns ``(changed_count, out [cap+1,
+    2+N])``: the host reads the scalar, then ``out[:changed_count]``;
+    when the delta overflows ``cap`` the caller falls back to a
+    full-block readback (counted, never silent). Row ``cap`` is the
+    overflow slot: the reference leaves it unspecified, the port zero."""
+    bsz, rows, n = new_packed.shape
+    dev = new_packed.device
+    changed = (new_packed != prev_packed).any(dim=2).reshape(-1)
+    ch_count = changed.sum(dtype=torch.int32)
+    flat = new_packed.reshape(bsz * rows, n)
+    ids = torch.arange(bsz * rows, dtype=torch.int32, device=dev)
+    body = torch.cat([(ids // rows)[:, None], (ids % rows)[:, None], flat], dim=1)
+    pos = changed.cumsum(0) - 1
+    # unchanged rows and overflow positions (>= cap) land in a spare row
+    # past the result, which is dropped (the reference's mode="drop")
+    dest = torch.where(changed & (pos < cap), pos, torch.full_like(pos, cap + 1))
+    out = torch.zeros((cap + 2, 2 + n), dtype=torch.int32, device=dev)
+    out.index_copy_(0, dest, body)
+    return ch_count, out[: cap + 1]
+
+
+def world_dispatch(src, w, ov, srcs, p_rows, p_src, p_w, inc_t, inc_h, inc_w,
+                   d_prev, packed_prev, cap, budget=None):
+    """The fused per-bucket tenant dispatch: patch scatter + batched view
+    solve (``spf_sparse._tenant_view_solve``) + tenant-id delta compaction
+    against the resident previous block, one body a shape bucket and
+    churn round (one captured graph on the card, through
+    ``spf_sparse.ell_dispatch``). Returns ``(packed, d, src, w,
+    changed_count, out)`` and, with a hop ``budget``, the solve's device
+    status ``[hops, converged]`` last: the first four rebind as the
+    bucket's new resident block (the inputs are not changed: the overflow
+    fallback, a budget re-dispatch and rehydration re-read them), the
+    next two drive the compacted readback as ``compact_rows_with_ids``
+    says."""
+    res = _tenant_view_solve(src, w, ov, srcs, p_rows, p_src, p_w,
+                             inc_t, inc_h, inc_w, d_prev, budget=budget)
+    packed = res[0]
+    ch_count, out = compact_rows_with_ids(packed, packed_prev, cap)
+    return (*res[:4], ch_count, out, *res[4:])
 
 
 def _pad_pow2(t: torch.Tensor, least: int = 8) -> torch.Tensor:

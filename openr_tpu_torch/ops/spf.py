@@ -151,21 +151,25 @@ def _first_hops_from_rows(
     node v forwards toward j iff w(src, v) + d(v, j) == d(src, j) and v is
     not overloaded, or v == j and the direct edge is a shortest path.
     ``w_sv`` [B] is the direct metric source -> batch node (INF when not
-    adjacent, and for the source itself). Shared with ops.spf_sparse."""
-    b, n = d.shape
+    adjacent, and for the source itself). Every operand may carry a
+    leading world axis (``d [W, B, N]``, ``srcs``/``w_sv [W, B]``,
+    ``overloaded [W, N]``: the tenant plane's batched solve). Shared with
+    ops.spf_sparse."""
+    n = d.shape[-1]
     sl = srcs.long()
-    d_src = d[0]
+    d_src = d[..., :1, :]  # [..., 1, N]
     is_neighbor = w_sv < INF
     reachable = d_src < INF
-    total = torch.clamp_max(w_sv[:, None] + d, INF)
+    total = torch.clamp_max(w_sv[..., None] + d, INF)
     transit_ok = (
-        is_neighbor[:, None]
-        & ~overloaded[sl][:, None]
-        & (total == d_src[None, :])
+        is_neighbor[..., None]
+        & ~torch.gather(overloaded, -1, sl)[..., None]
+        & (total == d_src)
     )
-    col_is_self = sl[:, None] == torch.arange(n, device=d.device)[None, :]
-    direct_ok = col_is_self & (is_neighbor & (w_sv == d_src[sl]))[:, None]
-    return (transit_ok | direct_ok) & reachable[None, :]
+    col_is_self = sl[..., None] == torch.arange(n, device=d.device)
+    d_src_at = torch.gather(d_src[..., 0, :], -1, sl)
+    direct_ok = col_is_self & (is_neighbor & (w_sv == d_src_at))[..., None]
+    return (transit_ok | direct_ok) & reachable
 
 
 def _spf_view_batch(

@@ -42,9 +42,17 @@ resident buffers, the port scatters the patched rows into them in place
 host-to-device copies go through one pinned buffer
 (``ops.staging.UploadStager``), and the engine's and the masked solve's
 readbacks land in pinned host memory (``ops.staging.Readback``), where the
-reference kicks an async copy and reaps it. Left out for later slices:
-``iter_ell_all_sources``/``ell_all_sources``, the flat edge-list graph,
-sharding and the tenant-plane dispatch.
+reference kicks an async copy and reaps it. The tenant plane's
+uniform blocks: ``ell_pack_uniform``, ``ell_uniform_rows``,
+``_uniform_relax`` (through ``ell_relax.ell_band_relax_worlds``, the
+kernel with a world axis), ``_uniform_direct``, ``_tenant_view_solve``
+(written batched over the tenant axis, where the reference maps one
+tenant's solve under ``vmap``) and ``world_view_solve`` (the
+reference's unfused entry, which only the tests call: the package runs
+``route_engine.world_dispatch``, whose first four outputs are the same
+values). Left out for
+later slices: ``iter_ell_all_sources``/``ell_all_sources``, the flat
+edge-list graph and sharding.
 
 One relaxation step over the class bands costs S x (total slots) work:
 
@@ -71,7 +79,12 @@ from openr_tpu_torch.ops import autotune
 from openr_tpu_torch.ops import dispatch_accounting as da
 from openr_tpu_torch.ops import relax_loop
 from openr_tpu_torch.ops.aot_cache import _flatten, aot_call
-from openr_tpu_torch.ops.ell_relax import ell_band_relax, ell_band_relax_masked, mask_words
+from openr_tpu_torch.ops.ell_relax import (
+    ell_band_relax,
+    ell_band_relax_masked,
+    ell_band_relax_worlds,
+    mask_words,
+)
 from openr_tpu_torch.ops.minplus import INF
 from openr_tpu_torch.ops.spf import _first_hops_from_rows
 from openr_tpu_torch.ops.staging import Readback, UploadStager
@@ -163,20 +176,47 @@ def ell_dispatch(tag, fn, dyn_args, statics, shape=None):
 _HOP_BUDGET: Dict[str, int] = {}
 
 
-def _budgeted_dispatch(tag, fn, dyn_args, statics, n: int):
+def _budgeted_dispatch(tag, fn, dyn_args, statics, n: int, shape=None):
     """``ell_dispatch`` of a body that takes a static hop ``budget`` and
     returns its outputs followed by a status row ``[hops, converged, ...]``
     (one pair a fixed point): the status is read (one blocking sync), and
     the body re-dispatched with a larger budget until every fixed point in
-    it converged. Returns ``(outputs, hops of the first fixed point)``."""
+    it converged. Returns ``(outputs, hops of the first fixed point)``.
+    ``shape`` as in ``ell_dispatch``."""
+    return _budgeted_reap(
+        tag, fn, dyn_args, statics, n,
+        _budgeted_launch(tag, fn, dyn_args, statics, n, shape, kick=False),
+        shape,
+    )
+
+
+def _budgeted_launch(tag, fn, dyn_args, statics, n: int, shape=None,
+                     kick: bool = True):
+    """The launch half of ``_budgeted_dispatch``: one dispatch at the
+    tag's current budget, its status staged to the host (``kick_async``)
+    rather than read, so the caller can launch other work before
+    ``_budgeted_reap`` waits for it. Returns ``(outputs, status, budget)``."""
     budget = min(_HOP_BUDGET.get(tag, relax_loop.HOP_CHUNK), n)
-    while True:
-        *out, status = ell_dispatch(tag, fn, dyn_args, dict(statics, budget=budget))
-        st = da.reap_read(status)
-        if st[1::2].all() or budget >= n:
-            return out, int(st[0])
+    *out, status = ell_dispatch(tag, fn, dyn_args, dict(statics, budget=budget),
+                                shape=shape)
+    return out, (da.kick_async(status) if kick else status), budget
+
+
+def _budgeted_reap(tag, fn, dyn_args, statics, n: int, launched, shape=None):
+    """The reap half: reads the status of ``launched`` and, while a fixed
+    point ran out of its budget, re-dispatches the body on the same
+    untouched ``dyn_args`` with a larger one (each re-dispatch read at
+    once). Returns ``(outputs, hops of the first fixed point)``; the
+    outputs are ``launched``'s own unless a re-dispatch replaced them."""
+    out, status, budget = launched
+    st = da.reap_read(status, kicked=True)
+    while not (st[1::2].all() or budget >= n):
         budget = relax_loop.next_budget(budget, n)
         _HOP_BUDGET[tag] = budget
+        *out, status = ell_dispatch(tag, fn, dyn_args, dict(statics, budget=budget),
+                                    shape=shape)
+        st = da.reap_read(status)
+    return out, int(st[0])
 
 
 def _status(changed, budget: int, n: int) -> torch.Tensor:
@@ -809,13 +849,19 @@ def _warm_seed(d_prev, inc_tail, inc_head, inc_w, d0) -> torch.Tensor:
     was tight under the old distances: d_prev[s, head] == d_prev[s,
     tail] + w_old. Tight rows restart from the cold init d0; the others
     seed min(d_prev, d0). int32 min-relaxation has a unique fixed point,
-    so the warm solve equals a cold one bit for bit."""
-    tight = (
-        torch.clamp_max(d_prev[:, inc_tail.long()] + inc_w[None, :], INF)
-        == d_prev[:, inc_head.long()]
-    ) & (inc_w[None, :] < INF)
-    reset = tight.any(dim=1)
-    return torch.where(reset[:, None], d0, torch.minimum(d_prev, d0))
+    so the warm solve equals a cold one bit for bit.
+
+    ``d_prev``/``d0`` are ``[S, n]`` with increases ``[E]``, or carry a
+    leading world axis, ``[B, S, n]`` with ``[B, E]`` (the tenant plane's
+    batched solve: each world's rows against its own increases)."""
+    lead = d_prev.shape[:-1]
+    e = inc_tail.shape[-1]
+    at_tail = torch.gather(d_prev, -1, inc_tail.long().unsqueeze(-2).expand(*lead, e))
+    at_head = torch.gather(d_prev, -1, inc_head.long().unsqueeze(-2).expand(*lead, e))
+    w_inc = inc_w.unsqueeze(-2)
+    tight = (torch.clamp_max(at_tail + w_inc, INF) == at_head) & (w_inc < INF)
+    reset = tight.any(dim=-1)
+    return torch.where(reset[..., None], d0, torch.minimum(d_prev, d0))
 
 
 def _device_direct_metrics(srcs_t, ws_t, srcs, bands) -> torch.Tensor:
@@ -1309,3 +1355,147 @@ def ell_all_view_rows_masked(state: EllState, view_srcs, w_sv, ep_ids, d_prev, m
         state.graph.n_pad,
     )
     return d_all, dm_new, Readback(packed), hops
+
+
+# -- the tenant plane's uniform blocks ----------------------------------------
+#
+# A banded EllGraph's shape is a band tuple, so a [B, ...] dispatch over
+# banded tensors would be keyed per tenant set. The tenant plane
+# (ops.world_batch) therefore packs each tenant into a UNIFORM
+# [n_slot, k_slot] ELL block: every row padded to one shared slot width,
+# the node axis padded to one shared count, so a whole shape bucket of
+# tenants runs one [B, n_slot, k_slot] body whichever tenants occupy it.
+# The padding is inert by construction (self-loop src ids with w = INF,
+# the trick the banded layout uses inside a slot class), so the
+# per-tenant result is bit-identical to the banded single-graph solve:
+# the int32 min-relaxation has a unique fixed point and the uniform relax
+# computes the same monotone map, with more (INF) slots.
+
+
+def ell_pack_uniform(
+    graph: EllGraph, n_slot: int, k_slot: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Flatten a sliced-ELL graph into one uniform [n_slot, k_slot]
+    block: (src, w, overloaded). Rows keep their banded ids (node
+    numbering is unchanged); slots past a row's band k and rows past
+    n_pad are self-loop/INF padding, inert in every relax."""
+    assert n_slot >= graph.n_pad, (n_slot, graph.n_pad)
+    assert k_slot >= max(b.k for b in graph.bands), k_slot
+    src = np.tile(np.arange(n_slot, dtype=np.int32)[:, None], (1, k_slot))
+    w = np.full((n_slot, k_slot), INF, dtype=np.int32)
+    for band, s_b, w_b in zip(graph.bands, graph.src, graph.w):
+        src[band.start : band.start + band.rows, : band.k] = s_b
+        w[band.start : band.start + band.rows, : band.k] = w_b
+    overloaded = np.zeros(n_slot, dtype=bool)
+    overloaded[: len(graph.overloaded)] = graph.overloaded
+    return src, w, overloaded
+
+
+def ell_uniform_rows(graph: EllGraph, ids, k_slot: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Uniform-layout (src, w) rows for a set of global node ids: the
+    O(rows x k) host prep for scattering a patch into a resident uniform
+    block (ops.world_batch's analogue of band_patch_inputs)."""
+    ids = np.asarray(ids, dtype=np.int32)
+    src = np.tile(ids[:, None], (1, k_slot))
+    w = np.full((len(ids), k_slot), INF, dtype=np.int32)
+    for x, j in enumerate(ids):
+        bi, band = _band_of(graph, int(j))
+        r = int(j) - band.start
+        src[x, : band.k] = graph.src[bi][r]
+        w[x, : band.k] = graph.w[bi][r]
+    return src, w
+
+
+def _uniform_relax(d, src, w, overloaded) -> torch.Tensor:
+    """One masked relaxation of B worlds over their uniform blocks:
+    ``d [B, S, N]``, ``src``/``w [B, N, K]``, ``overloaded [B, N]`` ->
+    ``[B, S, N]``, through ``ell_relax.ell_band_relax_worlds`` (one
+    uniform band covering every row of each world; the reference runs
+    ``ell_band_relax`` under ``vmap``). Edges originating at overloaded
+    nodes never extend paths."""
+    return ell_band_relax_worlds(d, src, w, overloaded)
+
+
+def _uniform_direct(src, w, srcs) -> torch.Tensor:
+    """On-device direct min-metric srcs[b, 0] -> each batch node of each
+    world over its uniform block (INF when not adjacent, and for the
+    source itself): the uniform twin of _device_direct_metrics, so the
+    batched dispatch needs no host band reads. ``[B, S]``."""
+    src_id = srcs[:, :1]  # [B, 1]
+    direct = torch.where(src == src_id[:, :, None], w, INF).amin(dim=2)  # [B, N]
+    w_sv = torch.gather(direct, 1, srcs.long())
+    return torch.where(srcs == src_id, INF, w_sv).to(torch.int32)
+
+
+def _scatter_rows_drop(block, rows, vals) -> torch.Tensor:
+    """``block [B, N, K]`` with rows ``rows [B, P]`` replaced by ``vals
+    [B, P, K]``, out of place; a row id >= N (the padding id ``N``) is
+    dropped, as the reference's ``mode="drop"`` scatter does."""
+    b, n, k = block.shape
+    ext = torch.empty((b, n + 1, k), dtype=block.dtype, device=block.device)
+    ext[:, :n] = block
+    ext.scatter_(1, rows.long().clamp_max(n)[:, :, None].expand(-1, -1, k), vals)
+    return ext[:, :n].contiguous()
+
+
+def _tenant_view_solve(src, w, overloaded, srcs, p_rows, p_src, p_w,
+                       inc_t, inc_h, inc_w, d_prev, budget=None):
+    """The tenants' fused view solve over their uniform blocks, batched
+    over the leading tenant axis B: scatter the pending patch rows into
+    each resident block (``p_rows [B, P]`` carries global row ids padded
+    with the out-of-bounds id ``N``, dropped, so padding and idle tenants
+    cost nothing), derive the direct metrics on the device, warm-seed the
+    fixed point from ``d_prev [B, S, N]`` (``_warm_seed``: reset only the
+    increase cone; cold tenants pass the ``_FORCE_RESET_EDGE`` sentinel,
+    so warm and cold share one body), iterate to the fixed point, pack
+    distances + first hops. Returns ``(packed [B, 2S, N], d, src, w)``,
+    the post-patch blocks too (the caller rebinds them as the new
+    resident blocks).
+
+    The fixed point runs until every tenant converges, at most ``N``
+    hops, as the reference's ``while_loop`` under ``vmap`` does: hops past
+    a tenant's own fixed point are identity (the min-relax is idempotent
+    there), so a tenant's result never depends on which tenants share
+    its bucket. Eagerly (``budget`` None) the changed count is read once
+    a chunk of hops; with a hop ``budget`` (a captured body) no host sync:
+    ``budget`` hops, and a device status ``[hops, converged]`` follows
+    the outputs (``_status``)."""
+    n = src.shape[1]
+    src = _scatter_rows_drop(src, p_rows, p_src)
+    w = _scatter_rows_drop(w, p_rows, p_w)
+    w_sv = _uniform_direct(src, w, srcs)
+    b, s = srcs.shape
+    unit = torch.full((b, s, n), INF, dtype=torch.int32, device=src.device)
+    unit.scatter_(2, srcs.long()[:, :, None], 0)
+    # init rows: one UNMASKED relax (overloaded sources still originate)
+    d0 = _uniform_relax(unit, src, w, torch.zeros_like(overloaded))
+    seed = _warm_seed(d_prev, inc_t, inc_h, inc_w, d0)
+
+    def step(x):
+        return _uniform_relax(x, src, w, overloaded)
+
+    if budget is None:
+        d, _ = relax_loop.fixed_point(step, seed, n)
+        status = None
+    else:
+        d, changed = relax_loop.run_hops(step, seed, budget)
+        status = _status(changed, budget, n)
+    fh = _first_hops_from_rows(d, srcs, w_sv, overloaded)
+    packed = torch.cat([d, fh.to(torch.int32)], dim=1)
+    if status is None:
+        return packed, d, src, w
+    return packed, d, src, w, status
+
+
+def world_view_solve(src, w, overloaded, srcs, p_rows, p_src, p_w,
+                     inc_t, inc_h, inc_w, d_prev):
+    """The batch-lifted solve, eagerly: every argument carries a leading
+    tenant axis ([B, n, k] blocks, [B, R] patch rows (+[B, R, k] values),
+    [B, S] source batches, [B, E] increase deltas, [B, S, n] previous
+    distances). Returns ``(packed, d, src, w)``. Inactive slots ride
+    along as all-INF blocks that converge in zero hops. The production
+    entry is ``route_engine.world_dispatch``, which fuses this with the
+    tenant-id delta compaction into one body a shape bucket; this unfused
+    form is for kernel-level tests."""
+    return _tenant_view_solve(src, w, overloaded, srcs, p_rows, p_src, p_w,
+                              inc_t, inc_h, inc_w, d_prev)

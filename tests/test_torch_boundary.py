@@ -351,3 +351,127 @@ def test_committed_dispatch_modules_import_without_jax_or_openr_tpu():
         proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, (name, proc.stderr)
+
+
+TENANT_MODULES = (
+    "openr_tpu_torch.ops.world_batch",
+    "openr_tpu_torch.serve",
+    "openr_tpu_torch.serve.slo",
+    "openr_tpu_torch.serve.service",
+    "openr_tpu_torch.serve.client",
+    "openr_tpu_torch.fleet",
+    "openr_tpu_torch.fleet.placement",
+    "openr_tpu_torch.fleet.journal",
+    "openr_tpu_torch.fleet.controller",
+    "openr_tpu_torch.ctrl.solver",
+    "openr_tpu_torch.load.multi_client",
+)
+
+
+@pytest.mark.parametrize("name", TENANT_MODULES)
+def test_tenant_plane_modules_import_without_jax_or_openr_tpu(name):
+    """The tenant plane's and the solver service's modules, each imported
+    alone with JAX and ``openr_tpu`` refused."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = _BLOCKED_IMPORT.split("import openr_tpu_torch\n")[0] + (
+        f"import importlib; importlib.import_module({name!r})\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (name, proc.stderr)
+
+
+@pytest.mark.parametrize("name", ["openr_tpu_torch.serve.client",
+                                  "openr_tpu_torch.load.multi_client",
+                                  "openr_tpu_torch.fleet.placement"])
+def test_the_client_path_imports_without_torch(name):
+    """A solver client process imports neither torch nor JAX: the client,
+    and the client path of ``load.multi_client`` (a tenant's world and
+    churn schedule built, the child entry reached) with ``torch`` refused
+    as well."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = _BLOCKED_IMPORT.split("import openr_tpu_torch\n")[0].replace(
+        'BLOCKED = ("jax", "jaxlib", "openr_tpu")',
+        'BLOCKED = ("jax", "jaxlib", "openr_tpu", "torch")',
+    ) + (
+        f"import importlib; importlib.import_module({name!r})\n"
+        "from openr_tpu_torch.load.multi_client import TenantSpec, apply_mutation, run_client\n"
+        "spec = TenantSpec('t', 'fabric', 60, seed=3)\n"
+        "dbs = spec.build_dbs(); apply_mutation(dbs, spec, 1)\n"
+        "assert spec.build_prefix_dbs()\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, (name, proc.stderr)
+
+
+def test_tenant_plane_entry_points_raise_without_cuda(no_cuda):
+    from openr_tpu_torch.fleet import FleetController
+    from openr_tpu_torch.ops.world_batch import WorldManager, get_world_manager
+    from openr_tpu_torch.serve.service import SolverService
+
+    for make in (WorldManager, SolverService, get_world_manager,
+                 lambda: FleetController(services=1, with_standby=False)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert WorldManager(device="cpu").device == torch.device("cpu")
+    assert SolverService(device="cpu").device == torch.device("cpu")
+    fc = FleetController(services=1, with_standby=True, device="cpu")
+    for ms in fc.services().values():
+        assert ms.service.device == ms.standby_service.device == torch.device("cpu")
+
+
+def test_chip_smoke_tenant_phases_rehearsed_on_the_cpu(capsys, monkeypatch):
+    """``chip_smoke.py``'s tenant-plane phases at a small size on the CPU:
+    ``tenancy-1008`` (vantages of three tiers, area tenants joining, churn
+    and overrides, eviction, KSP2, the multi-area Decision build),
+    ``tenancy-10k``, ``serve-1008`` (spawned torch-free clients; a small
+    run's waves may end before the next request, so joins are not
+    required) and ``fleet-1008`` (a migration and a promotion). One torch
+    thread here and in the spawned oracle (one process): the small
+    tensors gain nothing from more, and a loaded test run's threads
+    would fight them."""
+    import json
+
+    import chip_smoke
+
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    oracle_async = chip_smoke._oracle_digests_async
+    monkeypatch.setattr(chip_smoke, "_oracle_digests_async",
+                        lambda specs, rounds: oracle_async(specs, rounds, workers=1))
+    try:
+        _rehearse_tenant_phases(chip_smoke, cpu)
+    finally:
+        torch.set_num_threads(threads)
+    lines = {}
+    for x in capsys.readouterr().out.splitlines():
+        if x.startswith("{"):
+            rec = json.loads(x)
+            lines[rec.get("phase")] = rec
+    t = lines["tenancy-rehearsal"]
+    assert t["views_match_oracle"] and t["bucket_count"] == 2
+    assert t["batched_over_sequential_steady"] is not None
+    assert all("gc_ms" in r for r in t["round_lines"])
+    assert t["eviction"]["tenancy"]["rehydrations"] > 0
+    assert t["decision"]["world_preloads"] == 2 and t["decision"]["world_preload_failures"] == 0
+    assert lines["tenancy-10k-rehearsal"]["aot_compiles_after_first_round"] == 0
+    assert lines["serve-rehearsal"]["digests_match_oracle"]
+    assert lines["serve-rehearsal"]["fib_match_oracle"]
+    f = lines["fleet-rehearsal"]
+    assert f["migration"]["warm"] and f["promotion"]["deletes"] == 0
+
+
+def _rehearse_tenant_phases(chip_smoke, cpu) -> None:
+    chip_smoke.tenancy_phase(cpu, nodes=120, vantages={"rsw": 4, "fsw": 2, "ssw": 2}, areas=2,
+                             rounds=5, slots=8, resident=16, evict=(2, 2, 4, 3), ksp2_dsts=8,
+                             decision_areas=2, profile=False, phase="tenancy-rehearsal")
+    chip_smoke.tenancy_10k_phase(cpu, nodes=300, areas=2, rounds=2, phase="tenancy-10k-rehearsal")
+    chip_smoke.serve_phase(cpu, nodes=60, clients=2, tenants=2, rounds=2, slots=8,
+                           fib_tenants=1, require_joins=False, phase="serve-rehearsal")
+    chip_smoke.fleet_phase(cpu, nodes=60, tenants=3, rounds=5, migrate_at=1, promote_at=3,
+                           phase="fleet-rehearsal")

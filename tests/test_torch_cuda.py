@@ -135,6 +135,29 @@ def test_ell_band_relax_wide_kernel_matches_plain(card, k, s, rows, mask_dtype):
     assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("worlds,s,n,k", [(1, 1, 40, 3), (3, 8, 300, 9), (7, 13, 257, 33),
+                                          (64, 64, 1024, 64), (4, 8, 2048, 1024), (2, 5, 129, 1500)])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_ell_band_relax_worlds_kernel_matches_plain(card, worlds, s, n, k, mask_dtype):
+    """The world axis (the tenant plane's uniform blocks): one launch for
+    every world, each with its own slots and overload bits, equal to the
+    batched gather and to a loop of single-world plain calls."""
+    rng = np.random.default_rng(worlds * 100 + s * 10 + k)
+    d = _mat(rng, (worlds, s, n), 0.3).to(card)
+    src = torch.from_numpy(rng.integers(0, n, (worlds, n, k)).astype(np.int32)).to(card)
+    w = _mat(rng, (worlds, n, k), 0.2).to(card)
+    ov = torch.from_numpy(rng.random((worlds, n)) < 0.1).to(card).to(mask_dtype)
+    want = ell_relax.ell_band_relax_worlds_plain(d, src, w, ov)
+    got = ell_relax.ell_band_relax_worlds(d, src, w, ov)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax"] == 1
+    assert torch.equal(got, want)
+    for x in range(worlds):
+        one = ell_relax.ell_band_relax_plain(d[x], src[x], w[x], ov[x], 0)
+        assert torch.equal(got[x], one)
+
+
 # run lengths: the plan's own, and (through its least blocks) the
 # shortest and the longest it allows, which take each wide RUN template
 RUNS = {"plan": None, "shortest": 1 << 40, "longest": 0}

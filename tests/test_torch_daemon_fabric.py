@@ -8,12 +8,16 @@ each step. Here it runs small (6 daemons, a 48-node LSDB, 4 events,
 Spark's fast intervals with a 2 s hold) over the port's daemons on
 ``device="cpu"`` and over ``openr_tpu``'s daemons: after every step each
 daemon's route database must be the same in both packages. The phase's own gates must bite: an
-oracle that disagrees with the Fib fails it.
+oracle that disagrees with the Fib fails it. The phase's collection
+policy (``defer_full_collections``) and its LAN probe are checked on
+their own.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -78,6 +82,10 @@ def test_fabric_rehearsal_matches_the_reference_at_every_step(capsys):
     assert port_line["reroute"]["affected"] > 0
     assert port_line["neighbors_lost"] == 2
     assert not any(port_line["fallbacks"].values())
+    # full collections deferred; the probe rode the LAN through the cut
+    assert port_line["gc_deferred"] and port_line["gc_full_collections"] == 0
+    assert port_line["lan_lag_max_ms"] is not None
+    assert port_line["reroute"]["lan_lag_ms"] is not None
     # plain versions on CPU tensors launch nothing
     assert not any(launches.values())
 
@@ -98,3 +106,31 @@ def test_fabric_fails_when_a_fib_differs_from_its_oracle():
     m.oracle = DropsARoute
     with pytest.raises(AssertionError, match="differs from the host oracle"):
         chip_smoke.daemon_fabric_phase(m, FABRIC, LSDB_NODES, EVENTS, SPARK, CUT, step_s=3.0)
+
+
+def test_deferred_full_collections_are_restored():
+    threshold = gc.get_threshold()
+    frozen = gc.get_freeze_count()
+    restore = chip_smoke.defer_full_collections()
+    try:
+        assert gc.get_threshold()[:2] == threshold[:2]
+        assert gc.get_threshold()[2] > threshold[2]
+        assert gc.get_freeze_count() > frozen
+    finally:
+        restore()
+    assert gc.get_threshold() == threshold
+    assert gc.get_freeze_count() == 0
+
+
+def test_the_lan_probe_reads_the_delivery_lag():
+    io = chip_smoke.port_modules(torch.device("cpu")).MockIoProvider()
+    probe = chip_smoke.LanProbe(io, interval_s=0.02)
+    try:
+        deadline = time.monotonic() + 10
+        while probe.all_max is None and time.monotonic() < deadline:
+            time.sleep(0.02)
+        lag = probe.take()
+    finally:
+        probe.stop()
+        io.stop()
+    assert lag is not None and lag >= -1.0 and probe.all_max >= lag
