@@ -380,9 +380,12 @@ the sessions, the short ones, the margin and the launch skew.
 The ``kernels`` phase holds ``ell_band_relax`` also at the KSP2 engine's
 all-sources shapes, S = n_pad rows (1024 and 10112), against its plain
 version on slices of 1024 rows, and over a tenant axis
-(``ell_band_relax_worlds``) at the tenant plane's two shapes, ``[64, 64,
+(``ell_band_relax_worlds``, ``csrc/ell_relax_worlds.cu``, with its
+live-slot counts given and computed, and the live pass ``live_slots``
+against its plain version) at the tenant plane's two shapes, ``[64, 64,
 1024] x [64, 1024, 64]`` and ``[4, 8, 16384] x [4, 16384, 1024]``, and at
-ragged random worlds. That of the route sweep's kernels (``rev_band_relax``,
+ragged random worlds, with and without INF holes inside the rows' live
+prefixes. That of the route sweep's kernels (``rev_band_relax``,
 ``batched_minplus``, ``batched_minplus_t``) runs at both sweeps' shapes:
 one relax step of a 1024-destination block of the 10 000-node sweep and
 of a 256-destination block of the 1008-node one; that of
@@ -884,6 +887,7 @@ KERNEL_KEYS = {
     "minplus": ("minplus_tile", "minplus_split_reduce"),
     "ell_band_relax": ("ell_band_relax_",),
     "ell_band_relax_masked": ("masked_relax_",),
+    "ell_live_slots": ("ell_live_slot_counts",),
     "rev_band_relax": ("rev_band_relax_",),
     "batched_minplus": ("batched_minplus_rows", "batched_minplus_cols",
                         "batched_minplus_t_reduce"),
@@ -3636,25 +3640,40 @@ def _sync_card(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def worlds_bound_ms(worlds: int, s: int, n: int, live: int, ov_bytes: int = 1):
+    """The least time of one world relax step over ``worlds`` blocks of
+    ``n`` rows holding ``live`` live slots each: the distance rows read
+    and written once, the live slots (id and weight), the rows' live
+    counts and the overload bits read once; one add and one min a live
+    slot and batch row. Returns ``(ms, "bytes" or "operations")``."""
+    return bound_ms(8 * worlds * s * n + 8 * worlds * live + (4 + ov_bytes) * worlds * n,
+                    2 * worlds * s * live)
+
+
 def worlds_kernel_row(torch, dev, graph, worlds, s, rng, compare, reps=REPS):
     """``ell_band_relax`` over a tenant axis at one tenant shape: ``graph``
     packed into its uniform block (``ell_pack_uniform``) ``worlds`` times,
     each world with its own overload bits and random distance rows,
-    against ``ell_band_relax_worlds_plain``; device ms of the kernel
-    (``ms``) and the plain version, call ms, and the bound: the distance rows, the
-    blocks (src + w, the padding slots included: the kernel reads them)
-    and the overload bits read once, the output written once, one add and
-    one min a slot and batch row. ``live_bound_ms`` is the same bound over
-    the graph's live slots alone (what a layout without padding would
-    read), and ``padding_share`` the share of the block bytes that are
-    padding."""
+    against ``ell_band_relax_worlds_plain``, with the live-slot counts
+    given (``live_slots``, once a dispatch on the main path) and computed
+    by the wrapper; the live pass against ``live_slots_plain``. Device ms
+    of the kernel with the counts given (``ms``, a hop's cost on the main
+    path), of the plain version and of the live pass (``live_pass_ms``),
+    call ms, the launch plan (``worlds_plan``), and the bound over what
+    the kernel reads (``worlds_bound_ms``: the live slots), beside
+    ``padded_bound_ms``, the same over the whole padded block, and the
+    live pass's own bound (the block's weights read once, the counts
+    written)."""
     import numpy as np
 
     from openr_tpu_torch.ops import spf_sparse
     from openr_tpu_torch.ops.ell_relax import (
+        WORLDS_WIDE_LIVE,
         ell_band_relax_worlds,
         ell_band_relax_worlds_plain,
-        launch_plan,
+        live_slots,
+        live_slots_plain,
+        worlds_plan,
     )
     from openr_tpu_torch.ops.minplus import INF
     from openr_tpu_torch.ops.world_batch import _pow2_at_least
@@ -3669,31 +3688,91 @@ def worlds_kernel_row(torch, dev, graph, worlds, s, rng, compare, reps=REPS):
     d_np = rng.integers(0, 1000, (worlds, s, n)).astype(np.int32)
     d_np[rng.random(d_np.shape) < 0.5] = INF
     d_t = torch.from_numpy(d_np).to(dev)
-    compare("ell_band_relax", ell_band_relax_worlds(d_t, src_t, w_t, ov_t),
-            ell_band_relax_worlds_plain(d_t, src_t, w_t, ov_t),
-            f"worlds [{worlds}, {s}, {n}] x [{worlds}, {n}, {k}]")
-    plan = launch_plan(s, n, k, worlds=worlds)
+    what = f"worlds [{worlds}, {s}, {n}] x [{worlds}, {n}, {k}]"
+    live_t = live_slots(w_t)
+    compare("ell_live_slots", live_t, live_slots_plain(w_t), what)
+    want = ell_band_relax_worlds_plain(d_t, src_t, w_t, ov_t)
+    compare("ell_band_relax", ell_band_relax_worlds(d_t, src_t, w_t, ov_t, live_t), want, what)
+    compare("ell_band_relax", ell_band_relax_worlds(d_t, src_t, w_t, ov_t), want,
+            f"{what}, the counts computed by the wrapper")
+    del want
+    plan = worlds_plan(worlds, s, n, k)
     live = int(sum(bd.rows * bd.k for bd in graph.bands))
+    live_counted = int(live_t[0].sum().item())
     row = {
         "shape": {"B": worlds, "S": s, "n": n, "k": k},
-        "plan": {"body": "wide" if plan.wide else "narrow", "row_threads": plan.row_threads,
-                 "grid": [*plan.grid, plan.worlds]},
+        "plan": {"slab": plan.slab, "run": plan.run, "tile_rows": plan.tile_rows,
+                 "smem_bytes": plan.smem_bytes, "grid": list(plan.grid)},
         "live_slots_per_world": live,
+        "slots_walked_per_world": live_counted,
+        "wide_rows_per_world": int((live_t[0] > WORLDS_WIDE_LIVE).sum().item()),
         "padding_share": 1.0 - live / (n * k),
         "match": True,
     }
     if dev.type == "cuda":
         row["ms"] = device_ms(
-            torch, lambda: ell_band_relax_worlds(d_t, src_t, w_t, ov_t), reps,
+            torch, lambda: ell_band_relax_worlds(d_t, src_t, w_t, ov_t, live_t), reps,
             KERNEL_KEYS["ell_band_relax"], records=1)
         row["plain_ms"] = device_ms(
-            torch, lambda: ell_band_relax_worlds_plain(d_t, src_t, w_t, ov_t), max(3, reps // 10))
-        row["call_ms"] = time_ms(torch, lambda: ell_band_relax_worlds(d_t, src_t, w_t, ov_t), reps)
-    row["bound_ms"], row["bound_by"] = bound_ms(
+            torch, lambda: ell_band_relax_worlds_plain(d_t, src_t, w_t, ov_t, live_t),
+            max(3, reps // 10))
+        row["call_ms"] = time_ms(
+            torch, lambda: ell_band_relax_worlds(d_t, src_t, w_t, ov_t, live_t), reps)
+        row["live_pass_ms"] = device_ms(torch, lambda: live_slots(w_t), reps,
+                                        KERNEL_KEYS["ell_live_slots"], records=1)
+        row["live_pass_plain_ms"] = device_ms(torch, lambda: live_slots_plain(w_t),
+                                              max(3, reps // 10))
+        row["live_pass_call_ms"] = time_ms(torch, lambda: live_slots(w_t), reps)
+    # the kernel walks the counted slots (the graph's live slots, less the
+    # trailing INF ones of a row)
+    row["bound_ms"], row["bound_by"] = worlds_bound_ms(worlds, s, n, live_counted)
+    row["padded_bound_ms"], _ = bound_ms(
         8 * worlds * s * n + 8 * worlds * n * k + worlds * n, 2 * worlds * s * n * k)
-    row["live_bound_ms"], _ = bound_ms(
-        8 * worlds * s * n + 8 * worlds * live + worlds * n, 2 * worlds * s * live)
+    row["live_pass_bound_ms"], _ = bound_ms(4 * worlds * n * k + 4 * worlds * n, 0)
     return row
+
+
+# the parts of a tenant wave's device time by kernel name: the world relax,
+# the live pass, the readback of the compacted rows, the copies on the card
+# (``_scatter_rows_drop``'s extension and compaction of each block, inputs
+# and outputs copied through a replay's buffers, uploads), the patch
+# scatters, the reductions (``_uniform_direct``'s [B, n, k] min among
+# them); the rest of the elementwise ops under "other"
+WAVE_PARTS = (("relax", KERNEL_KEYS["ell_band_relax"]),
+              ("live_pass", KERNEL_KEYS["ell_live_slots"]),
+              ("readback", ("Memcpy DtoH",)),
+              ("copies", ("copy", "Memcpy", "Memset")),
+              ("scatter", ("scatter",)),
+              ("reductions", ("reduce_kernel",)))
+
+
+def wave_lacking(stats, _result) -> dict:
+    """What a profiled tenant wave's session lacks: records of the world
+    relax and of the live pass (each dispatch launches both)."""
+    return {**lacking(stats, KERNEL_KEYS["ell_band_relax"]),
+            **lacking(stats, KERNEL_KEYS["ell_live_slots"])}
+
+
+def wave_profile(stats, wall_ms) -> dict:
+    """A profiled tenant wave's line: its host ms, device busy ms and idle
+    share, device ms by ``WAVE_PARTS`` (each kernel counted under its
+    first matching part) and the heaviest ops."""
+    busy = device_us(stats, "a call") / 1e3
+    parts = {name: 0.0 for name, _ in WAVE_PARTS}
+    parts["other"] = 0.0
+    for evt in stats:
+        if _step_mark(evt):
+            continue
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        part = next((name for name, keys in WAVE_PARTS if any(k in evt.key for k in keys)),
+                    "other")
+        parts[part] += us / 1e3
+    return {"wave_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
+            "relax_device_ms": parts["relax"], "live_pass_ms": parts["live_pass"],
+            "copies_ms": parts["copies"], "readback_ms": parts["readback"],
+            "device_ms_by_part": parts,
+            "top_device_ms": top_device_ms(stats, 8)}
 
 
 def _wave_host_split(torch, dev, mgr, items, prepare, phase):
@@ -3967,14 +4046,9 @@ def tenancy_phase(dev, nodes=DENSE_NODES, vantages=None, areas=TENANCY_AREAS,
             bump_metric(ls, rsw[-1], 5 + attempt)
 
         stats, views, wall_ms = profiled(
-            torch, lambda: mgr.solve_views(items(rounds)),
-            lambda st, res: lacking(st, KERNEL_KEYS["ell_band_relax"]), prepare=prepare)
+            torch, lambda: mgr.solve_views(items(rounds)), wave_lacking, prepare=prepare)
         _oracle_views(torch, dev, views, phase, "the profiled wave")
-        busy = device_us(stats, "a call") / 1e3
-        profile_line = {"wave_ms": wall_ms, "device_busy_ms": busy,
-                        "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
-                        "relax_device_ms": device_us(stats, KERNEL_KEYS["ell_band_relax"]) / 1e3,
-                        "top_device_ms": top_device_ms(stats),
+        profile_line = {**wave_profile(stats, wall_ms),
                         "host_split": _wave_host_split(torch, dev, mgr, lambda: items(rounds),
                                                        lambda: bump_metric(ls, rsw[-1], 13),
                                                        phase)}
@@ -4066,7 +4140,8 @@ def tenancy_phase(dev, nodes=DENSE_NODES, vantages=None, areas=TENANCY_AREAS,
     _fail_on_moves(phase, reg, aot0)
     launches = dict(LAUNCHES)
     _need_launches(dev, launches, ("ell_band_relax", "ell_band_relax_masked"), phase)
-    _need_launches(dev, launches_main, ("ell_band_relax",), phase, "the tenant waves")
+    _need_launches(dev, launches_main, ("ell_band_relax", "ell_live_slots"), phase,
+                   "the tenant waves")
     world_batch.reset_world_manager()
     ratio = (batched_ms / solved) / (sequential_ms / solved) if solved and sequential_ms else None
     emit({
@@ -4104,7 +4179,10 @@ def tenancy_10k_phase(dev, nodes=SPARSE_NODES, areas=TENANCY_10K_AREAS,
     rooted at ``rsw-0-0`` in one bucket (at 10 000 nodes ``[4, 16384,
     1024]``, 512 MiB of slots), ``rounds`` churn rounds (a metric bump of
     one area each), every view against ``ell_view_batch_packed``; the
-    peak memory and each round's ms. Returns the launch counts."""
+    peak memory and each round's ms; on the card one more round under the
+    profiler (``wave_profile``: busy, idle share, the relax's, the live
+    pass's and the copies' device ms), its views checked too. Returns the
+    launch counts."""
     import torch
 
     from openr_tpu_torch.graph.linkstate import LinkState
@@ -4140,9 +4218,18 @@ def tenancy_10k_phase(dev, nodes=SPARSE_NODES, areas=TENANCY_10K_AREAS,
             compiles_after_first = reg.counter_get("ops.aot_compiles")
         lines.append({"round": rnd, "ms": ms, "sequential_ms_per_tenant": seq,
                       "tenancy": _tenancy_delta(r0)})
+    profile_line = None
+    if dev.type == "cuda":
+        def prepare(attempt):
+            bump_metric(lss[attempt % areas], rsw[(5 * attempt + 3) % len(rsw)], 11 + attempt)
+
+        stats, views, wall_ms = profiled(
+            torch, lambda: mgr.solve_views(its), wave_lacking, prepare=prepare)
+        _oracle_views(torch, dev, views, phase, "the profiled round")
+        profile_line = wave_profile(stats, wall_ms)
     _fail_on_moves(phase, reg, aot0)
     launches = dict(LAUNCHES)
-    _need_launches(dev, launches, ("ell_band_relax",), phase)
+    _need_launches(dev, launches, ("ell_band_relax", "ell_live_slots"), phase)
     emit({
         "phase": phase, "nodes": nodes, "tenants": areas, "rounds": rounds,
         "buckets": [list(b) for b in sorted(mgr._buckets)],
@@ -4153,6 +4240,7 @@ def tenancy_10k_phase(dev, nodes=SPARSE_NODES, areas=TENANCY_10K_AREAS,
         "tenancy": _tenancy_delta(before),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
+        "profiled_round": profile_line,
         "launches": launches, "seconds": time.monotonic() - t_phase,
     })
     return launches
@@ -4302,7 +4390,7 @@ def serve_phase(dev, nodes=DENSE_NODES, clients=SERVE_CLIENTS, tenants=SERVE_TEN
             raise AssertionError(f"{phase}: FIB digests differ from the oracle")
         _fail_on_moves(phase, reg, aot0)
         launches = dict(LAUNCHES)
-        _need_launches(dev, launches, ("ell_band_relax",), phase)
+        _need_launches(dev, launches, ("ell_band_relax", "ell_live_slots"), phase)
         emit({
             "phase": phase, "nodes": nodes, "clients": clients, "tenants": len(all_specs),
             "rounds": rounds, "slots": slots, "digests_match_oracle": True,
@@ -4424,7 +4512,7 @@ def fleet_phase(dev, nodes=DENSE_NODES, tenants=FLEET_TENANTS, rounds=FLEET_ROUN
             c.close()
         _fail_on_moves(phase, reg, aot0)
         launches = dict(LAUNCHES)
-        _need_launches(dev, launches, ("ell_band_relax",), phase)
+        _need_launches(dev, launches, ("ell_band_relax", "ell_live_slots"), phase)
         f1 = fc.counters()
         emit({
             "phase": phase, "nodes": nodes, "tenants": tenants, "rounds": rounds,
@@ -4761,18 +4849,45 @@ def main(argv=None) -> int:
     from openr_tpu_torch.ops.ell_relax import (
         ell_band_relax_worlds,
         ell_band_relax_worlds_plain,
+        live_slots_plain,
     )
+    from openr_tpu_torch.ops.ell_relax import live_slots as ell_live_slots
 
+    # the least time of a world relax launch at the tenant plane's shapes,
+    # over what it reads, and of a live pass
+    least_launch_ms["ell_band_relax"] = min(
+        [least_launch_ms["ell_band_relax"]]
+        + [worlds_bound_ms(r["shape"]["B"], 8, r["shape"]["n"], r["slots_walked_per_world"])[0]
+           for r in worlds_rows.values()])
+    least_launch_ms["ell_live_slots"] = min(r["live_pass_bound_ms"] for r in worlds_rows.values())
+
+    # (64, 8, 1024, 64) and (64, 32, 1024, 64): the 1008-node tenant
+    # plane's other S buckets, each with its own launch plan
     worlds_ragged = [(1, 1, 40, 3), (3, 8, 300, 9), (7, 13, 257, 33), (2, 5, 100, 64),
-                     (5, 2, 129, 200), (4, 8, 1000, 1024)]
+                     (5, 2, 129, 200), (4, 8, 1000, 1024), (2, 5, 129, 1500),
+                     (64, 8, 1024, 64), (64, 32, 1024, 64)]
     for bw, s_, n_, k_ in worlds_ragged:
         dd = rand_int((bw, s_, n_), 0.3)
-        ww = rand_int((bw, n_, k_), 0.3)
         sb = torch.from_numpy(rng.integers(0, n_, (bw, n_, k_)).astype(np.int32)).to(dev)
         ovr = torch.from_numpy(rng.random((bw, n_)) < 0.2).to(dev)
-        for mask in (ovr, ovr.to(torch.int32)):
-            compare("ell_band_relax", ell_band_relax_worlds(dd, sb, ww, mask),
-                    ell_band_relax_worlds_plain(dd, sb, ww, mask), (bw, s_, n_, k_))
+        # random weights, a third INF; then INF holes inside ragged live
+        # prefixes (each row's live slots end at a random width), rows
+        # whose last slot is live and all-padding rows
+        ww = rand_int((bw, n_, k_), 0.3)
+        holed = ww.clone()
+        widths = torch.from_numpy(rng.integers(0, k_ + 1, (bw, n_, 1))).to(dev)
+        holed.masked_fill_(torch.arange(k_, device=dev) >= widths, INF)
+        holed[:, : n_ // 4, -1] = 5
+        holed[:, n_ // 2 : n_ // 2 + 3] = INF
+        for wts in (ww, holed):
+            lv = ell_live_slots(wts)
+            compare("ell_live_slots", lv, live_slots_plain(wts), (bw, n_, k_))
+            for mask in (ovr, ovr.to(torch.int32)):
+                want = ell_band_relax_worlds_plain(dd, sb, wts, mask)
+                compare("ell_band_relax", ell_band_relax_worlds(dd, sb, wts, mask, lv),
+                        want, (bw, s_, n_, k_))
+                compare("ell_band_relax", ell_band_relax_worlds(dd, sb, wts, mask),
+                        want, f"{(bw, s_, n_, k_)}, the counts computed by the wrapper")
     emit({"phase": "kernels", "kernel": "ell_band_relax", "cell": "worlds",
           "rows": worlds_rows, "checked_shapes": [list(x) for x in worlds_ragged],
           "match": True})
@@ -5788,11 +5903,29 @@ def main(argv=None) -> int:
          "match": True,
          "all_sources": all_sources_kernel,
          "worlds": {
-             label: {**row, "launches": {"tenancy-1008": tenancy_small["ell_band_relax"],
-                                         "tenancy-10k": tenancy_large["ell_band_relax"],
-                                         "serve-fleet-1008": serve_fleet["ell_band_relax"]},
+             label: {**row, "route": "cuda", "source": f"{csrc}/ell_relax_worlds.cu",
+                     "replaces": "openr_tpu/ops/pallas_ell.py:196 (under vmap: "
+                                 "openr_tpu/ops/spf_sparse.py:2241)",
+                     "launches": {"tenancy-1008": tenancy_small["ell_band_relax"],
+                                  "tenancy-10k": tenancy_large["ell_band_relax"],
+                                  "serve-fleet-1008": serve_fleet["ell_band_relax"]},
                      "max_abs_err": max_err["ell_band_relax"], "library_ms": None}
              for label, row in worlds_rows.items()}},
+        {"name": "ell_live_slots", "route": "cuda", "source": f"{csrc}/ell_relax_worlds.cu",
+         "replaces": "openr_tpu/ops/pallas_ell.py:196 (none of its own: the live-slot "
+                     "counts the world relax stops at)",
+         "launches": main_launches["ell_live_slots"],
+         "max_abs_err": max_err["ell_live_slots"],
+         "ms": worlds_rows["10k"]["live_pass_ms"],
+         "plain_ms": worlds_rows["10k"]["live_pass_plain_ms"],
+         "bound_ms": worlds_rows["10k"]["live_pass_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "call_ms": worlds_rows["10k"]["live_pass_call_ms"],
+         "shape": worlds_rows["10k"]["shape"], "match": True,
+         "at_1008": {"shape": worlds_rows["1008"]["shape"],
+                     "ms": worlds_rows["1008"]["live_pass_ms"],
+                     "plain_ms": worlds_rows["1008"]["live_pass_plain_ms"],
+                     "bound_ms": worlds_rows["1008"]["live_pass_bound_ms"],
+                     "call_ms": worlds_rows["1008"]["live_pass_call_ms"]}},
         {"name": "ell_band_relax_masked", "route": "cuda",
          "source": f"{csrc}/ell_relax_masked.cu",
          "replaces": "openr_tpu/ops/pallas_ell.py:219",

@@ -32,15 +32,9 @@
 //   loads are contiguous), four at a time with their loads issued before
 //   their uses; __reduce_min_sync joins a warp's lanes and shared memory
 //   the warps of a row.
-// A world axis (openr_ell_band_relax_worlds): B independent graphs, each
-// with its own d [S, n], src / w [n, k] and overloaded [n], relaxed as one
-// uniform band at pos = 0 in one launch (the tenant plane's
-// [B, n_slot, k_slot] blocks; the reference batches the Pallas kernel
-// through pallas_call's vmap rule). The world is blockIdx.z and each
-// operand steps by its per-world stride (size_t: B * S * n outgrows an
-// int); the single-graph entry point is the same bodies with one world.
-// Padding rows of a uniform block (self-loops at w = INF) are relaxed like
-// any other row: their slots are read and gathered, and change nothing.
+// The bodies step each operand by a per-world stride over blockIdx.z; the
+// entry point launches one world. (The tenant plane's world axis has a
+// kernel of its own, designed for its uniform blocks: ell_relax_worlds.cu.)
 // Either body writes straight into column pos + j of an output shaped like
 // d: every band of the port's _ell_relax writes its own column slice of one
 // [S, n_pad] output, which replaces the JAX concatenate of band parts. The
@@ -205,32 +199,6 @@ extern "C" int openr_ell_band_relax(const void* d, int S, int n_pad,
   } else {
     rc = launch(d_, 1, S, n_pad, src_, w_, rows, k,
                 static_cast<const uint8_t*>(overloaded), pos, row_threads,
-                out_, st);
-  }
-  return static_cast<int>(rc);
-}
-
-// The world axis: d, out [B, S, n]; src, w [B, n, k]; overloaded [B, n];
-// every row of each world is one uniform band at pos = 0.
-extern "C" int openr_ell_band_relax_worlds(const void* d, int B, int S,
-                                           int n, const void* src,
-                                           const void* w, int k,
-                                           const void* overloaded,
-                                           int ov_is_int32, int row_threads,
-                                           void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* d_ = static_cast<const int32_t*>(d);
-  const int32_t* src_ = static_cast<const int32_t*>(src);
-  const int32_t* w_ = static_cast<const int32_t*>(w);
-  int32_t* out_ = static_cast<int32_t*>(out);
-  cudaError_t rc;
-  if (ov_is_int32) {
-    rc = launch(d_, B, S, n, src_, w_, n, k,
-                static_cast<const int32_t*>(overloaded), 0, row_threads,
-                out_, st);
-  } else {
-    rc = launch(d_, B, S, n, src_, w_, n, k,
-                static_cast<const uint8_t*>(overloaded), 0, row_threads,
                 out_, st);
   }
   return static_cast<int>(rc);

@@ -22,6 +22,7 @@ LAUNCHES: Dict[str, int] = {
     "minplus": 0,
     "ell_band_relax": 0,
     "ell_band_relax_masked": 0,
+    "ell_live_slots": 0,
     "rev_band_relax": 0,
     "batched_minplus": 0,
     "batched_minplus_t": 0,

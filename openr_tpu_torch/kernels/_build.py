@@ -23,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -48,11 +48,15 @@ SIGNATURES: Dict[str, List] = {
     "openr_ell_band_relax": [
         _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P,
     ],
-    # d [B, S, n], B, S, n, src, w [B, n, k], k, overloaded [B, n],
-    # ov_is_int32, row_threads, out, stream
+    # d [B, S, n], B, S, n, src, w [B, n, k], k, overloaded [B, n] bytes,
+    # live [B, n], run, tile_rows, slab, out, stream
     "openr_ell_band_relax_worlds": [
-        _P, _I, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P,
+        _P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
     ],
+    # w [rows, k], rows, k, live [rows], stream
+    "openr_ell_live_slots": [_P, _I, _I, _P, _P],
+    # device
+    "openr_ell_relax_worlds_init": [_I],
     # d, S, n_pad, src, w, mask (packed int32 words), rows, k, overloaded,
     # ov_is_int32, pos, kmax, group, row_threads, chunk, out, stream
     "openr_ell_band_relax_masked": [
@@ -79,6 +83,8 @@ SIGNATURES: Dict[str, List] = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# devices whose kernels may take more than 48 KB of shared memory
+_smem_ready: Set[int] = set()
 # what the last build in this process did: seconds, whether it
 # compiled or found a current library, and the ptxas report
 BUILD_INFO: Dict[str, object] = {}
@@ -169,7 +175,8 @@ def build(force: bool = False) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. Loading it also
+    readies the current CUDA device (``allow_large_smem``)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -179,7 +186,30 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
+            import torch
+
+            if torch.cuda.is_available():
+                _allow_large_smem(lib, torch.cuda.current_device())
         return _lib
+
+
+def _allow_large_smem(lib: ctypes.CDLL, index: int) -> None:
+    if index not in _smem_ready:
+        check(lib.openr_ell_relax_worlds_init(index), "openr_ell_relax_worlds_init")
+        _smem_ready.add(index)
+
+
+def allow_large_smem(index: int) -> None:
+    """Let the kernels that take more than 48 KB of shared memory (the
+    world relax's) have it on CUDA device ``index``: a
+    ``cudaFuncSetAttribute`` once a device, which a stream capture must
+    not see, so the library's load does it for the current device and a
+    wrapper for any other before its first launch there."""
+    if index in _smem_ready:
+        return
+    lib = library()
+    with _lock:
+        _allow_large_smem(lib, index)
 
 
 def check(rc: int, name: str) -> None:

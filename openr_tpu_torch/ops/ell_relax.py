@@ -5,13 +5,15 @@ and ``::ell_band_relax_masked``, and of ``ell_band_relax`` batched over a
 tenant axis by ``pallas_call``'s vmap rule (the reference's
 ``spf_sparse._uniform_relax`` under ``vmap``): ``ell_band_relax_worlds``,
 one uniform band covering every row of each of B worlds, in one launch of
-the same kernel with the world on the grid's third axis. ``ell_band_relax`` launches the
-hand-written kernel in ``csrc/ell_relax.cu`` and ``ell_band_relax_masked``
-(the KSP2 second-path relax, with a per-batch-row edge mask) the one in
-``csrc/ell_relax_masked.cu`` on CUDA tensors; each runs its ``*_plain``
-version on CPU tensors. There is no fallback from one to the other. The
-reversed-graph variant of the same Pallas module (the route sweep's
-``rev_band_relax``) is ``ops/rev_relax.py``.
+a kernel of its own that walks each row's live slots only (``live_slots``
+counts them). ``ell_band_relax`` launches the hand-written kernel in
+``csrc/ell_relax.cu``, ``ell_band_relax_masked`` (the KSP2 second-path
+relax, with a per-batch-row edge mask) the one in
+``csrc/ell_relax_masked.cu`` and ``ell_band_relax_worlds`` and
+``live_slots`` those in ``csrc/ell_relax_worlds.cu`` on CUDA tensors; each
+runs its ``*_plain`` version on CPU tensors. There is no fallback from one
+to the other. The reversed-graph variant of the same Pallas module (the
+route sweep's ``rev_band_relax``) is ``ops/rev_relax.py``.
 
 The masked relax takes its edge mask bit-packed (``pack_edge_mask``):
 int32 words ``[S, ceil(rows * k / 32)]`` per band, the bit of band row
@@ -22,7 +24,7 @@ of word ``(j * k + slot) >> 5`` of row ``s``; where the JAX package's
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,41 +69,97 @@ MASKED_WIDE_MIN_BLOCKS = 2 * 132
 
 class EllPlan(NamedTuple):
     """How one band launches: ``wide`` body or not, threads a (s, j) row
-    (``row_threads``, 1 for the narrow body), band rows a block, the grid
-    ``(band-row tiles, batch rows)``, and the worlds on the grid's third
-    axis (1 but for ``ell_band_relax_worlds``)."""
+    (``row_threads``, 1 for the narrow body), band rows a block and the
+    grid ``(band-row tiles, batch rows)``."""
 
     wide: bool
     row_threads: int
     rows_per_block: int
     grid: Tuple[int, int]
-    worlds: int = 1
 
 
-def launch_plan(s: int, rows: int, k: int, variant: str = "plan",
-                worlds: int = 1) -> EllPlan:
+def launch_plan(s: int, rows: int, k: int, variant: str = "plan") -> EllPlan:
     """The launch of one band of ``rows`` band rows with ``k`` slots over
-    ``s`` batch rows (both >= 1, ``s`` within the grid's y limit) in each
-    of ``worlds`` worlds (within the grid's z limit) by the rule above the
-    class: the warps of every world count toward ``TARGET_WARPS``. The
-    autotuner's variants ``threadsX`` (family "ell_relax") give a wide
-    band's row X threads instead; its other variants leave the plan as it
-    is."""
-    if (s < 1 or rows < 1 or k < 0 or s > GRID_Y_MAX or worlds < 1
-            or worlds > GRID_Y_MAX):
-        raise ValueError(
-            f"ell_band_relax plan: s={s}, rows={rows}, k={k}, worlds={worlds}")
+    ``s`` batch rows (both >= 1, ``s`` within the grid's y limit) by the
+    rule above the class. The autotuner's variants ``threadsX`` (family
+    "ell_relax") give a wide band's row X threads instead; its other
+    variants leave the plan as it is."""
+    if s < 1 or rows < 1 or k < 0 or s > GRID_Y_MAX:
+        raise ValueError(f"ell_band_relax plan: s={s}, rows={rows}, k={k}")
     if k < WIDE_K:
-        return EllPlan(False, 1, NARROW_ROWS, (-(-rows // NARROW_ROWS), s), worlds)
+        return EllPlan(False, 1, NARROW_ROWS, (-(-rows // NARROW_ROWS), s))
     threads = MIN_ROW_THREADS
     while (threads < WIDE_THREADS
-           and worlds * s * rows * threads // 32 < TARGET_WARPS
+           and s * rows * threads // 32 < TARGET_WARPS
            and k >= MIN_SLOTS * 2 * threads):
         threads *= 2
     if variant.startswith("threads"):
         threads = int(variant[7:])
     per = WIDE_THREADS // threads
-    return EllPlan(True, threads, per, (-(-rows // per), s), worlds)
+    return EllPlan(True, threads, per, (-(-rows // per), s))
+
+
+# ell_band_relax_worlds' launch (csrc/ell_relax_worlds.cu): a block of
+# WORLDS_THREADS threads relaxes a tile of up to WORLDS_TILE_MAX rows of one
+# world for a run of up to WORLDS_RUN_MAX batch rows, the run's distance rows
+# (its slab) and the world's overload bytes in shared memory, beside a list
+# of the tile's wide rows (more than WORLDS_WIDE_LIVE live slots, a warp
+# each). The run is the longest that fits WORLDS_SMEM_MAX bytes (without a
+# slab where one row does not fit: gathers from device memory), evened out
+# over the runs S takes; the rows are cut into tiles, a multiple of a warp,
+# while the grid holds fewer blocks than an H100 has SMs (WORLDS_SMS): a
+# tile reloads its run's slab. (Chosen among runs of 4 to 32 and tiles of
+# 256 to 4096 rows by their device times on an H100 at the tenant plane's
+# shapes: runs of 16 beat 32 by 5-15 % at S = 32 and 64.)
+WORLDS_THREADS = 512
+WORLDS_RUN_MAX = 16
+WORLDS_WIDE_LIVE = 32
+WORLDS_TILE_MAX = 4096
+WORLDS_SMEM_MAX = 227 * 1024 - 1024
+WORLDS_SMS = 132
+
+
+class WorldsPlan(NamedTuple):
+    """How ``ell_band_relax_worlds`` launches: the run's distance rows in
+    shared memory or not (``slab``), batch rows a run, rows a tile, the
+    block's dynamic shared memory and the grid ``(row tiles, runs,
+    worlds)``."""
+
+    slab: bool
+    run: int
+    tile_rows: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def worlds_smem(slab: bool, run: int, n: int, tile_rows: int) -> int:
+    """A block's dynamic shared memory: the slab ``[run, n]`` int32 and the
+    overload bytes ``[n]`` (with a slab), then the wide-row list."""
+    return (_align16(4 * run * n) + _align16(n) if slab else 0) + 4 * tile_rows
+
+
+def worlds_plan(b: int, s: int, n: int, k: int) -> WorldsPlan:
+    """The launch of one relax step of ``b`` worlds of ``s`` batch rows
+    over ``[n, k]`` blocks (``b``, ``s`` and ``n`` >= 1, ``b`` within the
+    grid's z limit) by the rule above the class: a function of the
+    shapes alone, so a captured graph replays the same launch. ``k`` does
+    not change it: a row's work is its live slots."""
+    if b < 1 or s < 1 or n < 1 or k < 0 or b > GRID_Y_MAX:
+        raise ValueError(f"ell_band_relax_worlds plan: b={b}, s={s}, n={n}, k={k}")
+    fit = (WORLDS_SMEM_MAX - _align16(n) - 4 * WORLDS_TILE_MAX - 16) // (4 * n)
+    slab = fit >= 1
+    run = min(s, WORLDS_RUN_MAX, fit) if slab else min(s, WORLDS_RUN_MAX)
+    runs = -(-s // run)
+    run = -(-s // runs)
+    tiles = max(-(-n // WORLDS_TILE_MAX),
+                min(round(WORLDS_SMS / (b * runs)), -(-n // WORLDS_THREADS)), 1)
+    tile_rows = -(-(-(-n // tiles)) // 32) * 32
+    return WorldsPlan(slab, run, tile_rows, worlds_smem(slab, run, n, tile_rows),
+                      (-(-n // tile_rows), runs, b))
 
 
 class MaskedPlan(NamedTuple):
@@ -398,7 +456,15 @@ def ell_band_relax_masked(
     return view
 
 
-def _check_worlds(d, src, w, overloaded) -> None:
+def _check_live(w, live) -> None:
+    if live.dtype != torch.int32 or tuple(live.shape) != tuple(w.shape[:2]):
+        raise ValueError(f"live slots: {tuple(live.shape)} {live.dtype}, want "
+                         f"int32 {tuple(w.shape[:2])}")
+    if live.device != w.device:
+        raise ValueError(f"live slots on {live.device}, w on {w.device}")
+
+
+def _check_worlds(d, src, w, overloaded, live) -> None:
     if d.dim() != 3 or src.dim() != 3 or src.shape != w.shape:
         raise ValueError(
             f"ell_band_relax_worlds: shapes d {tuple(d.shape)}, src "
@@ -421,6 +487,50 @@ def _check_worlds(d, src, w, overloaded) -> None:
     devices = {d.device, src.device, w.device, overloaded.device}
     if len(devices) != 1:
         raise ValueError(f"ell_band_relax_worlds: operands on {sorted(map(str, devices))}")
+    if live is not None:
+        _check_live(w, live)
+
+
+def live_slots_plain(w: torch.Tensor) -> torch.Tensor:
+    """``[B, n]`` int32: for each row of ``w [B, n, k]``, one past its last
+    slot with a weight below INF (0 for a row with none), in plain torch
+    ops."""
+    if w.dim() != 3 or w.dtype != torch.int32:
+        raise ValueError(f"live slots: w {tuple(w.shape)} {w.dtype}, want int32 [B, n, k]")
+    b, n, k = w.shape
+    if k == 0:
+        return torch.zeros((b, n), dtype=torch.int32, device=w.device)
+    ones = torch.arange(1, k + 1, dtype=torch.int32, device=w.device)
+    return torch.where(w < INF, ones, 0).amax(2).to(torch.int32)
+
+
+def live_slots(w: torch.Tensor) -> torch.Tensor:
+    """The live-slot counts of ``w [B, n, k]`` (``live_slots_plain``'s
+    function): a slot at or past its row's count has weight INF, so a
+    relax may stop there. CUDA tensors go through the hand-written kernel
+    (``csrc/ell_relax_worlds.cu``'s ``ell_live_slot_counts``: a warp a
+    row, no ``[B, n, k]`` temporary; current stream, not synchronised);
+    CPU tensors through ``live_slots_plain``. Any other device raises."""
+    if w.device.type == "cpu":
+        return live_slots_plain(w)
+    if w.device.type != "cuda":
+        raise ValueError(f"live slots: no kernel for device {w.device}")
+    if w.dim() != 3 or w.dtype != torch.int32 or not w.is_contiguous():
+        raise ValueError(f"live slots: w {tuple(w.shape)} {w.dtype}, want "
+                         "contiguous int32 [B, n, k]")
+    from openr_tpu_torch.kernels import _build
+
+    b, n, k = w.shape
+    live = torch.empty((b, n), dtype=torch.int32, device=w.device)
+    if b * n == 0:
+        return live
+    lib = _build.library()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = lib.openr_ell_live_slots(w.data_ptr(), b * n, k, live.data_ptr(), stream)
+    _build.check(rc, "ell_live_slots")
+    note_launch("ell_live_slots")
+    return live
 
 
 def ell_band_relax_worlds_plain(
@@ -428,17 +538,24 @@ def ell_band_relax_worlds_plain(
     src: torch.Tensor,
     w: torch.Tensor,
     overloaded: torch.Tensor,
+    live: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``[B, S, n]``: for each world ``b``, ``min(d[b], min_slot
     min(d[b, :, src[b, j, slot]] + w_eff[b, j, slot], INF))`` with
-    ``w_eff = INF`` where ``overloaded[b, src[b, j, slot]]``: a batched
-    gather in plain torch ops. ``src`` holds node ids < n."""
-    _check_worlds(d, src, w, overloaded)
+    ``w_eff = INF`` where ``overloaded[b, src[b, j, slot]]``, and with
+    ``live [B, n]`` given also at every slot at or past ``live[b, j]``: a
+    batched gather in plain torch ops. ``src`` holds node ids < n."""
+    _check_worlds(d, src, w, overloaded, live)
     b, s, n = d.shape
     k = src.shape[2]
+    if k == 0:
+        return d.clone()
     idx = src.long().reshape(b, n * k)
     ov = torch.gather(overloaded, 1, idx).reshape(b, n, k)
     w_eff = w.masked_fill(ov != 0, INF)
+    if live is not None:
+        slots = torch.arange(k, dtype=torch.int32, device=w.device)
+        w_eff.masked_fill_(slots >= live[:, :, None], INF)
     gathered = torch.gather(d, 2, idx[:, None, :].expand(b, s, n * k))
     relaxed = (gathered.view(b, s, n, k) + w_eff[:, None]).clamp_max_(INF).amin(3)
     return torch.minimum(d, relaxed)
@@ -449,30 +566,36 @@ def ell_band_relax_worlds(
     src: torch.Tensor,
     w: torch.Tensor,
     overloaded: torch.Tensor,
+    live: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One relax step of B worlds, each one uniform band covering all its
     rows (``pos = 0``): distance rows ``d [B, S, n]``, slots ``src``/``w
-    [B, n, k]``, ``overloaded [B, n]`` bool, uint8 or int32 0/1. Returns
-    a new ``[B, S, n]``. Slot ids are not range-checked: they must lie in
-    ``[0, n)``, as ``spf_sparse.ell_pack_uniform`` makes them.
+    [B, n, k]``, ``overloaded [B, n]`` bool, uint8 or int32 0/1, and the
+    rows' live-slot counts ``live [B, n]`` int32 (``live_slots(w)``; run
+    here when None). Returns a new ``[B, S, n]``. Slot ids are not
+    range-checked: they must lie in ``[0, n)``, as
+    ``spf_sparse.ell_pack_uniform`` makes them.
 
     CUDA tensors go through the hand-written kernel
-    (``openr_ell_band_relax_worlds``, one launch for every world, current
-    stream, not synchronised, as ``launch_plan(..., worlds=B)`` says); CPU
-    tensors through ``ell_band_relax_worlds_plain``. Any other device
-    raises."""
-    _check_worlds(d, src, w, overloaded)
+    (``csrc/ell_relax_worlds.cu``'s ``openr_ell_band_relax_worlds``, one
+    launch for every world, current stream, not synchronised, as
+    ``worlds_plan`` says); CPU tensors through
+    ``ell_band_relax_worlds_plain``. Any other device raises."""
+    _check_worlds(d, src, w, overloaded, live)
     if d.device.type == "cpu":
-        return ell_band_relax_worlds_plain(d, src, w, overloaded)
+        return ell_band_relax_worlds_plain(d, src, w, overloaded, live)
     if d.device.type != "cuda":
         raise ValueError(f"ell_band_relax_worlds: no kernel for device {d.device}")
     from openr_tpu_torch.kernels import _build
 
-    if overloaded.dtype == torch.bool:
-        overloaded = overloaded.view(torch.uint8)
-    for name, t in (("d", d), ("src", src), ("w", w), ("overloaded", overloaded)):
-        if not t.is_contiguous():
+    for name, t in (("d", d), ("src", src), ("w", w), ("overloaded", overloaded),
+                    ("live", live)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"ell_band_relax_worlds: {name} must be contiguous")
+    # the kernel takes the bits as bytes: int32 ones become bytes here, once
+    if overloaded.dtype == torch.int32:
+        overloaded = overloaded.ne(0)
+    overloaded = overloaded.view(torch.uint8)
     b, s, n = d.shape
     k = src.shape[2]
     out = torch.empty_like(d)
@@ -481,14 +604,17 @@ def ell_band_relax_worlds(
     # the "ell_relax" autotune family is measured on the banded kernels
     # only, so its winner does not reach the world shapes unmeasured
     _variant("ell_band_relax_worlds")  # refuses "plain" on the card
-    plan = launch_plan(s, n, k, worlds=b)
+    plan = worlds_plan(b, s, n, k)
+    if live is None:
+        live = live_slots(w)
     lib = _build.library()
+    _build.allow_large_smem(d.device.index)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         rc = lib.openr_ell_band_relax_worlds(
             d.data_ptr(), b, s, n, src.data_ptr(), w.data_ptr(), k,
-            overloaded.data_ptr(), int(overloaded.dtype == torch.int32),
-            plan.row_threads, out.data_ptr(), stream,
+            overloaded.data_ptr(), live.data_ptr(), plan.run, plan.tile_rows,
+            int(plan.slab), out.data_ptr(), stream,
         )
     _build.check(rc, "ell_band_relax_worlds")
     note_launch("ell_band_relax")

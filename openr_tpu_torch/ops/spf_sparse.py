@@ -45,7 +45,8 @@ readbacks land in pinned host memory (``ops.staging.Readback``), where the
 reference kicks an async copy and reaps it. The tenant plane's
 uniform blocks: ``ell_pack_uniform``, ``ell_uniform_rows``,
 ``_uniform_relax`` (through ``ell_relax.ell_band_relax_worlds``, the
-kernel with a world axis), ``_uniform_direct``, ``_tenant_view_solve``
+kernel with a world axis, over the rows' live slots that
+``ell_relax.live_slots`` counts once a dispatch), ``_uniform_direct``, ``_tenant_view_solve``
 (written batched over the tenant axis, where the reference maps one
 tenant's solve under ``vmap``) and ``world_view_solve`` (the
 reference's unfused entry, which only the tests call: the package runs
@@ -83,6 +84,7 @@ from openr_tpu_torch.ops.ell_relax import (
     ell_band_relax,
     ell_band_relax_masked,
     ell_band_relax_worlds,
+    live_slots,
     mask_words,
 )
 from openr_tpu_torch.ops.minplus import INF
@@ -1406,14 +1408,15 @@ def ell_uniform_rows(graph: EllGraph, ids, k_slot: int) -> Tuple[np.ndarray, np.
     return src, w
 
 
-def _uniform_relax(d, src, w, overloaded) -> torch.Tensor:
+def _uniform_relax(d, src, w, overloaded, live) -> torch.Tensor:
     """One masked relaxation of B worlds over their uniform blocks:
-    ``d [B, S, N]``, ``src``/``w [B, N, K]``, ``overloaded [B, N]`` ->
+    ``d [B, S, N]``, ``src``/``w [B, N, K]``, ``overloaded [B, N]``, the
+    rows' live-slot counts ``live [B, N]`` (``ell_relax.live_slots``) ->
     ``[B, S, N]``, through ``ell_relax.ell_band_relax_worlds`` (one
-    uniform band covering every row of each world; the reference runs
-    ``ell_band_relax`` under ``vmap``). Edges originating at overloaded
-    nodes never extend paths."""
-    return ell_band_relax_worlds(d, src, w, overloaded)
+    uniform band covering every row of each world, its padding past each
+    row's live slots skipped; the reference runs ``ell_band_relax`` under
+    ``vmap``). Edges originating at overloaded nodes never extend paths."""
+    return ell_band_relax_worlds(d, src, w, overloaded, live)
 
 
 def _uniform_direct(src, w, srcs) -> torch.Tensor:
@@ -1464,15 +1467,18 @@ def _tenant_view_solve(src, w, overloaded, srcs, p_rows, p_src, p_w,
     src = _scatter_rows_drop(src, p_rows, p_src)
     w = _scatter_rows_drop(w, p_rows, p_w)
     w_sv = _uniform_direct(src, w, srcs)
+    # every relax of the dispatch stops at each row's last live slot,
+    # counted once here, after the patch
+    live = live_slots(w)
     b, s = srcs.shape
     unit = torch.full((b, s, n), INF, dtype=torch.int32, device=src.device)
     unit.scatter_(2, srcs.long()[:, :, None], 0)
     # init rows: one UNMASKED relax (overloaded sources still originate)
-    d0 = _uniform_relax(unit, src, w, torch.zeros_like(overloaded))
+    d0 = _uniform_relax(unit, src, w, torch.zeros_like(overloaded), live)
     seed = _warm_seed(d_prev, inc_t, inc_h, inc_w, d0)
 
     def step(x):
-        return _uniform_relax(x, src, w, overloaded)
+        return _uniform_relax(x, src, w, overloaded, live)
 
     if budget is None:
         d, _ = relax_loop.fixed_point(step, seed, n)

@@ -475,3 +475,31 @@ def _rehearse_tenant_phases(chip_smoke, cpu) -> None:
                            fib_tenants=1, require_joins=False, phase="serve-rehearsal")
     chip_smoke.fleet_phase(cpu, nodes=60, tenants=3, rounds=5, migrate_at=1, promote_at=3,
                            phase="fleet-rehearsal")
+
+
+def test_chip_smoke_worlds_kernel_row_rehearsed_on_the_cpu():
+    """``chip_smoke.worlds_kernel_row`` (the world relax and its live pass
+    in the ``kernels`` phase) on a small fabric on the CPU: its checks
+    run through the plain versions, the plan and the bounds are reported,
+    and the bound over the walked slots lies under the padded one."""
+    import chip_smoke
+
+    from openr_tpu_torch.graph.linkstate import LinkState
+    from openr_tpu_torch.models import topologies
+    from openr_tpu_torch.ops import spf_sparse
+
+    ls, _ = chip_smoke._fabric_ls(topologies, LinkState, 120)
+    graph = spf_sparse.compile_ell(ls)
+    seen = []
+
+    def compare(name, got, want, what):
+        seen.append(name)
+        assert got.shape == want.shape and torch.equal(got, want), (name, what)
+
+    row = chip_smoke.worlds_kernel_row(torch, torch.device("cpu"), graph, 3, 5,
+                                       np.random.default_rng(1), compare)
+    assert seen == ["ell_live_slots", "ell_band_relax", "ell_band_relax"]
+    assert row["shape"]["B"] == 3 and row["plan"]["grid"][2] == 3
+    assert 0 < row["slots_walked_per_world"] <= row["live_slots_per_world"]
+    assert row["bound_ms"] < row["padded_bound_ms"] and row["bound_by"] == "bytes"
+    assert "ms" not in row  # no device time without the card

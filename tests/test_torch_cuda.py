@@ -135,27 +135,134 @@ def test_ell_band_relax_wide_kernel_matches_plain(card, k, s, rows, mask_dtype):
     assert (out[:, :pos] == -1).all() and (out[:, pos + rows :] == -1).all()
 
 
+def _holed_worlds(rng, worlds, s, n, k, hole=0.2):
+    """Ragged world blocks: each world's rows past a random count and its
+    slots past a random width are self-loop INF padding (as
+    ell_pack_uniform makes them), INF holes inside the rows' live
+    prefixes, rows whose last slot is live, and all-padding rows."""
+    d = _mat(rng, (worlds, s, n), 0.3)
+    src = rng.integers(0, n, (worlds, n, k)).astype(np.int32)
+    w = rng.integers(0, 1000, (worlds, n, k)).astype(np.int32)
+    for x in range(worlds):
+        rows, slots = int(rng.integers(1, n + 1)), int(rng.integers(1, k + 1))
+        src[x, rows:] = np.arange(rows, n)[:, None]
+        w[x, rows:] = INF
+        w[x, :, slots:] = INF
+    w[rng.random(w.shape) < hole] = INF
+    w[:, : n // 4, -1] = 5  # the last slot live
+    w[:, n // 2 : n // 2 + 3] = INF  # all-padding rows
+    return d, torch.from_numpy(src), torch.from_numpy(w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("worlds,s,n,k", [(1, 1, 40, 3), (3, 8, 300, 9), (7, 13, 257, 33),
-                                          (64, 64, 1024, 64), (4, 8, 2048, 1024), (2, 5, 129, 1500)])
+                                          (64, 64, 1024, 64), (64, 8, 1024, 64),
+                                          (64, 32, 1024, 64), (4, 8, 16384, 1024),
+                                          (4, 8, 2048, 1024), (2, 5, 129, 1500),
+                                          (5, 2, 129, 200), (4, 8, 1000, 1024),
+                                          (2, 3, 70_000, 8)])
 @pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
 def test_ell_band_relax_worlds_kernel_matches_plain(card, worlds, s, n, k, mask_dtype):
     """The world axis (the tenant plane's uniform blocks): one launch for
-    every world, each with its own slots and overload bits, equal to the
-    batched gather and to a loop of single-world plain calls."""
+    every world, each with its own slots and overload bits, over each
+    row's live slots only; equal to the batched gather with and without
+    the counts, and to a loop of single-world plain calls. The counts are
+    the live pass's, given and computed by the wrapper. At n = 70 000 a
+    distance row does not fit in shared memory: the gathers read device
+    memory (the plan's ``slab`` False)."""
+    assert ell_relax.worlds_plan(worlds, s, n, k).slab == (n < 50_000)
     rng = np.random.default_rng(worlds * 100 + s * 10 + k)
-    d = _mat(rng, (worlds, s, n), 0.3).to(card)
-    src = torch.from_numpy(rng.integers(0, n, (worlds, n, k)).astype(np.int32)).to(card)
-    w = _mat(rng, (worlds, n, k), 0.2).to(card)
+    d, src, w = (t.to(card) for t in _holed_worlds(rng, worlds, s, n, k))
     ov = torch.from_numpy(rng.random((worlds, n)) < 0.1).to(card).to(mask_dtype)
     want = ell_relax.ell_band_relax_worlds_plain(d, src, w, ov)
-    got = ell_relax.ell_band_relax_worlds(d, src, w, ov)
+    live = ell_relax.live_slots(w)
     torch.cuda.synchronize()
-    assert LAUNCHES["ell_band_relax"] == 1
+    assert LAUNCHES["ell_live_slots"] == 1 and LAUNCHES["ell_band_relax"] == 0
+    assert torch.equal(live, ell_relax.live_slots_plain(w))
+    assert torch.equal(ell_relax.ell_band_relax_worlds_plain(d, src, w, ov, live), want)
+    got = ell_relax.ell_band_relax_worlds(d, src, w, ov, live)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax"] == 1 and LAUNCHES["ell_live_slots"] == 1
     assert torch.equal(got, want)
+    computed = ell_relax.ell_band_relax_worlds(d, src, w, ov)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ell_band_relax"] == 2 and LAUNCHES["ell_live_slots"] == 2
+    assert torch.equal(computed, want)
     for x in range(worlds):
         one = ell_relax.ell_band_relax_plain(d[x], src[x], w[x], ov[x], 0)
         assert torch.equal(got[x], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 33, 64, 1024, 1500])
+def test_live_slots_kernel_matches_plain(card, k):
+    """The live pass, 16-byte loads (k % 4 == 0) and scalar ones, on rows
+    with INF holes, a live last slot and no live slot; a w off a 16-byte
+    boundary takes the scalar loads."""
+    rng = np.random.default_rng(k)
+    flat = _mat(rng, (3 * 37 * k + 1,), 0.5).to(card)
+    flat[: 37 * k + 1] = INF  # world 0 has no live slot in either view
+    for w in (flat[:-1].view(3, 37, k), flat[1:].view(3, 37, k)):
+        reset_launches()
+        got = ell_relax.live_slots(w)
+        torch.cuda.synchronize()
+        assert LAUNCHES["ell_live_slots"] == 1
+        assert torch.equal(got, ell_relax.live_slots_plain(w))
+        assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_tenant_view_solve_replayed_as_a_graph_equals_eager(card, mask_dtype):
+    """A whole ``_tenant_view_solve`` body (patch scatter, live pass, the
+    relax's hop budget, first hops) captured into a CUDA graph and
+    replayed on new inputs equals the body run eagerly on them."""
+    from openr_tpu_torch.ops import spf_sparse
+
+    b, s, n, k, p, e = 3, 8, 256, 16, 4, 8
+
+    def inputs(seed):
+        g = np.random.default_rng(seed)
+        _, src, w = _holed_worlds(g, b, s, n, k, hole=0.1)
+        ov = torch.from_numpy(g.random((b, n)) < 0.05).to(mask_dtype)
+        srcs = torch.from_numpy(g.integers(0, n, (b, s)).astype(np.int32))
+        p_rows = torch.full((b, p), n, dtype=torch.int32)
+        p_rows[:, :2] = torch.from_numpy(g.integers(0, n, (b, 2)).astype(np.int32))
+        p_src = torch.from_numpy(g.integers(0, n, (b, p, k)).astype(np.int32))
+        p_w = torch.from_numpy(g.integers(1, 60, (b, p, k)).astype(np.int32))
+        p_w[:, 0, k // 2 :] = INF
+        inc_t = torch.zeros((b, e), dtype=torch.int32)
+        inc_h = torch.zeros((b, e), dtype=torch.int32)
+        inc_w = torch.full((b, e), INF, dtype=torch.int32)
+        inc_w[:, 0] = 0  # the cold sentinel: every row reset
+        d_prev = torch.full((b, s, n), INF, dtype=torch.int32)
+        return [t.to(card) for t in (src, w, ov, srcs, p_rows, p_src, p_w,
+                                     inc_t, inc_h, inc_w, d_prev)]
+
+    budget = 32
+    static = inputs(1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spf_sparse._tenant_view_solve(*static, budget=budget)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = spf_sparse._tenant_view_solve(*static, budget=budget)
+    for seed in (2, 3):
+        fresh = inputs(seed)
+        for dst, src_t in zip(static, fresh):
+            dst.copy_(src_t)
+        reset_launches()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert LAUNCHES["ell_band_relax"] == 0  # a replay launches nothing new
+        want = spf_sparse._tenant_view_solve(*fresh, budget=budget)
+        torch.cuda.synchronize()
+        assert LAUNCHES["ell_live_slots"] == 1 and LAUNCHES["ell_band_relax"] == budget + 1
+        assert int(want[-1][1]) == 1  # converged within the budget
+        for got, exp in zip(outs, want):
+            assert torch.equal(got, exp)
 
 
 # run lengths: the plan's own, and (through its least blocks) the

@@ -53,8 +53,8 @@ def _no_launches():
     reset_launches()
     yield
     assert set(LAUNCHES) == {
-        "minplus", "ell_band_relax", "ell_band_relax_masked", "rev_band_relax",
-        "batched_minplus", "batched_minplus_t",
+        "minplus", "ell_band_relax", "ell_band_relax_masked", "ell_live_slots",
+        "rev_band_relax", "batched_minplus", "batched_minplus_t",
     }
     assert all(count == 0 for count in LAUNCHES.values()), LAUNCHES
 

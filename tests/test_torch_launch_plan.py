@@ -1,7 +1,8 @@
 """The launch plans of the port's redesigned CUDA kernels.
 
 ``ell_relax.launch_plan`` (``csrc/ell_relax.cu``), ``ell_relax.masked_plan``
-(``csrc/ell_relax_masked.cu``), ``rev_relax.launch_plan``
+(``csrc/ell_relax_masked.cu``), ``ell_relax.worlds_plan``
+(``csrc/ell_relax_worlds.cu``, the tenant plane's world relax), ``rev_relax.launch_plan``
 (``csrc/rev_relax.cu``), ``minplus.minplus_plan`` (``csrc/minplus.cu``),
 ``grouped_minplus.minplus_plan`` and ``grouped_minplus.minplus_t_plan``
 (``csrc/grouped_minplus.cu``, ``batched_minplus`` and
@@ -155,6 +156,70 @@ def test_ell_plan_fills_the_card_at_the_sparse_bands():
     spine = er.launch_plan(8, 16, 1024)
     assert spine.wide and spine.row_threads == 256 and spine.grid == (16, 8)
     assert not er.launch_plan(8, 2496, 16).wide
+
+
+# (B, S, n, k) of the world relax: the tenant plane's two shapes (64
+# vantage worlds of the 1008-node fabric at its three source buckets; 4
+# areas of the 10 000-node one), S of 1 to 13 off any run, n off a tile or
+# a warp, k not a power of two, and an n whose slab row does not fit
+WORLDS_SHAPES = sorted(
+    {(64, s, 1024, 64) for s in (8, 32, 64)}
+    | {(4, 8, 16384, 1024)}
+    | {(b, s, n, k) for b in (1, 4, 64) for s in range(1, 14)
+       for n, k in ((1024, 64), (16384, 1024), (257, 1500))}
+    | {(1, 1, 1, 0), (3, 300, 70_000, 8), (2, 40, 32_768, 16), (65535, 2, 33, 3)}
+)
+
+
+@pytest.mark.parametrize("b,s,n,k", WORLDS_SHAPES)
+def test_worlds_plan_covers_each_output_once_within_the_limits(b, s, n, k):
+    plan = er.worlds_plan(b, s, n, k)
+    tiles, runs, worlds = plan.grid
+    assert worlds == b <= GRID_YZ_MAX and 1 <= runs <= GRID_YZ_MAX
+    assert 1 <= tiles <= GRID_X_MAX
+    # a run takes at most S batch rows, at most WORLDS_RUN_MAX (the
+    # kernel's largest register run, 16), and the runs cover S once, none
+    # empty
+    assert 1 <= plan.run <= min(s, er.WORLDS_RUN_MAX) and er.WORLDS_RUN_MAX == 16
+    run0 = np.arange(runs) * plan.run
+    assert (_cover(s, run0, run0 + plan.run) == 1).all() and run0[-1] < s
+    # tiles of whole warps, at most WORLDS_TILE_MAX rows: each row once
+    assert plan.tile_rows % 32 == 0 and plan.tile_rows <= er.WORLDS_TILE_MAX
+    row0 = np.arange(tiles) * plan.tile_rows
+    assert (_cover(n, row0, row0 + plan.tile_rows) == 1).all() and row0[-1] < n
+    # the block's shared memory: the slab of the run's rows and the
+    # overload bytes where a slab row fits, always the wide-row list; within
+    # what a block may ask for (227 KB less the static part)
+    assert plan.smem_bytes == er.worlds_smem(plan.slab, plan.run, n, plan.tile_rows)
+    assert plan.smem_bytes <= er.WORLDS_SMEM_MAX < 227 * 1024
+    assert plan.smem_bytes >= 4 * plan.tile_rows + (4 * plan.run * n + n if plan.slab else 0)
+    assert plan.slab == (4 * n + n + 4 * er.WORLDS_TILE_MAX + 16 <= er.WORLDS_SMEM_MAX)
+
+
+def test_worlds_plan_at_the_tenant_shapes():
+    """The spine bucket at 1008 nodes: four runs of 16 rows of 4 KB (64 KB
+    of slab), 64 x 4 blocks of all 1024 rows; the fabric bucket two runs,
+    the rack bucket one run and two tiles; the 10 000-node areas: runs of
+    3 rows of 64 KB, the rows cut into tiles until the grid is a wave."""
+    spine = er.worlds_plan(64, 64, 1024, 64)
+    assert spine.slab and spine.run == 16 and spine.grid == (1, 4, 64)
+    assert 64 * 1024 < spine.smem_bytes < 2 * 64 * 1024
+    assert er.worlds_plan(64, 32, 1024, 64).grid == (1, 2, 64)
+    rack = er.worlds_plan(64, 8, 1024, 64)
+    assert rack.run == 8 and rack.grid == (2, 1, 64)
+    areas = er.worlds_plan(4, 8, 16384, 1024)
+    assert areas.slab and areas.run == 3 and areas.grid[1:] == (3, 4)
+    assert SMS * 0.9 <= math.prod(areas.grid) <= SMS * 1.1
+    assert 3 * 64 * 1024 < areas.smem_bytes <= er.WORLDS_SMEM_MAX
+    # the plan reads shapes only: k does not move it
+    assert er.worlds_plan(4, 8, 16384, 16) == areas
+
+
+@pytest.mark.parametrize("args", [(0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 0, 1), (1, 1, 1, -1),
+                                  (65536, 1, 1, 1)])
+def test_worlds_plan_rejects_empty_launches(args):
+    with pytest.raises(ValueError):
+        er.worlds_plan(*args)
 
 
 def _strided_cover(items: int, tile: int, tiles_in_grid: int) -> np.ndarray:

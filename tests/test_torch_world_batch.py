@@ -35,6 +35,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from openr_tpu.decision import spf_solver as jax_solver
 from openr_tpu.decision.prefix_state import PrefixState as JaxPrefixState
@@ -221,15 +223,100 @@ def test_worlds_plain_equals_single_world_loop_and_the_reference_vmap(seed):
 
 
 def test_worlds_plan_counts_every_world():
-    # the wide plan grows a row's threads only while the grid of every
-    # world together lacks warps
-    one = ell_relax.launch_plan(8, 1024, 64)
-    many = ell_relax.launch_plan(8, 1024, 64, worlds=64)
-    assert many.worlds == 64 and one.worlds == 1
-    assert many.row_threads <= one.row_threads
-    assert many.grid == (-(-1024 // many.rows_per_block), 8)
+    # every world is a slice of the grid's third axis, and the row tiles
+    # shrink in number only while the worlds together fill the card
+    one = ell_relax.worlds_plan(1, 8, 1024, 64)
+    many = ell_relax.worlds_plan(64, 8, 1024, 64)
+    assert many.grid[2] == 64 and one.grid[2] == 1
+    assert many.grid[0] <= one.grid[0]
+    assert many.grid[:2] == (-(-1024 // many.tile_rows), -(-8 // many.run))
     with pytest.raises(ValueError):
-        ell_relax.launch_plan(8, 1024, 64, worlds=0)
+        ell_relax.worlds_plan(0, 8, 1024, 64)
+
+
+def _live_loop(w):
+    b, n, k = w.shape
+    out = np.zeros((b, n), dtype=np.int32)
+    for x in range(b):
+        for j in range(n):
+            for slot in range(k):
+                if w[x, j, slot] < INF:
+                    out[x, j] = slot + 1
+    return out
+
+
+def _holed_worlds(seed, b=3, s=5, n=40, k=9):
+    """Ragged worlds with INF holes inside the rows' live prefixes, rows
+    whose last slot is live, all-padding rows and a patched row."""
+    d, src, w, ov = _ragged_worlds(seed, b, s, n, k)
+    rng = np.random.default_rng(seed + 100)
+    w[rng.random(w.shape) < 0.25] = INF  # holes anywhere in a row
+    w[0, 1, -1] = 7  # the last slot live
+    w[0, 1, 0] = INF
+    w[1, :3] = INF  # all-padding rows
+    w[2, 4] = rng.integers(1, 60, k)  # a patched row, every slot live
+    return d, src, w, ov
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_live_slots_plain_equals_a_numpy_loop(seed):
+    _, _, w, _ = _holed_worlds(seed)
+    got = ell_relax.live_slots(torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _live_loop(w))
+    assert int(got[1, 0]) == 0 and int(got[0, 1]) == w.shape[2]
+    empty = ell_relax.live_slots_plain(torch.zeros((2, 3, 0), dtype=torch.int32))
+    assert empty.shape == (2, 3) and not empty.any()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_worlds_plain_with_live_equals_without_and_the_reference(seed):
+    d, src, w, ov = _holed_worlds(seed, k=12 + 5 * seed)
+    ts = [torch.from_numpy(a) for a in (d, src, w, ov)]
+    live = ell_relax.live_slots(ts[2])
+    got = ell_relax.ell_band_relax_worlds(*ts, live)
+    assert torch.equal(got, ell_relax.ell_band_relax_worlds_plain(*ts))
+    want = jax.vmap(lambda *a: jax_sparse._uniform_relax(*a, impl="jnp"))(
+        *(jnp.asarray(a) for a in (d, src, w, ov)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_worlds_plain_stops_at_the_live_count_given():
+    # slots at and past the given count are left out, so a count one
+    # short drops the row's last live edge
+    d, src, w, ov = _holed_worlds(9)
+    ts = [torch.from_numpy(a) for a in (d, src, w, ov)]
+    short = (ell_relax.live_slots(ts[2]) - 1).clamp_min(0)
+    cut = w.copy()
+    cut[np.arange(w.shape[2])[None, None, :] >= short.numpy()[:, :, None]] = INF
+    want = ell_relax.ell_band_relax_worlds_plain(ts[0], ts[1], torch.from_numpy(cut), ts[3])
+    assert torch.equal(ell_relax.ell_band_relax_worlds_plain(*ts, short), want)
+    with pytest.raises(ValueError):
+        ell_relax.ell_band_relax_worlds_plain(*ts, short.long())
+    with pytest.raises(ValueError):
+        ell_relax.ell_band_relax_worlds(*ts, short[:, :-1])
+
+
+@settings(max_examples=25, deadline=None, database=None)
+@given(seed=st.integers(0, 2**31 - 1), b=st.integers(1, 4), s=st.integers(1, 13),
+       n=st.integers(1, 40), k=st.integers(0, 20), hole=st.floats(0.0, 1.0))
+def test_worlds_plain_with_live_on_random_ragged_blocks(seed, b, s, n, k, hole):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 500, (b, s, n)).astype(np.int32)
+    d[rng.random(d.shape) < 0.3] = INF
+    src = rng.integers(0, n, (b, n, k)).astype(np.int32)
+    w = rng.integers(1, 60, (b, n, k)).astype(np.int32)
+    w[rng.random(w.shape) < hole] = INF
+    ov = rng.random((b, n)) < 0.2
+    ts = [torch.from_numpy(a) for a in (d, src, w, ov)]
+    live = ell_relax.live_slots(ts[2])
+    np.testing.assert_array_equal(live.numpy(), _live_loop(w))
+    got = ell_relax.ell_band_relax_worlds(*ts, live)
+    assert torch.equal(got, ell_relax.ell_band_relax_worlds_plain(*ts))
+    if k:
+        want = jax.vmap(lambda *a: jax_sparse._uniform_relax(*a, impl="jnp"))(
+            *(jnp.asarray(a) for a in (d, src, w, ov)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_worlds_wrapper_checks_shapes():
@@ -323,6 +410,31 @@ def test_world_view_solve_equals_the_reference(seed):
     got = port_sparse.world_view_solve(*(torch.from_numpy(a) for a in args))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_world_view_solve_counts_live_slots_after_the_patch(seed):
+    """A patch that gives a row a live slot past its old count (and one
+    that empties a row) is relaxed over: the counts are taken after the
+    scatter, and the solve equals the reference's."""
+    pairs = _mixed(extra_seed=seed)[:4]
+    args, _ = _dispatch_inputs(pairs, seed, cold=True)
+    src, w, p_rows, p_src, p_w = args[0], args[1], args[4], args[5], args[6]
+    k = w.shape[2]
+    for x in range(0, len(pairs), 2):
+        short = [j for j in p_rows[x] if j < w.shape[1] and (w[x, j] == INF).any()]
+        if not short:
+            continue
+        i = list(p_rows[x]).index(short[0])
+        p_src[x, i, -1] = src[x, p_rows[x, i], 0]
+        p_w[x, i, -1] = 3  # live at the block's last slot
+        p_w[x, i + 1, :] = INF  # the next patched row loses every slot
+    assert (p_w[:, :, -1] == 3).any()
+    want = jax_sparse.world_view_solve(*_jax_args(args))
+    got = port_sparse.world_view_solve(*(torch.from_numpy(a) for a in args))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert int(ell_relax.live_slots(got[3]).max()) == k
 
 
 @pytest.mark.parametrize("cap", [4, 64, 1024])
